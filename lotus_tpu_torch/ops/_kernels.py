@@ -1,0 +1,91 @@
+"""Build and bind the port's CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``lotus_tpu_torch/csrc/*.cu`` into one
+shared library with a plain C interface under ``build/lotus_tpu_torch/``
+(beside the package), named by a hash of the sources so an edit never loads
+a stale build.  ``ctypes`` loads it; every pointer and the stream are passed
+as ``c_void_p``.  Nothing here runs at import time: a machine without nvcc
+or a GPU imports the package and uses the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "lotus_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# What the last build printed (ptxas register / spill report) and its seconds.
+build_log = ""
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+
+
+def build() -> Path:
+    """Compile the kernels (once per source hash) and return the library path."""
+    global build_log, build_seconds
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode())
+    lib_path = BUILD_DIR / f"liblotus_tpu_torch_{digest.hexdigest()[:12]}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)], capture_output=True, text=True
+    )
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, lib_path)  # atomic: concurrent builders never load a partial file
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            handle.lotus_ivf_probe.argtypes = [vp] * 9 + [ci] * 7 + [vp]
+            handle.lotus_ivf_probe.restype = ci
+            handle.lotus_cuda_error_string.argtypes = [ci]
+            handle.lotus_cuda_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a launch returned a non-zero ``cudaGetLastError()``."""
+    if code != 0:
+        msg = lib().lotus_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,448 @@
+"""Grouped IVF probe: the counterpart of ``lotus_tpu/ops/pallas_ivf.py``.
+
+The reference runs its one Pallas kernel, ``_probe_kernel``, over work-unit
+tables that XLA builds.  Here plain torch ops build the tables and K1
+(``csrc/ivf_probe.cu``, a CUDA kernel written for sm_90a) does the probe:
+
+1. coarse ranking: exact ``flat_search`` over the centroids (plus the exact
+   q.c bias per probe slot on residual stores);
+2. pair grouping WITHOUT a sort: a (query, list) pair's rank within its list
+   is an exclusive cumsum over the (b, nlist) 0/1 probe histogram (an
+   argsort above b * nlist > 2**26);
+3. the chunk table (list id of every 128-pair chunk, cumsum + searchsorted)
+   and the padded query layout;
+4. K1 (``probe_fold``): per (list, chunk) a top-2 per 64 strided lanes
+   across the whole list, 128 candidates per pair;
+5. reassembly per pair, packed-id decode, residual bias, the pool top-k,
+   dedup on spilled stores only, and the per-query int8 scale;
+6. optional exact f32 rescoring (``ops/ivf.py::rescore_candidates``).
+
+The launch needs no host sync: the grid is the static bound
+``P // QU + nlist + 1`` and blocks past the live chunk count write
+MASK_SCORE.  The reference's experiment knobs that are off by default
+(``_DEBUG_STAGE``, ``POOL_PREREDUCE``, ``CUMSUM_MATMUL``, ``APPROX_TOPK``,
+``COARSE_APPROX``) and its top-1 fold are not carried.
+
+Requires an index built with ``build_ivf(..., block_align=...)``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from lotus_tpu_torch.ops.common import MASK_SCORE, NO_HIT, as_distance, cdiv, dedup_topk
+from lotus_tpu_torch.ops.flat import flat_search
+
+QU = 128  # query slots per chunk
+BL = 1024  # default build alignment (db rows per kernel block)
+BUCKET = 8  # buckets per 512 storage rows -> NBK = 64 lanes, 128 candidates per pair
+NBK = 512 // BUCKET
+NCAND = 2 * NBK  # top-2 fold
+LOCAL_BITS = 13  # packed ids cover probe windows up to 8192 rows
+_LOCAL_MASK = (1 << LOCAL_BITS) - 1
+# Above this many histogram cells the pair grouping takes one stable sort.
+HIST_MAX_CELLS = 1 << 26
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def probe_fold_reference(
+    xq_units: torch.Tensor,
+    xb: torch.Tensor,
+    scales: torch.Tensor | None,
+    norms: torch.Tensor | None,
+    chunk_list: torch.Tensor,
+    list_start: torch.Tensor,
+    list_size: torch.Tensor,
+    *,
+    bl: int,
+    int8_dot: bool,
+    l2: bool,
+    packed: bool,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain PyTorch version of K1: the same scores, masking, packed-id bits
+    and fold order as the kernel (and as ``_probe_kernel``).
+
+    Returns ``(out_s, out_i)`` of shape ``(len(chunk_list), QU, NCAND)``;
+    ``out_i`` is None when ``packed``.  Rows of chunks whose table entry is
+    -1 hold MASK_SCORE (ids 0).
+    """
+    from lotus_tpu_torch.ops.quant import exact_int8_dot
+
+    grid = chunk_list.shape[0]
+    dev = xb.device
+    out_s = torch.full((grid, QU, NCAND), MASK_SCORE, dtype=torch.float32, device=dev)
+    out_i = None if packed else torch.zeros((grid, QU, NCAND), dtype=torch.int32, device=dev)
+    starts, sizes = list_start.cpu().tolist(), list_size.cpu().tolist()
+    for c, lid in enumerate(chunk_list.cpu().tolist()):
+        if lid < 0:
+            continue
+        start, size = starts[lid], sizes[lid]
+        nrows = cdiv(size, bl) * bl
+        if nrows == 0:
+            continue
+        q = xq_units[c * QU : (c + 1) * QU]
+        x = xb[start : start + nrows]
+        if int8_dot:
+            s = exact_int8_dot(q, x).float()
+        elif q.dtype == torch.bfloat16:  # bf16 operands (int8 -> bf16 is exact), f32 sums
+            s = q.float() @ x.to(torch.bfloat16).float().T
+        else:
+            s = q.float() @ x.float().T
+        if scales is not None:
+            s = s * scales[start : start + nrows][None, :]
+        if l2:
+            s = 2.0 * s - norms[start : start + nrows][None, :]
+        col = torch.arange(nrows, device=dev)
+        ok = (col < size)[None, :]
+        nsl = nrows // NBK
+        if packed:
+            bits = s.view(torch.int32)
+            pk = ((bits & ~_LOCAL_MASK) | col.to(torch.int32)[None, :]).view(torch.float32)
+            pk = torch.where(ok, pk, torch.full_like(pk, MASK_SCORE))
+            # Packed values are distinct except masked lanes (all MASK_SCORE),
+            # so an order-free top-2 equals the kernel's fmaxf/fminf fold.
+            top2 = torch.topk(pk.reshape(QU, nsl, NBK), 2, dim=1).values
+            out_s[c, :, :NBK], out_s[c, :, NBK:] = top2[:, 0], top2[:, 1]
+            continue
+        s = torch.where(ok, s, torch.full_like(s, MASK_SCORE)).reshape(QU, nsl, NBK)
+        best_s = torch.full((QU, NBK), MASK_SCORE, dtype=torch.float32, device=dev)
+        sec_s = best_s.clone()
+        best_i = torch.zeros((QU, NBK), dtype=torch.int32, device=dev)
+        sec_i = best_i.clone()
+        lane = torch.arange(NBK, dtype=torch.int32, device=dev)
+        for t in range(nsl):  # slice order: ties go to the earlier row (strict '>')
+            sl, idx = s[:, t], (start + t * NBK + lane)[None, :].expand(QU, NBK)
+            upd, upd2 = sl > best_s, sl > sec_s
+            sec_s, sec_i = (
+                torch.where(upd, best_s, torch.where(upd2, sl, sec_s)),
+                torch.where(upd, best_i, torch.where(upd2, idx, sec_i)),
+            )
+            best_s, best_i = torch.where(upd, sl, best_s), torch.where(upd, idx, best_i)
+        out_s[c] = torch.cat([best_s, sec_s], 1)
+        out_i[c] = torch.cat([best_i, sec_i], 1)
+    return out_s, out_i
+
+
+def probe_fold(
+    xq_units: torch.Tensor,
+    xb: torch.Tensor,
+    scales: torch.Tensor | None,
+    norms: torch.Tensor | None,
+    chunk_list: torch.Tensor,
+    list_start: torch.Tensor,
+    list_size: torch.Tensor,
+    *,
+    bl: int,
+    int8_dot: bool,
+    l2: bool,
+    packed: bool,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """K1's wrapper.  On CUDA tensors it launches the kernel (or raises);
+    only tensors on the CPU take ``probe_fold_reference``.
+
+    ``xq_units``: (chunks * QU, d) queries in chunk layout; ``xb``: (rows, d)
+    block-aligned storage; ``scales`` / ``norms``: (rows,) f32 or None;
+    ``chunk_list``: (grid,) int32 list id per chunk, -1 for dead chunks;
+    ``list_start`` / ``list_size``: (nlist,) int32.
+    """
+    args = (xq_units, xb, scales, norms, chunk_list, list_start, list_size)
+    if not xb.is_cuda:
+        return probe_fold_reference(*args, bl=bl, int8_dot=int8_dot, l2=l2, packed=packed)
+    from lotus_tpu_torch.ops import _kernels
+
+    d = xb.shape[1]
+    grid = chunk_list.shape[0]
+    int32_args = {"chunk_list": chunk_list, "list_start": list_start, "list_size": list_size}
+    for name, t in (("xq_units", xq_units), ("xb", xb), *int32_args.items()):
+        if not t.is_cuda or t.device != xb.device or not t.is_contiguous():
+            raise ValueError(f"probe_fold: {name} must be a contiguous tensor on {xb.device}")
+    for name, t in int32_args.items():
+        if t.dtype != torch.int32 or t.ndim != 1:
+            raise ValueError(f"probe_fold: {name} must be a 1-D int32 tensor")
+    if xq_units.ndim != 2 or xq_units.shape[1] != d or xq_units.shape[0] < (grid - 1) * QU:
+        raise ValueError(f"probe_fold: xq_units {tuple(xq_units.shape)} does not cover {grid - 1} chunks of d={d}")
+    if xb.shape[0] % bl != 0 or bl % NBK != 0:
+        raise ValueError(f"probe_fold: storage rows {xb.shape[0]} must be whole blocks of bl={bl}")
+    if xq_units.dtype not in _DTYPE_CODE or xb.dtype not in _DTYPE_CODE:
+        raise ValueError(f"probe_fold: unsupported dtypes {xq_units.dtype} / {xb.dtype}")
+    if int8_dot and (d % 4 != 0 or xq_units.dtype != torch.int8 or xb.dtype != torch.int8 or l2):
+        raise ValueError("probe_fold: int8_dot needs int8 queries and storage, d % 4 == 0, no l2")
+    if int8_dot and (xq_units.data_ptr() % 4 or xb.data_ptr() % 4):
+        raise ValueError("probe_fold: int8_dot reads 32-bit words; xq_units and xb must be 4-byte aligned")
+    for name, t, need in (("scales", scales, xb.dtype == torch.int8), ("norms", norms, l2)):
+        if need and (t is None or t.dtype != torch.float32 or t.shape != (xb.shape[0],)
+                     or not t.is_contiguous() or t.device != xb.device):
+            raise ValueError(f"probe_fold: {name} must be a contiguous ({xb.shape[0]},) f32 tensor on {xb.device}")
+    out_s = torch.empty((grid, QU, NCAND), dtype=torch.float32, device=xb.device)
+    out_i = None if packed else torch.empty((grid, QU, NCAND), dtype=torch.int32, device=xb.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    code = _kernels.lib().lotus_ivf_probe(
+        ptr(xq_units), ptr(xb), ptr(scales), ptr(norms), ptr(chunk_list), ptr(list_start),
+        ptr(list_size), ptr(out_s), ptr(out_i), grid, d, bl,
+        _DTYPE_CODE[xq_units.dtype], _DTYPE_CODE[xb.dtype], int(int8_dot), int(l2), int(packed),
+        torch.cuda.current_stream(xb.device).cuda_stream,
+    )
+    _kernels.check(code, "ivf_probe launch")
+    probe_fold.launches += 1
+    return out_s, out_i
+
+
+probe_fold.launches = 0  # K1 launches in this process (read by chip_smoke.py)
+
+
+def probe_layout(
+    probe_lists: torch.Tensor, xq_store: torch.Tensor, list_size: torch.Tensor, bl: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's inputs for a batch: pair grouping, chunk table and query layout.
+
+    Returns ``(xq_units, chunk_list, padpos, blocks)``: the queries in chunk
+    layout ((grid - 1) * QU, d), the list id of every chunk (grid,) int32
+    with -1 for dead chunks, each pair's row in the kernel output (P,), and
+    the block count of every probed list (nlist,).  No host sync: the grid
+    is the static bound ``P // QU + nlist + 1``.
+    """
+    b, nprobe = probe_lists.shape
+    d = xq_store.shape[1]
+    dev = xq_store.device
+    nlist = list_size.shape[0]
+    p = b * nprobe
+
+    # ---- pair grouping without a sort ------------------------------------
+    # probe_lists rows are distinct per query, so a pair's rank within its
+    # list is "how many earlier queries probed that list".
+    l_flat = probe_lists.reshape(-1).long()
+    q_ids = torch.arange(b, dtype=torch.int64, device=dev).repeat_interleave(nprobe)
+    if b * nlist <= HIST_MAX_CELLS:
+        hist = torch.zeros((b, nlist), dtype=torch.int32, device=dev)
+        hist[q_ids, l_flat] = 1
+        cum = torch.cumsum(hist, dim=0, dtype=torch.int32)
+        counts = cum[-1]
+        rank = (cum - hist)[q_ids, l_flat]
+    else:
+        order = torch.argsort(l_flat, stable=True)
+        sl = l_flat[order]
+        counts = torch.bincount(l_flat, minlength=nlist).to(torch.int32)
+        pair_start = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+        rank_sorted = torch.arange(p, dtype=torch.int32, device=dev) - pair_start[sl]
+        rank = torch.empty((p,), dtype=torch.int32, device=dev)
+        rank[order] = rank_sorted
+    rank = rank.long()
+
+    chunks = (counts + (QU - 1)) // QU  # query chunks per list
+    chunk_cum = torch.cumsum(chunks, 0, dtype=torch.int32)  # inclusive
+    chunk_base = chunk_cum - chunks
+    n_chunks_max = p // QU + nlist  # static bound on the live chunk count
+    blocks = torch.where(counts > 0, (list_size + (bl - 1)) // bl, torch.zeros_like(list_size))
+
+    # ---- chunk table + padded query layout ---------------------------------
+    # Chunk c of list l sits at global chunk id chunk_base[l] + c; its QU
+    # slots hold the list's pairs in rank order, the zero query elsewhere.
+    # The table has one extra dead entry (the reference's parking row).
+    c_ids = torch.arange(n_chunks_max + 1, dtype=torch.int32, device=dev)
+    lid = torch.searchsorted(chunk_cum, c_ids, right=True).to(torch.int32)
+    chunk_list = torch.where(c_ids < chunk_cum[-1], lid, torch.full_like(lid, -1))
+    padpos = (chunk_base.long()[l_flat] + rank // QU) * QU + rank % QU  # (P,)
+    sq_full = torch.full((n_chunks_max * QU,), b, dtype=torch.int64, device=dev)
+    sq_full[padpos] = q_ids
+    xq_pad = torch.cat([xq_store, torch.zeros((1, d), dtype=xq_store.dtype, device=dev)])
+    xq_units = xq_pad[sq_full]
+    return xq_units, chunk_list, padpos, blocks
+
+
+def _grouped_probe(
+    centroids: torch.Tensor,
+    xb_sorted: torch.Tensor,
+    row_ids: torch.Tensor,
+    list_start: torch.Tensor,
+    list_size: torch.Tensor,
+    xq: torch.Tensor,
+    row_scales: torch.Tensor | None,
+    norms_sq: torch.Tensor | None,
+    k: int,
+    nprobe: int,
+    max_blocks: int,
+    metric: str,
+    int8_queries: bool,
+    probe_lists: torch.Tensor | None = None,
+    probe_bias: torch.Tensor | None = None,
+    packed_ok: bool = False,
+    bl: int = 512,
+    spilled: bool = True,
+    fold=probe_fold,
+):
+    """Port of ``_grouped_probe_pallas`` (``pallas_ivf.py:313-645``) without
+    its ``owned`` and ``return_rows`` inputs, which serve only the sharded
+    caller (not ported yet).
+
+    ``fold`` runs K1; a check on the card passes ``probe_fold_reference``
+    to run the same path through the plain version.
+    """
+    b = xq.shape[0]
+    dev = xq.device
+    is_int8 = xb_sorted.dtype == torch.int8
+    is_l2 = metric == "l2"
+    # int8 x int8 needs int8 storage and queries and a metric whose query
+    # scale is rank-neutral (not l2: the scale would touch only the dot term).
+    int8_dot = is_int8 and int8_queries and not is_l2
+
+    if probe_lists is None:
+        _, probe_lists = flat_search(centroids, xq, nprobe, metric=metric)
+    probe_lists = probe_lists.to(torch.int32)
+
+    q_scales = None
+    if int8_dot:
+        from lotus_tpu_torch.ops.quant import quantize_rows
+
+        xq_store, q_scales = quantize_rows(xq)
+    elif is_int8 or xb_sorted.dtype == torch.bfloat16:
+        xq_store = xq.to(torch.bfloat16)
+    else:
+        xq_store = xq
+
+    xq_units, chunk_list, padpos, blocks = probe_layout(probe_lists, xq_store, list_size, bl)
+    n_chunks_max = chunk_list.shape[0] - 1
+    l_flat = probe_lists.reshape(-1).long()
+
+    # Packing truncates 13 mantissa bits, so it is only used when the caller
+    # exactly re-ranks the candidates; windows beyond the packed-id range
+    # take the unpacked fold.
+    packed = packed_ok and max_blocks * bl <= (1 << LOCAL_BITS)
+    cand_pk, cand_idx = fold(
+        xq_units, xb_sorted, row_scales if is_int8 else None, norms_sq if is_l2 else None,
+        chunk_list, list_start, list_size, bl=bl, int8_dot=int8_dot, l2=is_l2, packed=packed,
+    )
+
+    # ---- reassemble per pair -----------------------------------------------
+    # Pair p's candidates are row padpos[p] of the kernel output; a pair
+    # whose list is empty reads a MASK_SCORE row, and 'empty' masks it too.
+    kc = NCAND
+    empty = (blocks[l_flat] > 0)[:, None]
+    mask = torch.tensor(MASK_SCORE, dtype=torch.float32, device=dev)
+    flat_s = cand_pk.reshape((n_chunks_max + 1) * QU, kc)
+    pool = torch.where(empty, flat_s[padpos], mask).reshape(b, nprobe, kc)
+    if packed:
+        bits = pool.view(torch.int32)
+        starts = list_start[probe_lists.long()]  # (b, nprobe)
+        cand_i = torch.clamp(starts[:, :, None] + (bits & _LOCAL_MASK), max=xb_sorted.shape[0] - 1)
+        cand_s = (bits & ~_LOCAL_MASK).view(torch.float32)
+    else:
+        cand_s = pool
+        cand_i = cand_idx.reshape((n_chunks_max + 1) * QU, kc)[padpos].reshape(b, nprobe, kc)
+    if probe_bias is not None:
+        # Residual encoding: every candidate of probe slot s owes the exact
+        # coarse term q.c in probe_bias[:, s]; that breaks the rank-neutral
+        # query scale, so int8 queries are dequantized here.
+        masked = cand_s <= MASK_SCORE / 2
+        if q_scales is not None:
+            cand_s = cand_s * q_scales[:, None, None]
+        cand_s = torch.where(masked, mask, cand_s + probe_bias[:, :, None])
+    cand_s = cand_s.reshape(b, nprobe * kc)
+    cand_i = cand_i.reshape(b, nprobe * kc)
+
+    # Spilled rows can reach the pool through two lists: 2k head-room and a
+    # dedup.  Unspilled pools hold each id once, so the top-k is final.
+    k_out = min(2 * k if spilled else k, nprobe * kc)
+    top_s, pos = torch.topk(cand_s, k_out, dim=1)
+    top_i = row_ids[torch.gather(cand_i, 1, pos).long()]
+    top_i = torch.where(top_s <= MASK_SCORE / 2, torch.full_like(top_i, NO_HIT), top_i)
+
+    if spilled:
+        top_s, top_i = dedup_topk(top_s, top_i, k)
+    elif k_out < k:  # pool smaller than k: pad, keeping the sorted head
+        pad = k - k_out
+        top_s = torch.cat([top_s, torch.full((b, pad), MASK_SCORE, dtype=top_s.dtype, device=dev)], 1)
+        top_i = torch.cat([top_i, torch.full((b, pad), NO_HIT, dtype=top_i.dtype, device=dev)], 1)
+    if q_scales is not None and probe_bias is None:
+        # Per-query dequantization constant; rank-neutral, so applied last.
+        top_s = torch.where(top_i == NO_HIT, top_s, top_s * q_scales[:, None])
+    return top_s, top_i
+
+
+def ivf_search_grouped_probe(
+    state: dict[str, Any],
+    xq: torch.Tensor,
+    k: int,
+    *,
+    nprobe: int,
+    metric: str = "ip",
+    int8_queries: bool = False,
+    query_chunk: int | None = None,
+    rescore: int | None = None,
+    fold=probe_fold,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Grouped IVF probe through K1 (ip/cosine/l2); port of
+    ``ivf_search_pallas`` (``pallas_ivf.py:648-761``).
+
+    Requires a block-aligned index (``block_align`` a multiple of 512).
+    ``residual_int8`` stores add the exact f32 coarse term q.c back per probe
+    slot.  ``query_chunk`` probes the batch in slices to bound the candidate
+    pool.  ``rescore`` widens the probe to that many candidates and exactly
+    re-ranks them with f32 queries over reconstructed rows.
+    Returns (distances, ids) with ids int32 and -1 for no hit.
+    """
+    meta = state["meta"]
+    bl = int(meta.get("block_align", 0))
+    if bl < 512 or bl % NBK != 0:
+        raise ValueError(
+            f"index must be built with block_align >= 512 (a multiple of {NBK}) "
+            f"for the grouped probe; got {bl}"
+        )
+    nlist = int(meta["nlist"])
+    window = int(meta["probe_window"])
+    nprobe = max(1, min(nprobe, nlist))
+    max_blocks = max(1, window // bl)
+    vecs = state["ivf_vectors"]
+    residual = meta.get("encoding") == "residual_int8" and vecs.dtype == torch.int8
+    if residual and metric == "l2":
+        raise ValueError("residual_int8 stores support ip/cosine only")
+
+    squeeze = xq.ndim == 1
+    if squeeze:
+        xq = xq[None, :]
+    xq = xq.to(device=vecs.device, dtype=torch.float32)
+
+    if query_chunk is not None and xq.shape[0] > query_chunk:
+        parts = [
+            ivf_search_grouped_probe(
+                state, xq[lo : lo + query_chunk], k, nprobe=nprobe, metric=metric,
+                int8_queries=int8_queries, rescore=rescore, fold=fold,
+            )
+            for lo in range(0, xq.shape[0], query_chunk)
+        ]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    if vecs.shape[0] % bl != 0:
+        raise ValueError(f"block-aligned IVF storage expected (rows % {bl} != 0)")
+    if metric == "l2" and "ivf_norms_sq" not in state:
+        vf = vecs.float()
+        state["ivf_norms_sq"] = torch.sum(vf * vf, dim=-1)
+    probe_lists = probe_bias = None
+    if residual:
+        probe_bias, probe_lists = flat_search(state["centroids"], xq, nprobe, metric=metric)
+    do_rescore = rescore is not None and metric != "l2"
+    k_probe = max(k, rescore) if do_rescore else k
+    scores, idx = _grouped_probe(
+        state["centroids"], vecs, state["ivf_row_ids"], state["ivf_list_start"],
+        state["ivf_list_size"], xq, state.get("ivf_row_scales"),
+        state.get("ivf_norms_sq") if metric == "l2" else None,
+        k_probe, nprobe, max_blocks, metric, int8_queries,
+        probe_lists=probe_lists, probe_bias=probe_bias, packed_ok=do_rescore, bl=bl,
+        spilled=float(meta.get("spill_frac", 0.0) or 0.0) > 0.0, fold=fold,
+    )
+    if do_rescore:
+        from lotus_tpu_torch.ops.ivf import rescore_candidates
+
+        scores, idx = rescore_candidates(state, xq, idx, k)
+    dists = as_distance(scores, metric)
+    if metric == "l2":
+        q_norms = torch.sum(xq * xq, dim=-1, keepdim=True)
+        dists = torch.where(idx == NO_HIT, torch.finfo(torch.float32).max, dists + q_norms)
+    if squeeze:
+        return dists[0], idx[0]
+    return dists, idx

@@ -1,0 +1,329 @@
+"""TorchVS — the device-resident vector store of the port.
+
+Counterpart of ``lotus_tpu/vector_store/tpu_vs.py``.  Vectors live in device
+memory; the planner routes
+
+- an IVF store without ``ids`` to the grouped probe (``ops/ivf_probe.py``,
+  kernel K1) when the store is block-aligned, and to the exhaustive flat scan
+  when B * nprobe >= nlist otherwise;
+- an IVF store with ``ids`` to an exact scan of just the allowed rows
+  (``_ivf_subset_search``) — the path the pandas operators take, since
+  ``sem_search`` and ``sem_sim_join`` always pass ``ids``;
+- a Flat store to ``flat_search`` with a validity mask (int8 stores rescore
+  exactly in f32).
+
+Paths not ported yet raise ``NotImplementedError`` naming the ROADMAP item
+that adds them; none falls back silently.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from numpy.typing import NDArray
+
+from lotus_tpu_torch.ops import io as index_io
+from lotus_tpu_torch.ops.flat import DEFAULT_BLOCK_ROWS, flat_search
+from lotus_tpu_torch.ops.ivf import default_device
+from lotus_tpu_torch.types import RMOutput
+from lotus_tpu_torch.vector_store.vs import VS
+
+_DTYPE_NAMES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "int8": torch.int8,
+}
+
+
+class TorchVS(VS):
+    """Flat / IVF-Flat vector store on one torch device.
+
+    Takes ``TpuVS``'s constructor arguments plus ``device`` (default: the
+    GPU when there is one).  ``mesh`` (ROADMAP M11), ``recall_target``
+    (calibration, ROADMAP M6) and ``scan="pallas"`` (kernel K2, ROADMAP M8)
+    are not ported yet and raise ``NotImplementedError``.  ``approx`` is
+    accepted and served exactly (see ``ops/flat.py``).
+    """
+
+    def __init__(
+        self,
+        index_type: str = "flat",
+        metric: str = "ip",
+        device_dtype: str = "float32",
+        nlist: Optional[int] = None,
+        nprobe: Optional[int] = None,
+        mesh: Optional[Any] = None,
+        approx: bool = False,
+        block_rows: int = DEFAULT_BLOCK_ROWS,
+        int8_encoding: str = "residual",
+        spill_frac: float = 0.0,
+        int8_refine: bool = False,
+        rescore: Optional[int] = None,
+        scan: str = "auto",
+        int8_queries: Optional[bool] = None,
+        query_chunk: int = 2048,
+        recall_target: Optional[float] = None,
+        device: torch.device | str | None = None,
+    ) -> None:
+        super().__init__()
+        if index_type not in ("flat", "ivf"):
+            raise ValueError(f"index_type must be 'flat' or 'ivf', got {index_type!r}")
+        if int8_encoding not in ("residual", "plain"):
+            raise ValueError(f"int8_encoding must be 'residual' or 'plain', got {int8_encoding!r}")
+        if scan not in ("auto", "xla", "pallas"):
+            raise ValueError(f"scan must be 'auto', 'xla' or 'pallas', got {scan!r}")
+        if mesh is not None:
+            raise NotImplementedError("TorchVS: sharded stores (mesh) are ROADMAP item M11")
+        if recall_target is not None:
+            raise NotImplementedError("TorchVS: nprobe calibration (recall_target) is ROADMAP item M6")
+        if scan == "pallas":
+            raise NotImplementedError("TorchVS: the streaming flat-scan kernel K2 is ROADMAP item M8")
+        self.index_type = index_type
+        self.metric = metric
+        self.device_dtype = device_dtype
+        self.nlist = nlist
+        self.nprobe = 32 if nprobe is None else int(nprobe)
+        self.approx = approx
+        self.block_rows = block_rows
+        self.int8_encoding = int8_encoding
+        self.spill_frac = spill_frac
+        self.int8_refine = int8_refine
+        self.rescore = rescore
+        self.scan = scan
+        # None = int8 queries exactly when the store is int8 and rescoring is on.
+        self.int8_queries = int8_queries
+        self.query_chunk = query_chunk
+        self.device = torch.device(device) if device is not None else default_device()
+        self.index_dir: str | None = None
+        self._state: dict[str, Any] | None = None
+        self.stats: dict[str, Any] = {
+            "searches": 0,
+            "queries": 0,
+            "subset_searches": 0,
+            # End-to-end wall time per search, device->host transfer included.
+            "total_wall_s": 0.0,
+        }
+
+    # ------------------------------------------------------------------ build
+    def index(self, docs: list[str], embeddings: NDArray[np.float64], index_dir: str, **kwargs: Any) -> None:
+        emb = np.ascontiguousarray(np.asarray(embeddings, dtype=np.float32))
+        if emb.ndim != 2:
+            raise ValueError(f"embeddings must be 2-D, got shape {emb.shape}")
+        index_io.write_array(index_dir, "vectors", emb)
+        meta: dict[str, Any] = {
+            "kind": self.index_type,
+            "metric": self.metric,
+            "n_rows": int(emb.shape[0]),
+            "dim": int(emb.shape[1]),
+            "device_dtype": self.device_dtype,
+        }
+        if self.index_type == "ivf":
+            from lotus_tpu_torch.ops.ivf import build_ivf
+            from lotus_tpu_torch.ops.ivf_probe import BL
+
+            nlist = self.nlist or max(1, int(np.sqrt(emb.shape[0])))
+            # Block-align lists when the average list fills a block, so the
+            # padding is cheap and the grouped probe applies.
+            if emb.shape[0] >= BL * nlist:
+                block_align = BL
+            elif emb.shape[0] >= 512 * nlist:
+                block_align = 512
+            else:
+                block_align = None
+            meta.update(build_ivf(
+                index_dir, emb, nlist=nlist, metric=self.metric, block_align=block_align,
+                spill_frac=self.spill_frac if block_align else 0.0, device=self.device,
+            ))
+            if self.device_dtype == "int8" and self.int8_encoding == "residual" and self.metric != "l2":
+                meta["encoding"] = "residual_int8"
+        index_io.write_meta(index_dir, meta)
+        self.index_dir = index_dir
+        self._state = None  # lazily materialized on first search
+
+    def load_index(self, index_dir: str) -> None:
+        index_io.read_meta(index_dir)  # validate manifest
+        self.index_dir = index_dir
+        self._state = None
+
+    # ------------------------------------------------------------- device load
+    def _materialize(self) -> dict[str, Any]:
+        if self._state is not None:
+            return self._state
+        if self.index_dir is None:
+            raise ValueError("Index not loaded")
+        meta = index_io.read_meta(self.index_dir)
+        dtype = _DTYPE_NAMES[meta.get("device_dtype", self.device_dtype)]
+        n, d = index_io.read_array(self.index_dir, "vectors").shape
+        state: dict[str, Any] = {"meta": meta, "n_rows": n, "dim": d, "dtype": dtype}
+        if meta["kind"] == "ivf":
+            from lotus_tpu_torch.ops.ivf import load_ivf_state
+
+            state.update(
+                load_ivf_state(self.index_dir, meta, dtype, refine_int4=self.int8_refine, device=self.device)
+            )
+        else:
+            self._ensure_flat_arrays(state)
+        self._state = state
+        return state
+
+    def _ensure_flat_arrays(self, state: dict[str, Any]) -> None:
+        """Materialize the scan arrays (flat indexes, and IVF stores that
+        take the exhaustive scan).  ``flat_search`` scans a ragged last
+        block, so unlike the reference the rows are not padded."""
+        if "xb" in state:
+            return
+        meta, dtype = state["meta"], state["dtype"]
+        vecs = index_io.read_array(self.index_dir, "vectors")
+        xb_t = torch.from_numpy(np.array(vecs, dtype=np.float32)).to(self.device)
+        if dtype == torch.int8:
+            from lotus_tpu_torch.ops.quant import quantize_rows
+
+            state["xb"], state["xb_scales"] = quantize_rows(xb_t)
+            rows = xb_t  # l2 norms of the unquantized rows, as the reference keeps them
+        else:
+            state["xb"] = xb_t.to(dtype)
+            state["xb_scales"] = None
+            rows = state["xb"].float()
+        state["xb_norms_sq"] = torch.sum(rows * rows, dim=-1) if meta["metric"] == "l2" else None
+
+    # ------------------------------------------------------- ids-subset (IVF)
+    def _ivf_subset_search(
+        self, state: dict[str, Any], xq: torch.Tensor, k: int, ids: list[int]
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Exact search restricted to ``ids``: gather the allowed rows out of
+        the IVF storage via the row-id -> storage-row inverse permutation and
+        scan them exactly (O(|ids| x d), no second full-size copy).  The
+        reference pads the subset to power-of-two sizes to bound XLA
+        recompiles; eager torch needs no padding."""
+        from lotus_tpu_torch.ops.ivf import ensure_inv_perm, ensure_pos_list
+
+        meta = state["meta"]
+        inv = ensure_inv_perm(state)
+        ids_t = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=self.device)
+        m = ids_t.shape[0]
+
+        storage_rows = inv[ids_t].long()
+        subset = state["ivf_vectors"][storage_rows]
+        scales = state.get("ivf_row_scales")
+        sub_scales = scales[storage_rows] if scales is not None else None
+        norms = state.get("ivf_norms_sq")
+        sub_norms = norms[storage_rows] if norms is not None else None
+        if meta.get("encoding") == "residual_int8" and subset.dtype == torch.int8:
+            # Residual store: reconstruct f32 rows (residual * scale + centroid).
+            lists_of_rows = ensure_pos_list(state)[storage_rows].long()
+            subset = subset.float() * sub_scales[:, None] + state["centroids"][lists_of_rows]
+            sub_scales = None
+
+        dists, pos = flat_search(
+            subset, xq, min(k, m), metric=meta["metric"], n_rows=m, xb_norms_sq=sub_norms,
+            block_rows=self.block_rows, xb_scales=sub_scales,
+        )
+        hit_ids = torch.where(pos >= 0, ids_t[torch.clamp(pos, min=0).long()], -1)
+        return dists, hit_ids
+
+    # ----------------------------------------------------------------- search
+    def __call__(
+        self, query_vectors: NDArray[np.float64], K: int, ids: list[int] | None = None, **kwargs: Any
+    ) -> RMOutput:
+        t_start = time.perf_counter()
+        state = self._materialize()
+        meta = state["meta"]
+        n, d = state["n_rows"], state["dim"]
+
+        xq = np.asarray(query_vectors, dtype=np.float32)
+        if xq.ndim == 1:
+            xq = xq[None, :]
+        if xq.shape[1] != d:
+            raise ValueError(f"query dim {xq.shape[1]} != index dim {d}")
+        xq_t = torch.from_numpy(np.ascontiguousarray(xq)).to(self.device)
+        k_eff = int(min(K, max(n, 1)))
+
+        if meta["kind"] == "ivf" and ids is not None:
+            dists, idx = self._ivf_subset_search(state, xq_t, k_eff, ids)
+            return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
+
+        if meta["kind"] == "ivf":
+            nprobe = int(kwargs.get("nprobe", self.nprobe))
+            if int(meta.get("block_align", 0)) >= 512:
+                dists, idx = self._probe_ivf(state, xq_t, k_eff, nprobe, kwargs)
+                return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
+            if xq.shape[0] * max(nprobe, 1) < int(meta.get("nlist", 1)):
+                raise NotImplementedError(
+                    "TorchVS: the window probe for non-block-aligned IVF stores is ROADMAP item M4"
+                )
+            # Exhaustive-scan fallback for large batches on a non-aligned store.
+
+        self._ensure_flat_arrays(state)
+        xb = state["xb"]
+        valid = None
+        if ids is not None:
+            mask = np.zeros(xb.shape[0], dtype=bool)
+            mask[np.asarray(ids, dtype=np.int64)] = True
+            valid = torch.from_numpy(mask).to(self.device)
+        if (
+            valid is None and meta["metric"] in ("ip", "cosine") and xb.shape[0] % 1024 == 0
+            and kwargs.get("scan", self.scan) == "auto" and self.approx and xq.shape[0] >= 256
+            and xb.dtype == torch.bfloat16
+        ):
+            raise NotImplementedError("TorchVS: the streaming flat-scan kernel K2 is ROADMAP item M8")
+        # int8 flat scans rescore exactly in f32 by default.
+        rescore = kwargs.get("rescore", self.rescore)
+        if rescore is None and xb.dtype == torch.int8:
+            rescore = 32
+        do_rescore = rescore is not None and xb.dtype == torch.int8 and meta["metric"] in ("ip", "cosine")
+        k_cand = max(k_eff, int(rescore)) if do_rescore else k_eff
+        dists, idx = flat_search(
+            xb, xq_t, k_cand, metric=meta["metric"], n_rows=n, valid=valid,
+            xb_norms_sq=state["xb_norms_sq"], block_rows=self.block_rows,
+            xb_scales=state.get("xb_scales"),
+        )
+        if do_rescore:
+            from lotus_tpu_torch.ops.flat import flat_rescore
+
+            dists, idx = flat_rescore(xb, xq_t, idx, k_eff, xb_scales=state.get("xb_scales"))
+        else:
+            dists, idx = dists[:, :k_eff], idx[:, :k_eff]
+        return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
+
+    def _probe_ivf(self, state, xq_t, k_eff, nprobe, kwargs):
+        """The grouped probe (K1) on a block-aligned store, with the
+        int8-queries default of ``tpu_vs.py:434-440``."""
+        from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe
+
+        rescore = kwargs.get("rescore", self.rescore)
+        int8_q = kwargs.get("int8_queries", self.int8_queries)
+        if int8_q is None:  # auto: int8 store + rescoring active
+            int8_q = bool(state["ivf_vectors"].dtype == torch.int8 and rescore)
+        return ivf_search_grouped_probe(
+            state, xq_t, k_eff, nprobe=nprobe, metric=state["meta"]["metric"],
+            rescore=rescore, int8_queries=int8_q,
+            query_chunk=kwargs.get("query_chunk", self.query_chunk),
+        )
+
+    def _finish_output(
+        self, dists: torch.Tensor, idx: torch.Tensor, xq: np.ndarray, k_eff: int, K: int,
+        ids: list[int] | None, t_start: float,
+    ) -> RMOutput:
+        # Moving to the host waits for the device, so the wall-time stat
+        # covers the whole search including the transfer.
+        dists_np = dists.cpu().numpy().astype(np.float64)
+        idx_np = idx.cpu().numpy().astype(np.int64)
+        self.stats["searches"] += 1
+        self.stats["queries"] += int(xq.shape[0])
+        if ids is not None:
+            self.stats["subset_searches"] += 1
+        self.stats["total_wall_s"] += time.perf_counter() - t_start
+        if k_eff < K:  # faiss-style -1 padding when K exceeds the collection
+            pad = K - k_eff
+            dists_np = np.pad(dists_np, ((0, 0), (0, pad)), constant_values=0.0)
+            idx_np = np.pad(idx_np, ((0, 0), (0, pad)), constant_values=-1)
+        return RMOutput(distances=dists_np.tolist(), indices=idx_np.tolist())
+
+    # ------------------------------------------------------------------- misc
+    def get_vectors_from_index(self, index_dir: str, ids: list[int]) -> NDArray[np.float64]:
+        vecs = index_io.read_array(index_dir, "vectors")
+        return np.asarray(vecs[np.asarray(ids, dtype=np.int64)])

@@ -1,0 +1,40 @@
+"""``lotus_tpu_torch`` imports and searches with jax, pandas and lotus_tpu
+blocked, as on a machine that has none of them."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_runs_without_jax_pandas_or_lotus_tpu(tmp_path):
+    script = textwrap.dedent(
+        f"""
+        import sys
+        for name in ("jax", "jaxlib", "pandas", "pydantic", "lotus_tpu"):
+            sys.modules[name] = None  # any import of them raises ImportError
+        sys.path.insert(0, {REPO!r})
+        import numpy as np
+        import lotus_tpu_torch
+        from lotus_tpu_torch import TorchVS
+        from lotus_tpu_torch.ops import bench_data, flat, ivf, ivf_probe, kmeans  # noqa: F401
+
+        rng = np.random.default_rng(0)
+        emb = rng.standard_normal((2048, 16)).astype(np.float32)
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+        vs = TorchVS(index_type="ivf", nlist=2, nprobe=2, device="cpu")
+        vs.index([], emb, {str(tmp_path / "idx")!r})
+        out = vs(emb[:3], 4)
+        assert [row[0] for row in out.indices] == [0, 1, 2], out.indices
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "pandas", "lotus_tpu")
+               and sys.modules[m] is not None]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, env=env,
+                          cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]

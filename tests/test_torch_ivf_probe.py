@@ -1,0 +1,268 @@
+"""K1's plain PyTorch version (``lotus_tpu_torch.ops.ivf_probe``) held to the
+Pallas probe (``lotus_tpu.ops.pallas_ivf._grouped_probe_pallas``, run with
+``interpret=True``) on the same stores and the same ``probe_lists``.
+
+Both sides take the probed lists from numpy, so the coarse ranking's rounding
+stays out of the comparison, and ``k = nprobe * 128`` returns the whole
+candidate pool, sorted.  The int8-query packed pool is integer arithmetic
+followed by single f32 multiplies, so it must agree bit for bit; the float
+variants sum in another order and agree within a tolerance.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import lotus_tpu.ops.pallas_ivf as pivf
+from lotus_tpu.ops.ivf import build_ivf as jax_build_ivf
+from lotus_tpu.ops.ivf import load_ivf_state as jax_load
+from lotus_tpu_torch.ops import ivf_probe as tprobe
+from lotus_tpu_torch.ops.ivf import load_ivf_state as torch_load
+
+_JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8}
+
+
+def _corpus(rng, n, d, n_centers=8, spread=0.3):
+    centers = rng.standard_normal((n_centers, d)).astype(np.float32)
+    emb = centers[rng.integers(0, n_centers, n)] + spread * rng.standard_normal((n, d)).astype(np.float32)
+    return emb / np.linalg.norm(emb, axis=1, keepdims=True)
+
+
+def _stores(tmp_path, emb, *, nlist, metric="ip", block_align=1024, dtype=torch.int8,
+            encoding=None, spill_frac=0.0, name="s"):
+    idx_dir = str(tmp_path / name)
+    meta = {"kind": "ivf", "metric": metric,
+            **jax_build_ivf(idx_dir, emb, nlist=nlist, metric=metric, block_align=block_align,
+                            spill_frac=spill_frac)}
+    if encoding:
+        meta["encoding"] = encoding
+    js = jax_load(idx_dir, meta, _JAX_DTYPE[dtype])
+    js.setdefault("meta", meta)
+    ts = torch_load(idx_dir, meta, dtype)
+    ts.setdefault("meta", meta)
+    return js, ts
+
+
+def _exact_scale(xq):
+    """Rows with max |x| = 127/128, so the int8 query scale is exactly 2**-7.
+
+    Under ``jit`` XLA turns the reference's ``absmax / 127`` into a multiply
+    by the reciprocal, which differs from the division (the port's, and the
+    reference's outside ``jit``) in the last bit for some rows.  With this
+    absmax both give 2**-7, so the bitwise tests see only the probe.
+    """
+    c = np.float32(0.9921875)
+    out = np.clip(xq * (c / np.abs(xq).max(axis=1, keepdims=True)), -c, c).astype(np.float32)
+    top = np.abs(out).argmax(axis=1)
+    out[np.arange(len(out)), top] = np.copysign(c, out[np.arange(len(out)), top])
+    return out
+
+
+def _probe_lists(rng, b, nlist, nprobe):
+    return np.argsort(rng.random((b, nlist)), axis=1)[:, :nprobe].astype(np.int32)
+
+
+def _run_both(js, ts, xq, probe_lists, *, metric="ip", int8_queries=False, packed_ok=True,
+              bias=None, k=None):
+    meta = js["meta"]
+    bl = int(meta["block_align"])
+    nprobe = probe_lists.shape[1]
+    max_blocks = max(1, int(meta["probe_window"]) // bl)
+    spilled = float(meta.get("spill_frac", 0.0)) > 0
+    k = nprobe * tprobe.NCAND if k is None else k
+    l2 = metric == "l2"
+    if l2 and "ivf_norms_sq" not in js:
+        js["ivf_norms_sq"] = jnp.sum(jnp.square(js["ivf_vectors"].astype(jnp.float32)), axis=-1)
+        vf = ts["ivf_vectors"].float()
+        ts["ivf_norms_sq"] = torch.sum(vf * vf, dim=-1)
+    j_s, j_i = pivf._grouped_probe_pallas(
+        js["centroids"], js["ivf_vectors"], js["ivf_row_ids"], js["ivf_list_start"],
+        js["ivf_list_size"], jnp.asarray(xq), js.get("ivf_row_scales"),
+        js.get("ivf_norms_sq") if l2 else None, k, nprobe, max_blocks, metric, True, int8_queries,
+        probe_lists=jnp.asarray(probe_lists),
+        probe_bias=None if bias is None else jnp.asarray(bias),
+        packed_ok=packed_ok, bl=bl, spilled=spilled,
+    )
+    t_s, t_i = tprobe._grouped_probe(
+        ts["centroids"], ts["ivf_vectors"], ts["ivf_row_ids"], ts["ivf_list_start"],
+        ts["ivf_list_size"], torch.from_numpy(xq), ts.get("ivf_row_scales"),
+        ts.get("ivf_norms_sq") if l2 else None, k, nprobe, max_blocks, metric, int8_queries,
+        probe_lists=torch.from_numpy(probe_lists),
+        probe_bias=None if bias is None else torch.from_numpy(bias),
+        packed_ok=packed_ok, bl=bl, spilled=spilled,
+    )
+    return (np.asarray(j_s), np.asarray(j_i)), (t_s.numpy(), t_i.numpy())
+
+
+def _assert_pool_bitwise(ref, got):
+    """Same sorted scores bit for bit and the same multiset of (score, id).
+
+    One deliberate divergence: a dot product of exactly 0 packs into a
+    denormal that carries the row id.  XLA on the CPU flushes denormals in
+    ``jnp.maximum``, so the reference decodes such a candidate as the first
+    row of its list; the port keeps the id.  Zero-score entries are
+    therefore held to equal counts, not equal ids.
+    """
+    (rs, ri), (gs, gi) = ref, got
+    np.testing.assert_array_equal(rs.view(np.int32), gs.view(np.int32))
+    for q in range(rs.shape[0]):
+        nz_r, nz_g = rs[q] != 0, gs[q] != 0
+        assert sorted(zip(rs[q][nz_r].tolist(), ri[q][nz_r].tolist())) == sorted(
+            zip(gs[q][nz_g].tolist(), gi[q][nz_g].tolist())
+        ), q
+
+
+def _assert_pool_close(ref, got, tol, k=10):
+    (rs, ri), (gs, gi) = ref, got
+    live = rs > -1e38
+    np.testing.assert_array_equal(live, gs > -1e38)
+    np.testing.assert_allclose(gs[live], rs[live], rtol=tol, atol=tol)
+    for q in range(rs.shape[0]):  # top-k sets agree where the boundary gap exceeds the tolerance
+        if k >= rs.shape[1] or rs[q, k - 1] - rs[q, k] > 4 * tol:
+            assert set(ri[q, :k].tolist()) == set(gi[q, :k].tolist()), q
+
+
+def test_int8_query_packed_pool_bitwise(tmp_path):
+    rng = np.random.default_rng(0)
+    emb = _corpus(rng, 8192, 64)
+    js, ts = _stores(tmp_path, emb, nlist=8)
+    xq = _exact_scale(emb[:12] + 0.02 * rng.standard_normal((12, 64)).astype(np.float32))
+    pl = _probe_lists(rng, 12, 8, 4)
+    ref, got = _run_both(js, ts, xq, pl, int8_queries=True)
+    assert (ref[0] > -1e38).sum() > 0
+    _assert_pool_bitwise(ref, got)
+
+
+def test_int8_query_packed_residual_bias(tmp_path):
+    rng = np.random.default_rng(1)
+    emb = _corpus(rng, 8192, 32)
+    js, ts = _stores(tmp_path, emb, nlist=8, block_align=512, encoding="residual_int8")
+    assert js["meta"].get("encoding", "residual_int8") == ts["meta"].get("encoding", "residual_int8")
+    xq = emb[:10] + 0.02 * rng.standard_normal((10, 32)).astype(np.float32)
+    pl = _probe_lists(rng, 10, 8, 3)
+    bias = rng.standard_normal((10, 3)).astype(np.float32)
+    ref, got = _run_both(js, ts, xq, pl, int8_queries=True, bias=bias)
+    _assert_pool_close(ref, got, 1e-6)
+
+
+@pytest.mark.parametrize(
+    "dtype,metric,packed_ok,tol",
+    [
+        (torch.bfloat16, "ip", True, 2e-2),     # bf16 store, packed
+        (torch.int8, "ip", True, 2e-2),         # int8 store, bf16 queries (dequant)
+        (torch.float32, "ip", False, 1e-5),     # f32, unpacked
+        (torch.float32, "l2", False, 1e-4),     # f32 l2
+        (torch.bfloat16, "l2", False, 2e-2),    # bf16 l2
+        (torch.int8, "l2", False, 2e-2),        # l2 over int8 (bf16 queries)
+    ],
+)
+def test_float_variants_close(tmp_path, dtype, metric, packed_ok, tol):
+    rng = np.random.default_rng(2)
+    emb = _corpus(rng, 8192, 32)
+    js, ts = _stores(tmp_path, emb, nlist=8, metric=metric, dtype=dtype)
+    xq = emb[:8] + 0.02 * rng.standard_normal((8, 32)).astype(np.float32)
+    pl = _probe_lists(rng, 8, 8, 4)
+    ref, got = _run_both(js, ts, xq, pl, metric=metric, packed_ok=packed_ok)
+    if packed_ok:  # truncated scores carry ids: compare values only
+        ref, got = (ref[0], ref[0] * 0), (got[0], got[0] * 0)
+        np.testing.assert_allclose(got[0], ref[0], rtol=tol, atol=tol)
+    else:
+        _assert_pool_close(ref, got, tol)
+
+
+def test_unpacked_fallback_beyond_packed_id_range(tmp_path):
+    rng = np.random.default_rng(3)
+    emb = _corpus(rng, 18000, 32, n_centers=1, spread=0.2)
+    js, ts = _stores(tmp_path, emb, nlist=2, block_align=512, encoding="residual_int8")
+    assert int(js["meta"]["probe_window"]) > (1 << tprobe.LOCAL_BITS)
+    xq = _exact_scale(emb[:4] + 0.01 * rng.standard_normal((4, 32)).astype(np.float32))
+    pl = _probe_lists(rng, 4, 2, 2)
+    ref, got = _run_both(js, ts, xq, pl, int8_queries=True, packed_ok=True)
+    # int8 dot, unpacked: exact integer scores times one scale, ids are storage rows.
+    _assert_pool_bitwise(ref, got)
+
+
+def test_spilled_store_dedups(tmp_path):
+    rng = np.random.default_rng(4)
+    emb = _corpus(rng, 8192, 32)
+    js, ts = _stores(tmp_path, emb, nlist=8, dtype=torch.float32, spill_frac=0.2)
+    xq = emb[:6] + 0.01 * rng.standard_normal((6, 32)).astype(np.float32)
+    pl = _probe_lists(rng, 6, 8, 8)
+    ref, got = _run_both(js, ts, xq, pl, packed_ok=False, k=8)
+    for row in got[1]:
+        live = [v for v in row.tolist() if v >= 0]
+        assert len(live) == len(set(live))
+    _assert_pool_close(ref, got, 1e-5, k=8)
+
+
+@pytest.mark.parametrize("align", [512, 1024])
+def test_store_alignment(tmp_path, align):
+    rng = np.random.default_rng(5)
+    emb = _corpus(rng, 8192, 32)
+    js, ts = _stores(tmp_path, emb, nlist=4, block_align=align)
+    xq = _exact_scale(emb[:6] + 0.01 * rng.standard_normal((6, 32)).astype(np.float32))
+    pl = _probe_lists(rng, 6, 4, 4)
+    _assert_pool_bitwise(*_run_both(js, ts, xq, pl, int8_queries=True))
+
+
+def test_lists_probed_by_more_than_one_chunk(tmp_path):
+    rng = np.random.default_rng(6)
+    emb = _corpus(rng, 8192, 32)
+    js, ts = _stores(tmp_path, emb, nlist=8)
+    xq = _exact_scale(emb[rng.integers(0, 8192, 512)])
+    pl = _probe_lists(rng, 512, 8, 4)  # ~256 pairs per list -> 2+ chunks
+    _assert_pool_bitwise(*_run_both(js, ts, xq, pl, int8_queries=True))
+
+
+def test_single_query(tmp_path):
+    rng = np.random.default_rng(7)
+    emb = _corpus(rng, 8192, 32)
+    js, ts = _stores(tmp_path, emb, nlist=8)
+    pl = _probe_lists(rng, 1, 8, 3)
+    _assert_pool_bitwise(*_run_both(js, ts, _exact_scale(emb[:1]), pl, int8_queries=True))
+
+
+def test_argsort_grouping_matches_histogram(tmp_path, monkeypatch):
+    rng = np.random.default_rng(8)
+    emb = _corpus(rng, 8192, 32)
+    _, ts = _stores(tmp_path, emb, nlist=8)
+    xq = torch.from_numpy(emb[:40])
+    pl = torch.from_numpy(_probe_lists(rng, 40, 8, 4))
+    args = (ts["centroids"], ts["ivf_vectors"], ts["ivf_row_ids"], ts["ivf_list_start"],
+            ts["ivf_list_size"], xq, ts["ivf_row_scales"], None, 64, 4, 2, "ip", True)
+    hist_s, hist_i = tprobe._grouped_probe(*args, probe_lists=pl, packed_ok=True, bl=1024, spilled=False)
+    monkeypatch.setattr(tprobe, "HIST_MAX_CELLS", 0)
+    sort_s, sort_i = tprobe._grouped_probe(*args, probe_lists=pl, packed_ok=True, bl=1024, spilled=False)
+    torch.testing.assert_close(sort_s, hist_s, rtol=0, atol=0)
+    torch.testing.assert_close(sort_i, hist_i, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "dtype,int8_queries",
+    [
+        (torch.int8, True),       # residual int8 + refinement, int8-dot packed
+        (torch.int8, False),      # the same store, bf16 queries (dequant)
+        (torch.bfloat16, False),  # bf16 store, packed
+    ],
+)
+def test_search_rescored_sets_match_reference(tmp_path, dtype, int8_queries):
+    """End to end through both search entry points: the rescored top-k sets
+    agree for each variant that packs candidates."""
+    rng = np.random.default_rng(9)
+    emb = _corpus(rng, 8192, 64)
+    idx_dir = str(tmp_path / "e2e")
+    meta = {"kind": "ivf", "metric": "ip", "encoding": "residual_int8",
+            **jax_build_ivf(idx_dir, emb, nlist=8, metric="ip", block_align=1024)}
+    js = jax_load(idx_dir, meta, _JAX_DTYPE[dtype], refine_int4=True)
+    js.setdefault("meta", meta)
+    ts = torch_load(idx_dir, meta, dtype, refine_int4=True)
+    ts.setdefault("meta", meta)
+    xq = emb[:16] + 0.02 * rng.standard_normal((16, 64)).astype(np.float32)
+    jd, ji = pivf.ivf_search_pallas(js, jnp.asarray(xq), 10, nprobe=8, metric="ip", interpret=True,
+                                    int8_queries=int8_queries, rescore=24)
+    td, ti = tprobe.ivf_search_grouped_probe(ts, torch.from_numpy(xq), 10, nprobe=8, metric="ip",
+                                             int8_queries=int8_queries, rescore=24, query_chunk=8)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-5)
+    for q in range(16):
+        assert set(ti[q].tolist()) == set(np.asarray(ji)[q].tolist()), q
