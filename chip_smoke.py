@@ -3,28 +3,54 @@
 
     python3 chip_smoke.py
 
-Phases (each prints its seconds):
+Phases (each prints its seconds and the card's name and power limit):
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile the CUDA kernels from ``lotus_tpu_torch/csrc`` with nvcc;
+2. build: compile the CUDA kernels from ``lotus_tpu_torch/csrc`` with nvcc,
+   one process per source, all started together;
 3. config 4 build: the seeded 10 * 2**20 x 768 corpus, IVF with nlist 4096,
    residual int8 + int4 refinement, block-aligned at 1024, exact f32 oracle;
-4. kernel vs plain: K1 (``probe_fold``) against ``probe_fold_reference`` on
+4. K1 vs plain: K1 (``probe_fold``) against ``probe_fold_reference`` on
    the card for each variant — int8-dot packed and int8 store with bf16
    queries at the config-4 shape of one 2048-query slice, bf16 packed,
    f32 unpacked and bf16 l2 on the first 512 lists at full width, and int8
    over a window past 8192 rows (unpacked);
-5. main path: ``ivf_search_grouped_probe`` at nprobe 208, rescore 24, int8
-   queries, query_chunk 2048 over B = 4096; recall@10 against the exact f32
-   oracle must reach 0.99; QPS over chained batches;
-6. store: ``TorchVS`` indexes 262,144 x 768 seeded vectors (nlist 256,
-   block-aligned) and serves a search without ids (through K1) and one with
-   ids (only allowed ids come back).
+5. IVF main path: ``ivf_search_grouped_probe`` at nprobe 208, rescore 24,
+   int8 queries, query_chunk 2048 over B = 4096; recall@10 against the
+   exact f32 oracle must reach 0.99; QPS over chained batches;
+6. IVF store: ``TorchVS`` indexes 262,144 x 768 seeded vectors (nlist 256,
+   block-aligned) and serves a search without ids (through K1) and one
+   with ids (only allowed ids come back);
+7. IVF exhaustive scan: K2 against its plain version on the inputs
+   ``ivf_residual_scan`` gives it (bf16 queries, the q.c bias plane and the
+   row mask over the whole config-4 store at B = 256); then
+   ``ivf_residual_scan`` at rescore 64, whose recall@10 must reach 0.99;
+8. stage breakdown of one config-4 slice (CUDA events per stage);
+9. flat corpus: a seeded, normalised 2**20 x 768 corpus (4096 clusters),
+   4096 queries, the exact f32 top-10 of 256 of them;
+10. K2 vs plain: K2 (``scan_fold``) against ``scan_fold_reference`` on the
+   same card tensors: int8 store with int8 queries (bit for bit), int8 store
+   with bf16 queries, bf16 store, f32 store, an n_valid past a 1024 block,
+   and the bias and row-mask planes at blk 512 and 1024; times at the main
+   shape (B = 4096 over all 2**20 rows) for bf16 and int8.  The float
+   variants hold every pool score within 2e-5 * (1 + |s|), the best id of
+   every lane whose best and second scores lie further apart than that,
+   and the top-10 sets except at a near-tie;
+11. flat main path: ``flat_search_pallas`` over the bf16 store at k 10;
+   recall@10 against the exact f32 top-10 must reach 0.98; QPS over chained
+   4096-query batches, K2 against the plain version (``scan_fold_reference``
+   and the same pool top-k);
+12. Flat store: ``TorchVS(index_type="flat")`` over the same rows serves a
+   4096-query search through K2 as bf16 with ``approx`` and as int8 with
+   ``scan="pallas"`` (rescore 32); a search with ids does not launch K2 and
+   returns only allowed ids;
+13. stage breakdown of one bf16 flat batch (CUDA events per stage).
 
-K1's launch count is reset after phase 4 and read after phase 6: the main
-path must have launched it.  A last phase times each stage of one 2048-query
-slice with CUDA events.  The last three lines are the kernel table, the
-card, and ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
-repository beside this file, it exits non-zero and prints no result.
+Each main path runs with its kernel's launch count set to 0 just before it
+and read just after: K1 over phases 5-6, K2 over phase 7 and over phases
+11-12; each must have launched its kernel, and each phase prints its count.  The last three lines are the
+kernel table, the card, and ``{"ok": true, "device": {...}}``.  Without a
+GPU, or without the repository beside this file, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -39,6 +65,13 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NPROBE, RESCORE, K, B, QUERY_CHUNK = 208, 24, 10, 4096, 2048
+FLAT_N, FLAT_SEED = 2**20, 3
+# K2's float variants against the plain version: bf16 products are exact and
+# the f32 sums run in another order (1.37e-6 at most at the main shape on an
+# H100).  Rounding the output to bf16, or skipping the f32 store's rounding
+# to bf16 before the dot, moves scores by 1e-5 or more.
+K2_TOL = 2e-5
+GPU = ""  # the card's "name, power limit", printed beside every time
 
 
 def say(msg: str) -> None:
@@ -66,7 +99,7 @@ class Phase:
 
         torch.cuda.synchronize()
         self.seconds = time.perf_counter() - self.t0
-        say(f"== {self.name}: {self.seconds:.3f} s" + ("" if exc[0] is None else " (FAILED)"))
+        say(f"== {self.name}: {self.seconds:.3f} s [{GPU}]" + ("" if exc[0] is None else " (FAILED)"))
         return False
 
 
@@ -117,16 +150,92 @@ def compare(name, args, *, bl, int8_dot, l2, packed, exact, tol=0.0, reps=0):
         plain_ms = cuda_ms(lambda: probe_fold_reference(*args, **kw), 1)
     say(f"  {name}: {'bitwise equal' if exact else f'tol {tol:g}'} -> {'OK' if ok else 'MISMATCH'}; "
         f"max_abs_err={err!r}; live candidates={live}"
-        + ("" if ms is None else f"; K1 {ms:.3f} ms vs plain {plain_ms:.3f} ms"))
+        + ("" if ms is None else f"; K1 {ms:.3f} ms vs plain {plain_ms:.3f} ms [{GPU}]"))
     if not ok:
         raise AssertionError(f"K1 disagrees with its plain version: {name}")
     return err, ms, plain_ms
 
 
-def stage_breakdown(state, queries, gpu: str) -> None:
-    """Device ms of each stage of one query_chunk slice, each stage run on
-    its own between CUDA events (torch.profiler's CUDA tracing crashes the
-    process on the chip machine, so there is no per-kernel trace)."""
+def k2_compare(name, args, *, exact, blk=1024, reps=0):
+    """Run K2 and its plain version on the same card tensors and hold them
+    together: bit for bit, or each pool score within K2_TOL * (1 + |s|), the
+    best id equal in every lane whose best and second scores lie further
+    apart than that, and the final top-K sets equal except where the plain
+    version's K-th and (K+1)-th scores lie within that tolerance.  Returns
+    (max_abs_err, kernel ms, plain ms)."""
+    import torch
+
+    from lotus_tpu_torch.ops.flat_scan import NL, _pool_topk, scan_fold, scan_fold_reference
+
+    got = scan_fold(*args, blk=blk)
+    torch.cuda.synchronize()
+    ref = scan_fold_reference(*args, blk=blk)
+    torch.cuda.synchronize()
+    (gs, gi), (rs, ri) = ((torch.cat([p[0], p[2]], 1), torch.cat([p[1], p[3]], 1)) for p in (got, ref))
+    diff = (gs.double() - rs.double()).abs()
+    err = float(diff.max())
+    ids = ""
+    if exact:
+        ok = torch.equal(gs.view(torch.int32), rs.view(torch.int32)) and torch.equal(gi, ri)
+    else:
+        tol = K2_TOL * (1.0 + rs.double().abs())
+        close = bool((diff <= tol).all())
+        clear = (rs[:, :NL] - rs[:, NL:]).double() > tol[:, :NL]
+        same_best = torch.equal(gi[:, :NL][clear], ri[:, :NL][clear])
+        (_, ti), (us, ui) = (_pool_topk(p, None, K + 1) for p in (got, ref))
+        near = ((us[:, K - 1] - us[:, K]).double() <= K2_TOL * (1.0 + us[:, K - 1].double().abs())).tolist()
+        ok = close and same_best and all(n or set(a[:K]) == set(b[:K])
+                                         for n, a, b in zip(near, ti.tolist(), ui.tolist()))
+        ids = f"; best ids {'equal' if same_best else 'DIFFER'} in {int(clear.sum())} clear lanes"
+    live = int((rs > -1e38).sum())
+    ms = plain_ms = None
+    if reps:
+        ms = cuda_ms(lambda: scan_fold(*args, blk=blk), reps)
+        plain_ms = cuda_ms(lambda: scan_fold_reference(*args, blk=blk), 1)
+    say(f"  {name}: {'bitwise equal' if exact else f'tol {K2_TOL:g}*(1+|s|), top-{K} sets'} -> "
+        f"{'OK' if ok else 'MISMATCH'}; max_abs_err={err!r}; live candidates={live}{ids}"
+        + ("" if ms is None else f"; K2 {ms:.3f} ms vs plain {plain_ms:.3f} ms [{GPU}]"))
+    if not ok:
+        raise AssertionError(f"K2 disagrees with its plain version: {name}")
+    return err, ms, plain_ms
+
+
+def chained_qps(fn, batch: int) -> tuple[float, float]:
+    """Best of 3 windows of 3 chained calls, with a synchronize around each
+    window: (queries per second, ms per call)."""
+    import torch
+
+    per_call = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        per_call = min(per_call, (time.perf_counter() - t0) / 3)
+    return batch / per_call, per_call * 1e3
+
+
+def recall_at(ids, gt) -> float:
+    """recall@K of the first len(gt) rows of ``ids`` against ``gt``."""
+    return float(sum(len(set(ids[i]) & set(gt[i])) for i in range(len(gt))) / (K * len(gt)))
+
+
+def print_stages(title: str, stages: dict, whole, reps: int = 5) -> None:
+    """Device ms of each stage and of the whole call, each run on its own
+    between CUDA events (torch.profiler's CUDA tracing crashes the process on
+    the chip machine, so there is no per-kernel trace); the rest is the
+    whole minus the stages' sum."""
+    times = {name: cuda_ms(fn, reps) for name, fn in stages.items()}
+    whole_ms = cuda_ms(whole, reps)
+    say(f"  {title}, device ms (CUDA events) [{GPU}]:")
+    for name, ms in [*times.items(), ("the rest", whole_ms - sum(times.values()))]:
+        say(f"    {ms:9.3f} ms {100 * ms / whole_ms:5.1f}%  {name}")
+    say(f"    {whole_ms:9.3f} ms 100.0%  whole")
+
+
+def stage_breakdown(state, queries) -> None:
+    """The stages of one config-4 query_chunk slice."""
     import torch
 
     from lotus_tpu_torch.ops.flat import flat_search
@@ -140,7 +249,7 @@ def stage_breakdown(state, queries, gpu: str) -> None:
     lists = lists.to(torch.int32)
     units, chunk_list, _, _ = probe_layout(lists, quantize_rows(q)[0], state["ivf_list_size"], bl)
     _, cand = ivf_search_grouped_probe(state, q, RESCORE, nprobe=NPROBE, int8_queries=True)
-    stages = {
+    print_stages(f"stage breakdown of one {QUERY_CHUNK}-query slice (the rest: reassembly, pool top-k, scale)", {
         "coarse ranking (flat_search over centroids)":
             lambda: flat_search(state["centroids"], q, NPROBE, metric="ip"),
         "query quantization + probe_layout":
@@ -149,16 +258,22 @@ def stage_breakdown(state, queries, gpu: str) -> None:
             units, state["ivf_vectors"], state["ivf_row_scales"], None, chunk_list,
             state["ivf_list_start"], state["ivf_list_size"], bl=bl, int8_dot=True, l2=False, packed=True),
         "exact rescore (24 -> 10)": lambda: rescore_candidates(state, q, cand, K),
-        "whole slice (ivf_search_grouped_probe)": lambda: ivf_search_grouped_probe(
-            state, q, K, nprobe=NPROBE, rescore=RESCORE, int8_queries=True),
-    }
-    times = {name: cuda_ms(fn, 5) for name, fn in stages.items()}
-    whole = times.pop("whole slice (ivf_search_grouped_probe)")
-    rest = whole - sum(times.values())
-    say(f"  stage breakdown of one {QUERY_CHUNK}-query slice, device ms (CUDA events) [{gpu}]:")
-    for name, ms in [*times.items(), ("reassembly, pool top-k, scale (the rest)", rest)]:
-        say(f"    {ms:9.3f} ms {100 * ms / whole:5.1f}%  {name}")
-    say(f"    {whole:9.3f} ms 100.0%  whole slice")
+    }, lambda: ivf_search_grouped_probe(state, q, K, nprobe=NPROBE, rescore=RESCORE, int8_queries=True))
+
+
+def flat_stage_breakdown(xb16, fq) -> None:
+    """The stages of one bf16 flat batch through ``flat_search_pallas``."""
+    import torch
+
+    from lotus_tpu_torch.ops.flat_scan import _pool_topk, flat_search_pallas, scan_fold
+
+    qb = fq.to(torch.bfloat16)
+    pool = scan_fold(qb, xb16, FLAT_N)
+    print_stages(f"stage breakdown of one {B}-query flat batch (bf16 store)", {
+        "query cast to bf16": lambda: fq.to(torch.bfloat16).contiguous(),
+        "K2 scan_fold (scan + merge)": lambda: scan_fold(qb, xb16, FLAT_N),
+        f"pool top-k (256 -> {K})": lambda: _pool_topk(pool, None, K),
+    }, lambda: flat_search_pallas(xb16, fq, K), reps=3)
 
 
 def main() -> int:
@@ -173,7 +288,11 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from lotus_tpu_torch.ops import _kernels
     from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk, synth_ivf_device_build
+    from lotus_tpu_torch import TorchVS
     from lotus_tpu_torch.ops.flat import flat_search
+    from lotus_tpu_torch.ops.flat_scan import (
+        _pool_topk, flat_search_pallas, ivf_residual_scan, residual_scan_inputs, scan_fold, scan_fold_reference,
+    )
     from lotus_tpu_torch.ops.ivf_probe import (
         LOCAL_BITS, QU, ivf_search_grouped_probe, probe_fold, probe_fold_reference, probe_layout,
     )
@@ -182,9 +301,10 @@ def main() -> int:
     dev = torch.device("cuda")
     t_all = time.perf_counter()
 
+    global GPU
+    GPU = card()
     with Phase("device"):
-        gpu = card()
-        say(f"  {gpu}; torch {torch.__version__} (CUDA {torch.version.cuda}); "
+        say(f"  {GPU}; torch {torch.__version__} (CUDA {torch.version.cuda}); "
             f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     with Phase("build kernels (nvcc)"):
@@ -205,9 +325,9 @@ def main() -> int:
         meta = state["meta"]
         say(f"  build {built['build_seconds']:.2f} s = {built['build_vecs_per_s']:,.0f} vecs/s; phases "
             + ", ".join(f"{k} {v:.2f} s" for k, v in built["timings"].items())
-            + f"; window {meta['probe_window']}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{gpu}]")
+            + f"; window {meta['probe_window']}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{GPU}]")
 
-    with Phase("kernel vs plain version"):
+    with Phase("K1 vs plain version"):
         bl = int(meta["block_align"])
         vecs, scales = state["ivf_vectors"], state["ivf_row_scales"]
         starts, sizes = state["ivf_list_start"], state["ivf_list_size"]
@@ -223,7 +343,7 @@ def main() -> int:
             packed=packed_main, exact=True, reps=10,
         )
         say(f"  K1 work: {macs:.4e} int8 MACs in {int(live.numel())} live chunks -> "
-            f"{2 * macs / (main_ms * 1e-3) / 1e12:.1f} TOP/s [{gpu}]")
+            f"{2 * macs / (main_ms * 1e-3) / 1e12:.1f} TOP/s [{GPU}]")
         units_bf, _, _, _ = probe_layout(lists.to(torch.int32), q.to(torch.bfloat16), sizes, bl)
         compare("int8 store, bf16 queries (dequant), config 4",
                 (units_bf, vecs, scales, None, chunk_list, starts, sizes), bl=bl, int8_dot=False,
@@ -278,29 +398,19 @@ def main() -> int:
         dists, ids = search(xq)
         torch.cuda.synchronize()
         launches_search = probe_fold.launches
-        got = ids[: gt.shape[0]].cpu().numpy()
-        recall = float(sum(len(set(got[i]) & set(gt[i])) for i in range(gt.shape[0])) / (K * gt.shape[0]))
+        recall = recall_at(ids.cpu().numpy(), gt)
         finite = bool(torch.isfinite(dists).all()) and tuple(ids.shape) == (B, K)
-        iters, per_call = 3, float("inf")
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                search(xq)
-            torch.cuda.synchronize()
-            per_call = min(per_call, (time.perf_counter() - t0) / iters)
-        qps = B / per_call
+        qps, batch_ms = chained_qps(lambda: search(xq), B)
         say(f"  recall@{K} vs exact f32 = {recall!r} over {gt.shape[0]} queries; finite {finite}; "
             f"K1 launches {launches_search}")
         say(f"  QPS {qps:,.1f} (B={B}, nprobe={NPROBE}, rescore={RESCORE}, int8 queries, "
-            f"query_chunk={QUERY_CHUNK}; {per_call * 1e3:.2f} ms per batch) "
-            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{gpu}]")
+            f"query_chunk={QUERY_CHUNK}; {batch_ms:.2f} ms per batch) "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{GPU}]")
         assert finite, "search output is not finite or has the wrong shape"
         assert recall >= 0.99, f"recall@10 {recall} below the 0.99 target"
         assert launches_search > 0, "the main path did not launch K1"
 
     with Phase("store entry point (TorchVS)"):
-        from lotus_tpu_torch import TorchVS
         from lotus_tpu_torch.ops.io import read_meta
 
         n_store = 262_144
@@ -319,9 +429,7 @@ def main() -> int:
         before = probe_fold.launches
         out = vs(qs.cpu().numpy(), K)
         store_launches = probe_fold.launches - before
-        exact = torch.topk(qs @ emb_t.T, K, dim=1).indices.cpu().numpy()
-        got = out.indices
-        store_recall = sum(len(set(got[i]) & set(exact[i].tolist())) for i in range(256)) / (256 * K)
+        store_recall = recall_at(out.indices, torch.topk(qs @ emb_t.T, K, dim=1).indices.tolist())
         allowed = sorted(torch.randperm(n_store, generator=torch.Generator().manual_seed(3))[:1000].tolist())
         sub_out = vs(qs[:4].cpu().numpy(), K, ids=allowed)
         allowed_set = set(allowed)
@@ -331,24 +439,157 @@ def main() -> int:
         shutil.rmtree(index_dir, ignore_errors=True)
         assert store_launches > 0, "TorchVS did not reach K1"
         assert only_allowed, "ids-restricted search returned an id outside ids"
+        del vs, emb, emb_t
 
     launches = probe_fold.launches  # the main path's launches: search, QPS runs, store
 
+    with Phase("IVF exhaustive scan (ivf_residual_scan, K2)"):
+        args, blk, _ = residual_scan_inputs(state, xq[:256])
+        k2_compare(f"int8 store, bf16 queries, q.c bias + row mask, blk {blk} (ivf_residual_scan's inputs, "
+                   f"B 256 x {args[2]:,} rows)", args, blk=blk, exact=False)
+        del args
+        scan_fold.launches = 0  # K2's second caller, on its own
+        _, rids = ivf_residual_scan(state, xq[:256], K, rescore=64)
+        torch.cuda.synchronize()
+        resid_first = scan_fold.launches
+        resid_recall = recall_at(rids.cpu().numpy(), gt)
+        resid_ms = cuda_ms(lambda: ivf_residual_scan(state, xq[:256], K, rescore=64), 3)
+        say(f"  B=256 over all {state['ivf_vectors'].shape[0]:,} storage rows (bf16 queries, q.c bias, "
+            f"row mask), rescore 64: recall@{K} vs exact f32 = {resid_recall!r}; {resid_ms:.3f} ms "
+            f"per call; K2 launches {resid_first} [{GPU}]")
+        assert resid_recall >= 0.99, f"ivf_residual_scan recall@10 {resid_recall} below 0.99"
+        assert resid_first > 0, "ivf_residual_scan did not launch K2"
+        resid_launches = scan_fold.launches
+        say(f"  K2 launches of this path: {resid_launches} (the first call, then 1 + 3 timed)")
+
     with Phase("stage breakdown"):
-        stage_breakdown(state, xq, gpu)
-    del state, built
+        stage_breakdown(state, xq)
+    del state, built, xq
+    torch.cuda.empty_cache()
+
+    with Phase("flat corpus"):
+        centers = corpus_centers(FLAT_SEED, 4096, 768, dev)
+        corpus = gen_chunk(FLAT_SEED, 0, centers, FLAT_N, 2.5)  # f32, normalised
+        g = torch.Generator(device=dev).manual_seed(FLAT_SEED)
+        fq = corpus[torch.randint(0, FLAT_N, (B,), generator=g, device=dev)]
+        fq = fq + 0.05 * torch.randn((B, 768), generator=g, device=dev)
+        fq = fq / torch.linalg.vector_norm(fq, dim=1, keepdim=True)
+        flat_gt = torch.topk(fq[:256] @ corpus.T, K, dim=1).indices.tolist()
+        xb16 = corpus.to(torch.bfloat16)
+        x8, s8 = quantize_rows(corpus)
+        q8, _ = quantize_rows(fq)
+        qb = fq.to(torch.bfloat16)
+        say(f"  {FLAT_N:,} x 768 rows (bf16 store {xb16.numel() * 2 / 2**30:.2f} GiB), {B} queries")
+
+    with Phase("K2 vs plain version"):
+        shape = f"B {B} x {FLAT_N:,} rows x 768"
+        k2_int8 = k2_compare(f"int8 store, int8 queries ({shape})", (q8, x8, FLAT_N, s8), exact=True, reps=5)
+        k2_main = k2_compare(f"bf16 store ({shape})", (qb, xb16, FLAT_N), exact=False, reps=5)
+        k2_compare("int8 store, bf16 queries", (qb, x8, FLAT_N, s8), exact=False)
+        k2_compare("f32 store (rounded to bf16)", (qb, corpus, FLAT_N), exact=False)
+        n_odd = FLAT_N - 1077
+        k2_compare(f"int8, n_valid {n_odd:,} (not whole 1024 blocks)", (q8, x8, n_odd, s8), exact=True)
+        mask = (torch.rand(FLAT_N, generator=g, device=dev) > 0.1).to(torch.int8)
+        for blk in (512, 1024):
+            bias = 0.1 * torch.randn((FLAT_N // blk, B), generator=g, device=dev)
+            k2_compare(f"int8, bias + row mask, blk {blk}", (q8, x8, FLAT_N, s8, bias, mask),
+                       blk=blk, exact=True)
+            k2_compare(f"int8 store, bf16 queries, bias + row mask, blk {blk}",
+                       (qb, x8, FLAT_N, s8, bias, mask), blk=blk, exact=False)
+        del mask, bias
+        macs = float(B) * FLAT_N * 768
+        say(f"  K2 work: {macs:.4e} MACs per batch -> bf16 {macs / (k2_main[1] * 1e-3) / 1e12:.2f} T FMA/s, "
+            f"int8 {2 * macs / (k2_int8[1] * 1e-3) / 1e12:.2f} TOP/s [{GPU}]")
+
+    scan_fold.launches = 0  # count only the flat main path's launches from here
+    with Phase("flat main path (flat_search_pallas)"):
+        s_flat, i_flat = flat_search_pallas(xb16, fq, K)
+        torch.cuda.synchronize()
+        flat_first = scan_fold.launches
+        flat_recall = recall_at(i_flat.tolist(), flat_gt)
+        finite = (bool(torch.isfinite(s_flat).all()) and tuple(i_flat.shape) == (B, K)
+                  and int(i_flat.min()) >= 0 and int(i_flat.max()) < FLAT_N)
+        qps, batch_ms = chained_qps(lambda: flat_search_pallas(xb16, fq, K), B)
+        plain_qps, plain_batch_ms = chained_qps(
+            lambda: _pool_topk(scan_fold_reference(fq.to(torch.bfloat16), xb16, FLAT_N), None, K), B)
+        _, i8 = flat_search_pallas(x8, fq, K, xb_scales=s8)
+        int8_recall = recall_at(i8.tolist(), flat_gt)
+        int8_qps, int8_ms = chained_qps(lambda: flat_search_pallas(x8, fq, K, xb_scales=s8), B)
+        say(f"  bf16 store: recall@{K} vs exact f32 = {flat_recall!r} over 256 queries; finite {finite}; "
+            f"K2 launches {flat_first}")
+        say(f"  QPS {qps:,.1f} through K2 ({batch_ms:.2f} ms per {B}-query batch) vs {plain_qps:,.1f} "
+            f"through the plain version ({plain_batch_ms:.2f} ms) [{GPU}]")
+        say(f"  int8 store, int8 queries (no rescore): recall@{K} {int8_recall!r}; QPS {int8_qps:,.1f} "
+            f"({int8_ms:.2f} ms per batch) [{GPU}]")
+        assert finite, "flat search output is not finite, has the wrong shape or ids out of range"
+        assert flat_recall >= 0.98, f"flat recall@10 {flat_recall} below 0.98"
+        assert flat_first > 0, "flat_search_pallas did not launch K2"
+        path_launches = scan_fold.launches
+        say(f"  K2 launches of this path: {path_launches} (bf16 and int8: the first call, then 9 timed each)")
+
+    with Phase("Flat store entry point (TorchVS)"):
+        emb = corpus.cpu().numpy()
+        qs_np = fq.cpu().numpy()
+        index_dir = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_flat_index")
+        for kw in (dict(device_dtype="bfloat16", approx=True), dict(device_dtype="int8", scan="pallas")):
+            shutil.rmtree(index_dir, ignore_errors=True)
+            vs = TorchVS(index_type="flat", **kw)
+            t0 = time.perf_counter()
+            vs.index([], emb, index_dir)
+            t_index = time.perf_counter() - t0
+            before = scan_fold.launches
+            t0 = time.perf_counter()
+            out = vs(qs_np, K)
+            t_first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            vs(qs_np, K)
+            t_warm = time.perf_counter() - t0
+            used = scan_fold.launches - before
+            say(f"  TorchVS(index_type='flat', {', '.join(f'{k}={v!r}' for k, v in kw.items())}): "
+                f"index() {t_index:.2f} s; {B}-query search {t_first:.2f} s first (loads the store), "
+                f"{t_warm:.3f} s warm; recall@{K} {recall_at(out.indices, flat_gt)!r}; "
+                f"K2 launches {used} [{GPU}]")
+            assert used > 0, f"TorchVS {kw} did not reach K2"
+        allowed = sorted(torch.randperm(FLAT_N, generator=torch.Generator().manual_seed(3))[:1000].tolist())
+        before = scan_fold.launches
+        sub_out = vs(qs_np[:4], K, ids=allowed)
+        allowed_set = set(allowed)
+        only_allowed = all(i in allowed_set or i == -1 for row in sub_out.indices for i in row)
+        ids_launches = scan_fold.launches - before
+        say(f"  search with ids: K2 launches {ids_launches}; only allowed ids {only_allowed}; stats {vs.stats}")
+        shutil.rmtree(index_dir, ignore_errors=True)
+        assert ids_launches == 0, "an ids-restricted search launched K2"
+        assert only_allowed, "ids-restricted search returned an id outside ids"
+
+        say(f"  K2 launches of the two stores: {scan_fold.launches - path_launches}")
+    flat_launches = scan_fold.launches  # the flat main path's launches: search, QPS runs, store
+
+    with Phase("flat stage breakdown"):
+        flat_stage_breakdown(xb16, fq)
 
     say(f"total {time.perf_counter() - t_all:.1f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(json.dumps({"kernels": [{
-        "name": "ivf_probe (K1)",
-        "route": "cuda",
-        "source": "lotus_tpu_torch/csrc/ivf_probe.cu",
-        "replaces": "lotus_tpu/ops/pallas_ivf.py:235",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": main_ms,
-        "plain_ms": main_plain_ms,
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "ivf_probe (K1)",
+            "route": "cuda",
+            "source": "lotus_tpu_torch/csrc/ivf_probe.cu",
+            "replaces": "lotus_tpu/ops/pallas_ivf.py:235",
+            "launches": launches,
+            "max_abs_err": main_err,
+            "ms": main_ms,
+            "plain_ms": main_plain_ms,
+        },
+        {
+            "name": "flat_scan (K2)",
+            "route": "cuda",
+            "source": "lotus_tpu_torch/csrc/flat_scan.cu",
+            "replaces": "lotus_tpu/ops/pallas_flat.py:42",
+            "launches": resid_launches + flat_launches,
+            "max_abs_err": k2_main[0],
+            "ms": k2_main[1],
+            "plain_ms": k2_main[2],
+        },
+    ]}))
     print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``lotus_tpu_torch/csrc/*.cu`` into one
-shared library with a plain C interface under ``build/lotus_tpu_torch/``
-(beside the package), named by a hash of the sources so an edit never loads
-a stale build.  ``ctypes`` loads it; every pointer and the stream are passed
-as ``c_void_p``.  Nothing here runs at import time: a machine without nvcc
-or a GPU imports the package and uses the plain PyTorch versions.
+At first use, ``nvcc`` compiles every ``lotus_tpu_torch/csrc/*.cu`` (one
+process per source, all started together) and links them into one shared
+library with a plain C interface under ``build/lotus_tpu_torch/`` (beside
+the package), named by a hash of the sources so an edit never loads a stale
+build.  The flags have no fast-math: the kernels round as the reference
+does.  ``ctypes`` loads the library; every device pointer and the stream
+are passed as ``c_void_p``.  Nothing here runs at import time: a machine without
+nvcc or a GPU imports the package and uses the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -23,10 +25,8 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "lotus_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -54,18 +54,25 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)], capture_output=True, text=True
-    )
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, lib_path)  # atomic: concurrent builders never load a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+        procs = [
+            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)
+        ]
+        build_log = "".join(p.communicate()[0] for p in procs)
+        codes = [p.returncode for p in procs]
+        if not any(codes):
+            link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(Path(tmp) / "lib.so"), *objs],
+                                  capture_output=True, text=True)
+            build_log += link.stdout + link.stderr
+            codes.append(link.returncode)
+        build_seconds = time.perf_counter() - t0
+        if any(codes):
+            raise RuntimeError(f"nvcc failed ({codes}):\n{build_log}")
+        os.replace(Path(tmp) / "lib.so", lib_path)  # atomic: concurrent builders never load a partial file
     return lib_path
 
 
@@ -78,6 +85,10 @@ def lib() -> ctypes.CDLL:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             handle.lotus_ivf_probe.argtypes = [vp] * 9 + [ci] * 7 + [vp]
             handle.lotus_ivf_probe.restype = ci
+            handle.lotus_flat_scan.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+            handle.lotus_flat_scan.restype = ci
+            handle.lotus_flat_scan_plan.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
+            handle.lotus_flat_scan_plan.restype = None
             handle.lotus_cuda_error_string.argtypes = [ci]
             handle.lotus_cuda_error_string.restype = ctypes.c_char_p
             _lib = handle

@@ -9,8 +9,12 @@ memory; the planner routes
 - an IVF store with ``ids`` to an exact scan of just the allowed rows
   (``_ivf_subset_search``) — the path the pandas operators take, since
   ``sem_search`` and ``sem_sim_join`` always pass ``ids``;
-- a Flat store to ``flat_search`` with a validity mask (int8 stores rescore
-  exactly in f32).
+- a Flat store without ``ids`` to the streaming scan (``ops/flat_scan.py``,
+  kernel K2) where ``TpuVS`` takes it (``tpu_vs.py:781-791``): ``scan="pallas"``,
+  or ``"auto"`` with ``approx``, bf16 storage and B >= 256, on ip/cosine
+  stores whose padded length is whole 1024-row blocks;
+- any other Flat search to ``flat_search`` with a validity mask.
+  int8 Flat stores rescore exactly in f32 (32 candidates by default).
 
 Paths not ported yet raise ``NotImplementedError`` naming the ROADMAP item
 that adds them; none falls back silently.
@@ -26,6 +30,7 @@ import torch
 from numpy.typing import NDArray
 
 from lotus_tpu_torch.ops import io as index_io
+from lotus_tpu_torch.ops.common import round_up
 from lotus_tpu_torch.ops.flat import DEFAULT_BLOCK_ROWS, flat_search
 from lotus_tpu_torch.ops.ivf import default_device
 from lotus_tpu_torch.types import RMOutput
@@ -43,10 +48,11 @@ class TorchVS(VS):
     """Flat / IVF-Flat vector store on one torch device.
 
     Takes ``TpuVS``'s constructor arguments plus ``device`` (default: the
-    GPU when there is one).  ``mesh`` (ROADMAP M11), ``recall_target``
-    (calibration, ROADMAP M6) and ``scan="pallas"`` (kernel K2, ROADMAP M8)
-    are not ported yet and raise ``NotImplementedError``.  ``approx`` is
-    accepted and served exactly (see ``ops/flat.py``).
+    GPU when there is one).  ``mesh`` (ROADMAP M11) and ``recall_target``
+    (calibration, ROADMAP M6) are not ported yet and raise
+    ``NotImplementedError``.  ``approx`` routes bf16 Flat searches of
+    B >= 256 to K2 under ``scan="auto"``; ``flat_search`` itself serves it
+    exactly (see ``ops/flat.py``).
     """
 
     def __init__(
@@ -80,8 +86,6 @@ class TorchVS(VS):
             raise NotImplementedError("TorchVS: sharded stores (mesh) are ROADMAP item M11")
         if recall_target is not None:
             raise NotImplementedError("TorchVS: nprobe calibration (recall_target) is ROADMAP item M6")
-        if scan == "pallas":
-            raise NotImplementedError("TorchVS: the streaming flat-scan kernel K2 is ROADMAP item M8")
         self.index_type = index_type
         self.metric = metric
         self.device_dtype = device_dtype
@@ -264,23 +268,33 @@ class TorchVS(VS):
             mask = np.zeros(xb.shape[0], dtype=bool)
             mask[np.asarray(ids, dtype=np.int64)] = True
             valid = torch.from_numpy(mask).to(self.device)
-        if (
-            valid is None and meta["metric"] in ("ip", "cosine") and xb.shape[0] % 1024 == 0
-            and kwargs.get("scan", self.scan) == "auto" and self.approx and xq.shape[0] >= 256
-            and xb.dtype == torch.bfloat16
-        ):
-            raise NotImplementedError("TorchVS: the streaming flat-scan kernel K2 is ROADMAP item M8")
         # int8 flat scans rescore exactly in f32 by default.
         rescore = kwargs.get("rescore", self.rescore)
         if rescore is None and xb.dtype == torch.int8:
             rescore = 32
         do_rescore = rescore is not None and xb.dtype == torch.int8 and meta["metric"] in ("ip", "cosine")
         k_cand = max(k_eff, int(rescore)) if do_rescore else k_eff
-        dists, idx = flat_search(
-            xb, xq_t, k_cand, metric=meta["metric"], n_rows=n, valid=valid,
-            xb_norms_sq=state["xb_norms_sq"], block_rows=self.block_rows,
-            xb_scales=state.get("xb_scales"),
+        scan = kwargs.get("scan", self.scan)
+        # The reference pads a store longer than one block to whole blocks
+        # (tpu_vs.py:275) and gates K2 on that padded length; this store is
+        # unpadded, so the gate reads the length the reference would have.
+        n_pad = round_up(n, self.block_rows) if n > self.block_rows else n
+        use_k2 = (
+            valid is None and meta["metric"] in ("ip", "cosine") and n_pad % 1024 == 0
+            and (scan == "pallas" or (
+                scan == "auto" and self.approx and xq.shape[0] >= 256 and xb.dtype == torch.bfloat16
+            ))
         )
+        if use_k2:
+            from lotus_tpu_torch.ops.flat_scan import flat_search_pallas
+
+            dists, idx = flat_search_pallas(xb, xq_t, k_cand, n_rows=n, xb_scales=state.get("xb_scales"))
+        else:
+            dists, idx = flat_search(
+                xb, xq_t, k_cand, metric=meta["metric"], n_rows=n, valid=valid,
+                xb_norms_sq=state["xb_norms_sq"], block_rows=self.block_rows,
+                xb_scales=state.get("xb_scales"),
+            )
         if do_rescore:
             from lotus_tpu_torch.ops.flat import flat_rescore
 

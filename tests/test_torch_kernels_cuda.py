@@ -1,4 +1,5 @@
-"""K1 on the card against its plain PyTorch version, variant by variant.
+"""K1 and K2 on the card against their plain PyTorch versions, variant by
+variant.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (a CUDA kernel has no
 CPU mode) and skip without them.  The file imports torch only, so it also
@@ -61,3 +62,51 @@ def test_kernel_matches_plain_version_on_gpu(dtype, metric, int8_dot, packed):
         got = (got.view(torch.int32) & ~tprobe._LOCAL_MASK).view(torch.float32)
         ref = (ref.view(torch.int32) & ~tprobe._LOCAL_MASK).view(torch.float32)
     torch.testing.assert_close(got, ref, rtol=tol, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "qdt,xdt,d,blk",
+    [
+        (torch.int8, torch.int8, 64, None),           # the dp4a dot, aligned words
+        (torch.int8, torch.int8, 70, 512),            # depth not a multiple of 4; bias + row mask
+        (torch.int8, torch.int8, 70, 1024),
+        (torch.bfloat16, torch.int8, 64, 512),        # int8 store, bf16 queries (residual scan)
+        (torch.bfloat16, torch.int8, 64, 1024),
+        (torch.bfloat16, torch.bfloat16, 70, None),   # bf16 store
+        (torch.bfloat16, torch.float32, 33, None),    # f32 store rounded to bf16
+    ],
+)
+def test_scan_fold_matches_plain_version_on_gpu(qdt, xdt, d, blk):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: K2 has no CPU mode")
+    from lotus_tpu_torch.ops import flat_scan as tscan
+
+    g = torch.Generator().manual_seed(1)
+    b, n, n_valid = 150, 5000, 4700  # B not a multiple of 64; a ragged, masked row tail
+
+    def values(dtype, rows):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, (rows, d), generator=g, dtype=torch.int8)
+        return torch.randn((rows, d), generator=g).to(dtype)
+
+    q, x = values(qdt, b), values(xdt, n)
+    scales = torch.rand(n, generator=g) + 0.5 if xdt == torch.int8 else None
+    bias = torch.randn((-(-n // blk), b), generator=g) if blk else None
+    mask = (torch.rand(n, generator=g) > 0.3).to(torch.int8) if blk else None
+    args = (q, x, n_valid, scales, bias, mask)
+    ref = tscan.scan_fold_reference(*args, blk=blk or tscan.BLK)
+    got = tscan.scan_fold(*[t.cuda() if isinstance(t, torch.Tensor) else t for t in args], blk=blk or tscan.BLK)
+    torch.cuda.synchronize()
+    (gs, gi, gs2, gi2), (rs, ri, rs2, ri2) = [[t.cpu() for t in p] for p in (got, ref)]
+    if qdt == torch.int8:  # exact integer dot, single f32 multiply and add: bit for bit
+        for a, e in ((gs, rs), (gs2, rs2)):
+            torch.testing.assert_close(a.view(torch.int32), e.view(torch.int32), rtol=0, atol=0)
+        torch.testing.assert_close(gi, ri, rtol=0, atol=0)
+        torch.testing.assert_close(gi2, ri2, rtol=0, atol=0)
+        return
+    # bf16 products are exact; the f32 sums run in another order (d <= 70 terms).
+    torch.testing.assert_close(gs, rs, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gs2, rs2, rtol=1e-4, atol=1e-4)
+    clear = (rs - rs2).abs() > 1e-3  # a lane's two rows may swap only on a near-tie
+    assert torch.equal(gi[clear], ri[clear])

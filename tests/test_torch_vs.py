@@ -77,8 +77,6 @@ def test_paths_not_ported_raise(tmp_path):
         TorchVS(mesh=object())
     with pytest.raises(NotImplementedError, match="M6"):
         TorchVS(index_type="ivf", recall_target=0.9)
-    with pytest.raises(NotImplementedError, match="M8"):
-        TorchVS(scan="pallas")
     emb, q, _ = _emb(2, n=600, d=16)
     vs = TorchVS(index_type="ivf", nlist=16, nprobe=4, device="cpu")
     vs.index([], emb, str(tmp_path / "small"))  # 600 / 16 rows per list: not block-aligned
@@ -87,6 +85,33 @@ def test_paths_not_ported_raise(tmp_path):
     out = vs(q[:4], 5)  # 4 * 4 >= 16: the exhaustive scan serves it
     ref = np.argsort(-(q[:4] @ emb.T), axis=1)[:, :5]
     assert _same_sets(out, type(out)(distances=[], indices=ref.tolist()))
+
+
+def test_flat_k2_gate_reads_the_padded_length(tmp_path, monkeypatch):
+    """A bf16 ``approx`` Flat store of 3,000 rows with ``block_rows=1024``:
+    the reference pads it to 3,072 rows (``tpu_vs.py:275``) and gates K2 on
+    that length (``:783``), so both packages scan it with K2.  The top-10
+    sets agree except where the reference's 10th and 11th scores lie within
+    1e-3 (the bf16 sums run in another order)."""
+    import lotus_tpu.ops.pallas_flat as pflat
+    from lotus_tpu_torch.ops import flat_scan as tscan
+
+    emb, _, rng = _emb(12, n=3000)
+    q = emb[rng.integers(0, 3000, 256)] + 0.02 * rng.standard_normal((256, 32)).astype(np.float32)
+    ref, port = _pair(tmp_path, emb, index_type="flat", device_dtype="bfloat16", approx=True, block_rows=1024)
+    calls = []
+    for module, name in ((pflat, "flat_search_pallas"), (tscan, "scan_fold")):
+        def spy(*a, _real=getattr(module, name), _name=name, **kw):
+            calls.append(_name)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(module, name, spy)
+    r10, r11, p10 = ref(q, 10), ref(q, 11), port(q, 10)
+    assert calls == ["flat_search_pallas", "flat_search_pallas", "scan_fold"]
+    r11d = np.asarray(r11.distances)
+    for i, (a, b) in enumerate(zip(r10.indices, p10.indices)):
+        if r11d[i, 9] - r11d[i, 10] > 1e-3:
+            assert set(a) == set(b), i
 
 
 def _frames():
