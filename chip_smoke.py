@@ -22,7 +22,7 @@ Phases (each prints its seconds and the card's name and power limit):
    with ids (only allowed ids come back);
 7. IVF exhaustive scan: K2 against its plain version on the inputs
    ``ivf_residual_scan`` gives it (bf16 queries, the q.c bias plane and the
-   row mask over the whole config-4 store at B = 256); then
+   row mask over the whole config-4 store at B = 256), both timed; then
    ``ivf_residual_scan`` at rescore 64, whose recall@10 must reach 0.99;
 8. stage breakdown of one config-4 slice (CUDA events per stage);
 9. flat corpus: a seeded, normalised 2**20 x 768 corpus (4096 clusters),
@@ -30,8 +30,10 @@ Phases (each prints its seconds and the card's name and power limit):
 10. K2 vs plain: K2 (``scan_fold``) against ``scan_fold_reference`` on the
    same card tensors: int8 store with int8 queries (bit for bit), int8 store
    with bf16 queries, bf16 store, f32 store, an n_valid past a 1024 block,
-   and the bias and row-mask planes at blk 512 and 1024; times at the main
-   shape (B = 4096 over all 2**20 rows) for bf16 and int8.  The float
+   the bias and row-mask planes at blk 512 and 1024, and a d-1536 store
+   (bf16, and int8 under bf16 and int8 queries) whose query tile streams
+   with the ring; times at the main shape (B = 4096 over all 2**20 rows)
+   for bf16 and int8, and for bf16 at d 1536.  The float
    variants hold every pool score within 2e-5 * (1 + |s|), the best id of
    every lane whose best and second scores lie further apart than that,
    and the top-10 sets except at a near-tie;
@@ -66,6 +68,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 NPROBE, RESCORE, K, B, QUERY_CHUNK = 208, 24, 10, 4096, 2048
 FLAT_N, FLAT_SEED = 2**20, 3
+DEEP_N = 2**18  # rows of the d-1536 K2 comparison
 # K2's float variants against the plain version: bf16 products are exact and
 # the f32 sums run in another order (1.37e-6 at most at the main shape on an
 # H100).  Rounding the output to bf16, or skipping the f32 store's rounding
@@ -169,6 +172,7 @@ def k2_compare(name, args, *, exact, blk=1024, reps=0):
 
     got = scan_fold(*args, blk=blk)
     torch.cuda.synchronize()
+    plan = scan_fold.last_plan
     ref = scan_fold_reference(*args, blk=blk)
     torch.cuda.synchronize()
     (gs, gi), (rs, ri) = ((torch.cat([p[0], p[2]], 1), torch.cat([p[1], p[3]], 1)) for p in (got, ref))
@@ -195,9 +199,46 @@ def k2_compare(name, args, *, exact, blk=1024, reps=0):
     say(f"  {name}: {'bitwise equal' if exact else f'tol {K2_TOL:g}*(1+|s|), top-{K} sets'} -> "
         f"{'OK' if ok else 'MISMATCH'}; max_abs_err={err!r}; live candidates={live}{ids}"
         + ("" if ms is None else f"; K2 {ms:.3f} ms vs plain {plain_ms:.3f} ms [{GPU}]"))
+    say(f"    loader {plan['loader']}; query tile {plan['query']}; "
+        f"{plan['splits']} row splits of {plan['rows_per_split']:,} rows")
     if not ok:
         raise AssertionError(f"K2 disagrees with its plain version: {name}")
     return err, ms, plain_ms
+
+
+def scan_kernel_report() -> None:
+    """K2's scan kernels as built: registers and spill bytes from ptxas, and
+    the tensor-core (HGMMA bf16, IGMMA int8) and TMA-load (UTMALDG)
+    instructions that ``cuobjdump -sass`` shows in each.  Fails unless every
+    bf16 instantiation has HGMMA and the int8 one IGMMA."""
+    from lotus_tpu_torch.ops import _kernels
+
+    ptxas = {}
+    for part in _kernels.build_log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        ptxas[name] = (regs and int(regs.group(1)), spill and (int(spill.group(1)), int(spill.group(2))))
+    sass = subprocess.run([_kernels.cuda_tool("cuobjdump"), "-sass", str(_kernels.build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(("HGMMA", "IGMMA", "UTMALDG"), 0)
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    scans = sorted(f for f in counts if "scan_kernel" in f)
+    assert scans, "no K2 scan kernel in the built library"
+    for f in scans:
+        int8_dot = "scan_kernelIa" in f  # the operand type is int8
+        regs, spill = ptxas.get(f, (None, None))
+        say(f"  {f}: {'int8 dot' if int8_dot else 'bf16 dot'}; ptxas {regs} registers, spill "
+            f"stores/loads {spill} bytes; SASS {counts[f]}")
+        op = "IGMMA" if int8_dot else "HGMMA"
+        assert counts[f][op] > 0, f"K2 scan kernel {f} has no {op}: not on the tensor cores"
 
 
 def chained_qps(fn, batch: int) -> tuple[float, float]:
@@ -314,6 +355,7 @@ def main() -> int:
         say(f"  nvcc {_kernels.build_seconds:.2f} s -> {os.path.relpath(_kernels.build(), REPO)}; "
             f"ptxas: {len(regs)} kernels, <= {max(regs, default=0)} registers, "
             f"spill stores {min(spills, default=0)}..{max(spills, default=0)} bytes")
+        scan_kernel_report()
 
     with Phase("config 4 build"):
         torch.cuda.reset_peak_memory_stats()
@@ -446,7 +488,7 @@ def main() -> int:
     with Phase("IVF exhaustive scan (ivf_residual_scan, K2)"):
         args, blk, _ = residual_scan_inputs(state, xq[:256])
         k2_compare(f"int8 store, bf16 queries, q.c bias + row mask, blk {blk} (ivf_residual_scan's inputs, "
-                   f"B 256 x {args[2]:,} rows)", args, blk=blk, exact=False)
+                   f"B 256 x {args[2]:,} rows)", args, blk=blk, exact=False, reps=3)
         del args
         scan_fold.launches = 0  # K2's second caller, on its own
         _, rids = ivf_residual_scan(state, xq[:256], K, rescore=64)
@@ -497,6 +539,16 @@ def main() -> int:
             k2_compare(f"int8 store, bf16 queries, bias + row mask, blk {blk}",
                        (qb, x8, FLAT_N, s8, bias, mask), blk=blk, exact=False)
         del mask, bias
+        # A deeper store (d 1536, text-embedding-3-small's width): the query
+        # tile no longer fits beside the ring and streams with the stages.
+        deep = torch.randn((DEEP_N, 1536), generator=g, device=dev)
+        dq = torch.randn((B, 1536), generator=g, device=dev).to(torch.bfloat16)
+        k2_compare(f"bf16 store, d 1536 (B {B} x {DEEP_N:,} rows)", (dq, deep.to(torch.bfloat16), DEEP_N),
+                   exact=False, reps=3)
+        d8, ds8 = quantize_rows(deep)
+        k2_compare("int8 store, bf16 queries, d 1536", (dq, d8, DEEP_N, ds8), exact=False)
+        k2_compare("int8 store, int8 queries, d 1536", (quantize_rows(dq.float())[0], d8, DEEP_N, ds8), exact=True)
+        del deep, dq, d8, ds8
         macs = float(B) * FLAT_N * 768
         say(f"  K2 work: {macs:.4e} MACs per batch -> bf16 {macs / (k2_main[1] * 1e-3) / 1e12:.2f} T FMA/s, "
             f"int8 {2 * macs / (k2_int8[1] * 1e-3) / 1e12:.2f} TOP/s [{GPU}]")

@@ -35,14 +35,15 @@ build_log = ""
 build_seconds = 0.0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA toolkit to build")
 
 
 def build() -> Path:
@@ -58,14 +59,14 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
         procs = [
-            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+            subprocess.Popen([cuda_tool("nvcc"), *NVCC_FLAGS, "-c", "-o", obj, str(src)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(sources, objs)
         ]
         build_log = "".join(p.communicate()[0] for p in procs)
         codes = [p.returncode for p in procs]
         if not any(codes):
-            link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(Path(tmp) / "lib.so"), *objs],
+            link = subprocess.run([cuda_tool("nvcc"), *ARCH, "-shared", "-o", str(Path(tmp) / "lib.so"), *objs],
                                   capture_output=True, text=True)
             build_log += link.stdout + link.stderr
             codes.append(link.returncode)
@@ -85,7 +86,7 @@ def lib() -> ctypes.CDLL:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             handle.lotus_ivf_probe.argtypes = [vp] * 9 + [ci] * 7 + [vp]
             handle.lotus_ivf_probe.restype = ci
-            handle.lotus_flat_scan.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+            handle.lotus_flat_scan.argtypes = [vp] * 9 + [ci] * 8 + [vp] + [ctypes.POINTER(ci)] * 2
             handle.lotus_flat_scan.restype = ci
             handle.lotus_flat_scan_plan.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
             handle.lotus_flat_scan_plan.restype = None

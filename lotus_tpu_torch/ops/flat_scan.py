@@ -36,6 +36,10 @@ NL = 128    # candidate lanes (running top-2 each): lane = row mod NL
 REF_BLOCK_ROWS = 65536  # rows per plain-version step: bounds its (B, rows) score tile
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# How K2 loads the store (flat_scan.cu's Loader): through the producer's
+# registers, by TMA, or by TMA as raw int8 or f32 rows converted to bf16 in
+# shared memory.
+_LOADERS = ("register", "tma", "tma+convert")
 # (query, store) dtypes K2 takes: the int8 dot, else bf16 queries.
 _PAIRS = {(torch.int8, torch.int8), (torch.bfloat16, torch.int8),
           (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)}
@@ -163,7 +167,11 @@ def scan_fold(
                                  or row_mask.shape != (xb.shape[0],)):
         raise ValueError(f"scan_fold: row_mask must be a ({xb.shape[0]},) int8 or bool tensor")
 
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = _kernels.lib()
+    codes = (_DTYPE_CODE[xq.dtype], _DTYPE_CODE[xb.dtype])
     sms = torch.cuda.get_device_properties(xb.device).multi_processor_count
     splits, rows_per_split = ctypes.c_int(), ctypes.c_int()
     lib.lotus_flat_scan_plan(b, n_scan, sms, ctypes.byref(splits), ctypes.byref(rows_per_split))
@@ -172,22 +180,23 @@ def scan_fold(
     out_i = torch.empty((b, 2 * NL), dtype=torch.int32, device=xb.device)
     part_s = torch.empty((splits, b, 2 * NL), dtype=torch.float32, device=xb.device)
     part_i = torch.empty((splits, b, 2 * NL), dtype=torch.int32, device=xb.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    loader, streamed = ctypes.c_int(), ctypes.c_int()
     code = lib.lotus_flat_scan(
         ptr(xq), ptr(xb), ptr(scales), ptr(bias), ptr(row_mask), ptr(part_s), ptr(part_i),
-        ptr(out_s), ptr(out_i), b, d, n_scan, splits, rows_per_split, blk,
-        _DTYPE_CODE[xq.dtype], _DTYPE_CODE[xb.dtype],
-        torch.cuda.current_stream(xb.device).cuda_stream,
+        ptr(out_s), ptr(out_i), b, d, n_scan, splits, rows_per_split, blk, *codes,
+        torch.cuda.current_stream(xb.device).cuda_stream, ctypes.byref(loader), ctypes.byref(streamed),
     )
     _kernels.check(code, "flat_scan launch")
     scan_fold.launches += 1
+    scan_fold.last_plan = {"loader": _LOADERS[loader.value], "query": "streamed" if streamed.value else "resident",
+                           "splits": splits, "rows_per_split": rows_per_split}
     return out_s[:, :NL], out_i[:, :NL], out_s[:, NL:], out_i[:, NL:]
 
 
 scan_fold.launches = 0  # K2 launches in this process (read by chip_smoke.py)
+# The last launch's store loader, query tile (resident or streamed with the
+# stages) and split plan (read by chip_smoke.py and the card tests).
+scan_fold.last_plan = None
 
 
 def _pool_topk(pool, q_scales: torch.Tensor | None, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -68,8 +68,8 @@ def test_kernel_matches_plain_version_on_gpu(dtype, metric, int8_dot, packed):
 @pytest.mark.parametrize(
     "qdt,xdt,d,blk",
     [
-        (torch.int8, torch.int8, 64, None),           # the dp4a dot, aligned words
-        (torch.int8, torch.int8, 70, 512),            # depth not a multiple of 4; bias + row mask
+        (torch.int8, torch.int8, 64, None),           # the int8 dot, store through TMA
+        (torch.int8, torch.int8, 70, 512),            # depth not a multiple of 16 (register loader); bias + row mask
         (torch.int8, torch.int8, 70, 1024),
         (torch.bfloat16, torch.int8, 64, 512),        # int8 store, bf16 queries (residual scan)
         (torch.bfloat16, torch.int8, 64, 1024),
@@ -98,15 +98,113 @@ def test_scan_fold_matches_plain_version_on_gpu(qdt, xdt, d, blk):
     ref = tscan.scan_fold_reference(*args, blk=blk or tscan.BLK)
     got = tscan.scan_fold(*[t.cuda() if isinstance(t, torch.Tensor) else t for t in args], blk=blk or tscan.BLK)
     torch.cuda.synchronize()
+    _hold_scan(got, ref, exact=qdt == torch.int8)
+
+
+def _hold_scan(got, ref, *, exact):
+    """K2's pool against its plain version's: bit for bit with ids for the
+    int8 dot, else within the float tolerance with equal best ids in clear
+    lanes."""
     (gs, gi, gs2, gi2), (rs, ri, rs2, ri2) = [[t.cpu() for t in p] for p in (got, ref)]
-    if qdt == torch.int8:  # exact integer dot, single f32 multiply and add: bit for bit
+    if exact:  # exact integer dot, single f32 multiply and add: bit for bit
         for a, e in ((gs, rs), (gs2, rs2)):
             torch.testing.assert_close(a.view(torch.int32), e.view(torch.int32), rtol=0, atol=0)
         torch.testing.assert_close(gi, ri, rtol=0, atol=0)
         torch.testing.assert_close(gi2, ri2, rtol=0, atol=0)
         return
-    # bf16 products are exact; the f32 sums run in another order (d <= 70 terms).
+    # bf16 products are exact; the f32 sums run in another order.
     torch.testing.assert_close(gs, rs, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(gs2, rs2, rtol=1e-4, atol=1e-4)
     clear = (rs - rs2).abs() > 1e-3  # a lane's two rows may swap only on a near-tie
     assert torch.equal(gi[clear], ri[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "qdt,xdt,d,b,n,n_valid,ternary,loader",
+    [
+        (torch.bfloat16, torch.bfloat16, 768, 150, 3000, 3000, False, "tma"),  # the main depth, TMA
+        (torch.int8, torch.int8, 768, 150, 3000, 3000, False, "tma"),  # the last tile 22 of 64 queries
+        (torch.int8, torch.int8, 768, 65, 3000, 2917, False, "tma"),  # a tile of one query
+        (torch.bfloat16, torch.bfloat16, 768, 1, 3000, 2917, False, "tma"),  # a lone query
+        (torch.bfloat16, torch.int8, 768, 70, 3000, 2917, False, "tma+convert"),  # residual-scan pair
+        (torch.bfloat16, torch.float32, 768, 70, 3000, 2917, False, "tma+convert"),  # f32 rows rounded
+        (torch.int8, torch.int8, 64, 150, 5000, 1000 + 37, True, "tma"),  # ties across splits
+        (torch.int8, torch.int8, 70, 150, 5000, 4999, True, "register"),
+    ],
+)
+def test_scan_fold_edges_on_gpu(qdt, xdt, d, b, n, n_valid, ternary, loader):
+    """The redesign's edges: d 768 through TMA in bf16 and int8 and through
+    the converting loader (int8 rows, and f32 rows rounded to bf16), query tiles that run past B (B 150 and 65: the
+    last 64-query tile holds 22 queries or one; its other rows load zeros
+    and write nothing), an n_valid inside a 128-row slice (so inside a ring
+    stage of two depth chunks), and an int8 store of values in {-1, 0, 1}
+    without scales, whose scores tie across the 128-row splits the plan gives
+    at this size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: K2 has no CPU mode")
+    from lotus_tpu_torch.ops import flat_scan as tscan
+
+    g = torch.Generator().manual_seed(2)
+
+    def values(dtype, rows):
+        if ternary:
+            return torch.randint(-1, 2, (rows, d), generator=g, dtype=torch.int8)
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, (rows, d), generator=g, dtype=torch.int8)
+        return torch.randn((rows, d), generator=g).to(dtype)
+
+    q, x = values(qdt, b), values(xdt, n)
+    scales = torch.rand(n, generator=g) + 0.5 if xdt == torch.int8 and not ternary else None
+    args = (q, x, n_valid, scales)
+    ref = tscan.scan_fold_reference(*args)
+    got = tscan.scan_fold(*[t.cuda() if isinstance(t, torch.Tensor) else t for t in args])
+    torch.cuda.synchronize()
+    assert tscan.scan_fold.last_plan["loader"] == loader
+    if ternary:  # the ties are there: many lanes hold equal best and second scores
+        assert int((ref[0] == ref[2]).sum()) > b * tscan.NL // 16
+    _hold_scan(got, ref, exact=qdt == torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "qdt,xdt,d,loader,query",
+    [
+        (torch.bfloat16, torch.int8, 70, "register", "resident"),  # int8 -> bf16 one value at a time
+        (torch.bfloat16, torch.int8, 200, "register", "resident"),  # 8-byte vectors, then a scalar tail
+        (torch.bfloat16, torch.float32, 68, "register", "resident"),  # a bf16 query row of 136 bytes
+        (torch.bfloat16, torch.bfloat16, 1280, "tma", "resident"),  # the deepest resident bf16 tile
+        (torch.bfloat16, torch.bfloat16, 1536, "tma", "streamed"),  # text-embedding-3-small's d
+        (torch.bfloat16, torch.int8, 1536, "tma+convert", "streamed"),
+        (torch.bfloat16, torch.float32, 1536, "tma+convert", "streamed"),
+        (torch.bfloat16, torch.bfloat16, 1540, "register", "streamed"),
+        (torch.int8, torch.int8, 3072, "tma", "streamed"),
+        (torch.int8, torch.int8, 2600, "register", "streamed"),
+    ],
+)
+def test_scan_fold_loaders_and_depths_on_gpu(qdt, xdt, d, loader, query):
+    """Each store loader at the depths that pick it, and depths whose query
+    tile does not fit in shared memory beside two ring stages, so that its
+    depth chunks stream with the store's; with scales, bias and row mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: K2 has no CPU mode")
+    from lotus_tpu_torch.ops import flat_scan as tscan
+
+    g = torch.Generator().manual_seed(3)
+    b, n, n_valid, blk = 150, 3000, 2917, 512
+
+    def values(dtype, rows):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, (rows, d), generator=g, dtype=torch.int8)
+        return torch.randn((rows, d), generator=g).to(dtype)
+
+    q, x = values(qdt, b), values(xdt, n)
+    scales = torch.rand(n, generator=g) + 0.5 if xdt == torch.int8 else None
+    bias = torch.randn((-(-n // blk), b), generator=g)
+    mask = (torch.rand(n, generator=g) > 0.3).to(torch.int8)
+    args = (q, x, n_valid, scales, bias, mask)
+    ref = tscan.scan_fold_reference(*args, blk=blk)
+    got = tscan.scan_fold(*[t.cuda() if isinstance(t, torch.Tensor) else t for t in args], blk=blk)
+    torch.cuda.synchronize()
+    assert (tscan.scan_fold.last_plan["loader"], tscan.scan_fold.last_plan["query"]) == (loader, query)
+    _hold_scan(got, ref, exact=qdt == torch.int8)
