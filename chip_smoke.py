@@ -6,14 +6,18 @@
 Phases (each prints its seconds and the card's name and power limit):
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the CUDA kernels from ``lotus_tpu_torch/csrc`` with nvcc,
-   one process per source, all started together;
+   one process per source, all started together; report each K1 and K2
+   kernel's registers, spills, wgmma advisories and HGMMA / IGMMA / UTMALDG
+   counts, and fail if a tensor-core kernel has none of its type's MMA;
 3. config 4 build: the seeded 10 * 2**20 x 768 corpus, IVF with nlist 4096,
    residual int8 + int4 refinement, block-aligned at 1024, exact f32 oracle;
 4. K1 vs plain: K1 (``probe_fold``) against ``probe_fold_reference`` on
-   the card for each variant — int8-dot packed and int8 store with bf16
-   queries at the config-4 shape of one 2048-query slice, bf16 packed,
-   f32 unpacked and bf16 l2 on the first 512 lists at full width, and int8
-   over a window past 8192 rows (unpacked);
+   the card for each variant, with the route each took — int8-dot packed
+   (and under the top-1 fold) and int8 store with bf16 queries at the
+   config-4 shape of one 2048-query slice, the first two timed beside their
+   bound (``k1_bound``) and the plain version; bf16 packed, f32 unpacked
+   and bf16 l2 on the first 512 lists at full width; and int8 over a window
+   past 8192 rows (unpacked, top-2 and top-1 folds);
 5. IVF main path: ``ivf_search_grouped_probe`` at nprobe 208, rescore 24,
    int8 queries, query_chunk 2048 over B = 4096; recall@10 against the
    exact f32 oracle must reach 0.99; QPS over chained batches;
@@ -33,7 +37,7 @@ Phases (each prints its seconds and the card's name and power limit):
    the bias and row-mask planes at blk 512 and 1024, and a d-1536 store
    (bf16, and int8 under bf16 and int8 queries) whose query tile streams
    with the ring; times at the main shape (B = 4096 over all 2**20 rows)
-   for bf16 and int8, and for bf16 at d 1536.  The float
+   for bf16 and int8 beside their bounds, and for bf16 at d 1536.  The float
    variants hold every pool score within 2e-5 * (1 + |s|), the best id of
    every lane whose best and second scores lie further apart than that,
    and the top-10 sets except at a near-tie;
@@ -75,6 +79,8 @@ DEEP_N = 2**18  # rows of the d-1536 K2 comparison
 # to bf16 before the dot, moves scores by 1e-5 or more.
 K2_TOL = 2e-5
 GPU = ""  # the card's "name, power limit", printed beside every time
+# NVIDIA's H100 SXM data sheet (dense): the bounds' rates.
+HBM_BYTES_PER_S, INT8_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 1979e12, 989e12
 
 
 def say(msg: str) -> None:
@@ -121,16 +127,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name, args, *, bl, int8_dot, l2, packed, exact, tol=0.0, reps=0):
+def compare(name, args, *, bl, int8_dot, l2, packed, exact, tol=0.0, reps=0, top1=False):
     """Run K1 and its plain version on the same card tensors and hold them
     together; returns (max_abs_err, kernel ms, plain ms)."""
     import torch
 
     from lotus_tpu_torch.ops.ivf_probe import _LOCAL_MASK, probe_fold, probe_fold_reference
 
-    kw = dict(bl=bl, int8_dot=int8_dot, l2=l2, packed=packed)
+    kw = dict(bl=bl, int8_dot=int8_dot, l2=l2, packed=packed, top1=top1)
     got_s, got_i = probe_fold(*args, **kw)
     torch.cuda.synchronize()
+    plan = probe_fold.last_plan
     ref_s, ref_i = probe_fold_reference(*args, **kw)
     torch.cuda.synchronize()
     if exact:
@@ -154,6 +161,7 @@ def compare(name, args, *, bl, int8_dot, l2, packed, exact, tol=0.0, reps=0):
     say(f"  {name}: {'bitwise equal' if exact else f'tol {tol:g}'} -> {'OK' if ok else 'MISMATCH'}; "
         f"max_abs_err={err!r}; live candidates={live}"
         + ("" if ms is None else f"; K1 {ms:.3f} ms vs plain {plain_ms:.3f} ms [{GPU}]"))
+    say(f"    route {plan['route']}; query tile {plan['query']}")
     if not ok:
         raise AssertionError(f"K1 disagrees with its plain version: {name}")
     return err, ms, plain_ms
@@ -206,11 +214,15 @@ def k2_compare(name, args, *, exact, blk=1024, reps=0):
     return err, ms, plain_ms
 
 
-def scan_kernel_report() -> None:
-    """K2's scan kernels as built: registers and spill bytes from ptxas, and
-    the tensor-core (HGMMA bf16, IGMMA int8) and TMA-load (UTMALDG)
-    instructions that ``cuobjdump -sass`` shows in each.  Fails unless every
-    bf16 instantiation has HGMMA and the int8 one IGMMA."""
+def kernel_report() -> None:
+    """K1's and K2's kernels as built: registers and spill bytes from ptxas,
+    ptxas's wgmma advisories counted by code (an injected warpgroup.wait or
+    arrive: C7517, C7519; serialized wgmma: C7510, C7514), and the
+    tensor-core (HGMMA bf16, IGMMA int8) and TMA-load (UTMALDG) instructions
+    that ``cuobjdump -sass`` shows in each.  Fails unless every bf16
+    tensor-core instantiation (K2's scan_kernel, K1's probe_wgmma) has HGMMA
+    and every int8 one IGMMA.  K1's probe_cores (f32, and rows TMA cannot
+    take) runs on the CUDA cores by design."""
     from lotus_tpu_torch.ops import _kernels
 
     ptxas = {}
@@ -219,6 +231,10 @@ def scan_kernel_report() -> None:
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
         ptxas[name] = (regs and int(regs.group(1)), spill and (int(spill.group(1)), int(spill.group(2))))
+    notes: dict[str, dict[str, int]] = {}
+    for m in re.finditer(r"\((C75(?:10|14|17|19))\).*?function '([^']+)'", _kernels.build_log):
+        per = notes.setdefault(m.group(2), {})
+        per[m.group(1)] = per.get(m.group(1), 0) + 1
     sass = subprocess.run([_kernels.cuda_tool("cuobjdump"), "-sass", str(_kernels.build())],
                           capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
@@ -230,15 +246,47 @@ def scan_kernel_report() -> None:
         elif fn is not None:
             for op in counts[fn]:
                 counts[fn][op] += op in line
-    scans = sorted(f for f in counts if "scan_kernel" in f)
-    assert scans, "no K2 scan kernel in the built library"
-    for f in scans:
-        int8_dot = "scan_kernelIa" in f  # the operand type is int8
-        regs, spill = ptxas.get(f, (None, None))
-        say(f"  {f}: {'int8 dot' if int8_dot else 'bf16 dot'}; ptxas {regs} registers, spill "
-            f"stores/loads {spill} bytes; SASS {counts[f]}")
-        op = "IGMMA" if int8_dot else "HGMMA"
-        assert counts[f][op] > 0, f"K2 scan kernel {f} has no {op}: not on the tensor cores"
+    for kind in ("scan_kernel", "probe_wgmma", "probe_cores"):
+        found = sorted(f for f in counts if kind in f)
+        assert found, f"no {kind} in the built library"
+        for f in found:
+            int8_dot = f"{kind}Ia" in f  # the operand type is int8
+            regs, spill = ptxas.get(f, (None, None))
+            say(f"  {f}: {'int8' if int8_dot else 'float'} dot; ptxas {regs} registers, spill "
+                f"stores/loads {spill} bytes, wgmma advisories {notes.get(f, {})}; SASS {counts[f]}")
+            if kind != "probe_cores":
+                op = "IGMMA" if int8_dot else "HGMMA"
+                assert counts[f][op] > 0, f"{f} has no {op}: not on the tensor cores"
+
+
+def k1_bound(units, vecs, chunk_list, sizes, *, int8_dot, packed, top1=False):
+    """K1's bound on this card for one launch: the larger of its bytes (each
+    probed list's live rows, whole 64-row slices, and their scales read once;
+    the live chunks' query tiles; the whole output written) over 3.35 TB/s
+    and its operations (2 * 128 * d per live row of every live chunk) over
+    the dense tensor-core rate (int8 1,979 TOP/s, bf16 989 TFLOP/s), from
+    NVIDIA's H100 SXM data sheet.  Returns (ms, "bytes" or "operations",
+    live chunks, MACs, bytes the kernel streams: every live chunk's rows)."""
+    import torch
+
+    from lotus_tpu_torch.ops.ivf_probe import QU, ncand
+
+    d = vecs.shape[1]
+    live = chunk_list[chunk_list >= 0].long()
+
+    def rows64(lists):  # live rows of these lists, whole 64-row slices
+        return float((((sizes[lists].double() + 63) // 64) * 64).sum())
+
+    row_bytes = d * vecs.element_size() + (4 if vecs.dtype == torch.int8 else 0)
+    out_bytes = chunk_list.numel() * QU * ncand(top1) * (4 if packed else 8)
+    q_bytes = live.numel() * QU * d * units.element_size()
+    need = rows64(torch.unique(live)) * row_bytes + q_bytes + out_bytes
+    macs = QU * d * rows64(live)
+    t_bytes = need / HBM_BYTES_PER_S
+    t_ops = 2 * macs / (INT8_OPS_PER_S if int8_dot else BF16_OPS_PER_S)
+    streamed = rows64(live) * row_bytes + q_bytes + out_bytes
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", int(live.numel()),
+            macs, streamed)
 
 
 def chained_qps(fn, batch: int) -> tuple[float, float]:
@@ -355,7 +403,7 @@ def main() -> int:
         say(f"  nvcc {_kernels.build_seconds:.2f} s -> {os.path.relpath(_kernels.build(), REPO)}; "
             f"ptxas: {len(regs)} kernels, <= {max(regs, default=0)} registers, "
             f"spill stores {min(spills, default=0)}..{max(spills, default=0)} bytes")
-        scan_kernel_report()
+        kernel_report()
 
     with Phase("config 4 build"):
         torch.cuda.reset_peak_memory_stats()
@@ -377,19 +425,28 @@ def main() -> int:
         _, lists = flat_search(state["centroids"], q, NPROBE, metric="ip")
         packed_main = int(meta["probe_window"]) <= (1 << LOCAL_BITS)
         units, chunk_list, _, _ = probe_layout(lists.to(torch.int32), quantize_rows(q)[0], sizes, bl)
-        live = chunk_list[chunk_list >= 0].long()
-        macs = float(QU * 768 * (((sizes[live].double() + 63) // 64) * 64).sum())
+        main_args = (units, vecs, scales, None, chunk_list, starts, sizes)
         main_err, main_ms, main_plain_ms = compare(
             f"int8-dot {'packed' if packed_main else 'unpacked'} (config 4, {QUERY_CHUNK} queries)",
-            (units, vecs, scales, None, chunk_list, starts, sizes), bl=bl, int8_dot=True, l2=False,
-            packed=packed_main, exact=True, reps=10,
+            main_args, bl=bl, int8_dot=True, l2=False, packed=packed_main, exact=True, reps=10,
         )
-        say(f"  K1 work: {macs:.4e} int8 MACs in {int(live.numel())} live chunks -> "
-            f"{2 * macs / (main_ms * 1e-3) / 1e12:.1f} TOP/s [{GPU}]")
+        main_bound, main_by, n_live, macs, streamed = k1_bound(
+            units, vecs, chunk_list, sizes, int8_dot=True, packed=packed_main)
+        say(f"  K1 work: {macs:.4e} int8 MACs in {n_live} live chunks -> "
+            f"{2 * macs / (main_ms * 1e-3) / 1e12:.1f} TOP/s; bound {main_bound:.3f} ms ({main_by}; each probed "
+            f"list read once), K1 at {100 * main_bound / main_ms:.1f}% of it; the live chunks stream "
+            f"{streamed / 1e9:.3f} GB ({1e3 * streamed / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s) [{GPU}]")
         units_bf, _, _, _ = probe_layout(lists.to(torch.int32), q.to(torch.bfloat16), sizes, bl)
-        compare("int8 store, bf16 queries (dequant), config 4",
-                (units_bf, vecs, scales, None, chunk_list, starts, sizes), bl=bl, int8_dot=False,
-                l2=False, packed=packed_main, exact=False, tol=2e-3)
+        _, bf_ms, bf_plain_ms = compare(
+            "int8 store, bf16 queries (dequant), config 4",
+            (units_bf, vecs, scales, None, chunk_list, starts, sizes), bl=bl, int8_dot=False,
+            l2=False, packed=packed_main, exact=False, tol=2e-3, reps=5)
+        bf_bound, bf_by, _, _, _ = k1_bound(units_bf, vecs, chunk_list, sizes, int8_dot=False, packed=packed_main)
+        say(f"  bf16-query K1 {bf_ms:.3f} ms; bound {bf_bound:.3f} ms ({bf_by}), K1 at "
+            f"{100 * bf_bound / bf_ms:.1f}% of it [{GPU}]")
+        # The top-1 fold at the config-4 shape: packed, bit for bit.
+        compare("top-1 fold, int8-dot packed (config 4)", main_args, bl=bl, int8_dot=True, l2=False,
+                packed=packed_main, exact=True, top1=True)
         # The rescored top-k through the plain version equals K1's.
         kw = dict(nprobe=NPROBE, metric="ip", int8_queries=False, rescore=RESCORE)
         _, i_k1 = ivf_search_grouped_probe(state, xq[:256], K, **kw)
@@ -425,9 +482,10 @@ def main() -> int:
                                        dtype=torch.int32, device=dev)).contiguous()
         w_lists = torch.argsort(torch.rand((256, nwin), generator=g, device=dev), dim=1)[:, :4].to(torch.int32)
         units_w, cl_w, _, _ = probe_layout(w_lists, quantize_rows(xq[:256])[0], w_sizes, bl)
-        compare("int8-dot, window 12288 rows (unpacked)",
-                (units_w, vecs, scales, None, cl_w, w_starts, w_sizes), bl=bl, int8_dot=True, l2=False,
-                packed=False, exact=True)
+        for top1 in (False, True):
+            compare(f"int8-dot, window 12288 rows (unpacked{', top-1 fold' if top1 else ''})",
+                    (units_w, vecs, scales, None, cl_w, w_starts, w_sizes), bl=bl, int8_dot=True, l2=False,
+                    packed=False, exact=True, top1=top1)
 
     probe_fold.launches = 0  # count only the main path's launches from here
     with Phase("config 4 search"):
@@ -552,6 +610,16 @@ def main() -> int:
         macs = float(B) * FLAT_N * 768
         say(f"  K2 work: {macs:.4e} MACs per batch -> bf16 {macs / (k2_main[1] * 1e-3) / 1e12:.2f} T FMA/s, "
             f"int8 {2 * macs / (k2_int8[1] * 1e-3) / 1e12:.2f} TOP/s [{GPU}]")
+        # K2's bound: the store, the queries and the (B, 256) pool of scores
+        # and ids moved once, against 2 * B * N * d operations.
+        k2_bounds = {}
+        for name, esize, rate, ms in (("bf16", 2, BF16_OPS_PER_S, k2_main[1]),
+                                      ("int8", 1, INT8_OPS_PER_S, k2_int8[1])):
+            need = FLAT_N * (768 * esize + (4 if esize == 1 else 0)) + B * 768 * esize + B * 256 * 8
+            t_bytes, t_ops = need / HBM_BYTES_PER_S, 2 * macs / rate
+            k2_bounds[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+            say(f"  K2 {name}: bound {k2_bounds[name][0]:.3f} ms ({k2_bounds[name][1]}), K2 {ms:.3f} ms at "
+                f"{100 * k2_bounds[name][0] / ms:.1f}% of it [{GPU}]")
 
     scan_fold.launches = 0  # count only the flat main path's launches from here
     with Phase("flat main path (flat_search_pallas)"):
@@ -630,6 +698,9 @@ def main() -> int:
             "max_abs_err": main_err,
             "ms": main_ms,
             "plain_ms": main_plain_ms,
+            "bound_ms": main_bound,
+            "bound_by": main_by,
+            "library_ms": None,  # no single PyTorch call gathers a list per chunk and folds 64 lanes
         },
         {
             "name": "flat_scan (K2)",
@@ -640,6 +711,9 @@ def main() -> int:
             "max_abs_err": k2_main[0],
             "ms": k2_main[1],
             "plain_ms": k2_main[2],
+            "bound_ms": k2_bounds["bf16"][0],
+            "bound_by": k2_bounds["bf16"][1],
+            "library_ms": None,  # no single PyTorch call folds a top-2 per lane
         },
     ]}))
     print(card())

@@ -3,11 +3,12 @@
 At first use, ``nvcc`` compiles every ``lotus_tpu_torch/csrc/*.cu`` (one
 process per source, all started together) and links them into one shared
 library with a plain C interface under ``build/lotus_tpu_torch/`` (beside
-the package), named by a hash of the sources so an edit never loads a stale
-build.  The flags have no fast-math: the kernels round as the reference
-does.  ``ctypes`` loads the library; every device pointer and the stream
-are passed as ``c_void_p``.  Nothing here runs at import time: a machine without
-nvcc or a GPU imports the package and uses the plain PyTorch versions.
+the package), named by a hash of the sources and of the shared headers
+(``csrc/*.cuh``) so an edit never loads a stale build.  The flags have no
+fast-math: the kernels round as the reference does.  ``ctypes`` loads the
+library; every device pointer and the stream are passed as ``c_void_p``.
+Nothing here runs at import time: a machine without nvcc or a GPU imports
+the package and uses the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -50,7 +51,9 @@ def build() -> Path:
     """Compile the kernels (once per source hash) and return the library path."""
     global build_log, build_seconds
     sources = sorted(SRC_DIR.glob("*.cu"))
-    digest = hashlib.sha1(b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode())
+    # The shared headers are hashed too, so an edit to one rebuilds.
+    hashed = sorted([*sources, *SRC_DIR.glob("*.cuh")])
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in hashed) + " ".join(NVCC_FLAGS).encode())
     lib_path = BUILD_DIR / f"liblotus_tpu_torch_{digest.hexdigest()[:12]}.so"
     if lib_path.exists():
         return lib_path
@@ -77,22 +80,27 @@ def build() -> Path:
     return lib_path
 
 
+def bind(path: Path | str) -> ctypes.CDLL:
+    """Load a kernel library and declare its C interface."""
+    handle = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    handle.lotus_ivf_probe.argtypes = [vp] * 9 + [ci] * 11 + [vp] + [ctypes.POINTER(ci)] * 2
+    handle.lotus_ivf_probe.restype = ci
+    handle.lotus_flat_scan.argtypes = [vp] * 9 + [ci] * 8 + [vp] + [ctypes.POINTER(ci)] * 2
+    handle.lotus_flat_scan.restype = ci
+    handle.lotus_flat_scan_plan.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
+    handle.lotus_flat_scan_plan.restype = None
+    handle.lotus_cuda_error_string.argtypes = [ci]
+    handle.lotus_cuda_error_string.restype = ctypes.c_char_p
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            handle.lotus_ivf_probe.argtypes = [vp] * 9 + [ci] * 7 + [vp]
-            handle.lotus_ivf_probe.restype = ci
-            handle.lotus_flat_scan.argtypes = [vp] * 9 + [ci] * 8 + [vp] + [ctypes.POINTER(ci)] * 2
-            handle.lotus_flat_scan.restype = ci
-            handle.lotus_flat_scan_plan.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
-            handle.lotus_flat_scan_plan.restype = None
-            handle.lotus_cuda_error_string.argtypes = [ci]
-            handle.lotus_cuda_error_string.restype = ctypes.c_char_p
-            _lib = handle
+            _lib = bind(build())
     return _lib
 
 

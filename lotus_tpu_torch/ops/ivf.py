@@ -26,7 +26,11 @@ TRAIN_POINTS_PER_CENTROID = 256
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The port's default device: the GPU.  Without one it raises rather
+    than run on the CPU unasked; pass ``device="cpu"`` for that."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('lotus_tpu_torch: no CUDA device; pass device="cpu" to run on the CPU')
+    return torch.device("cuda")
 
 
 def plan_block_aligned_layout(
@@ -89,7 +93,7 @@ def build_ivf(
     rows and occupies whole blocks — the layout the grouped probe needs.
     ``spill_frac`` > 0 also stores that fraction of rows (the smallest top-2
     centroid margins) in their second list; it requires ``block_align``.
-    k-means runs on ``device`` (default: the GPU when there is one).
+    k-means runs on ``device`` (default: the GPU; ``default_device``).
     """
     dev = torch.device(device) if device is not None else default_device()
     n, d = emb.shape
@@ -247,9 +251,10 @@ def load_ivf_state(
     meta: dict[str, Any],
     dtype: torch.dtype,
     refine_int4: bool | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> dict[str, Any]:
-    """Load (and for int8, quantize) the IVF arrays onto ``device``.
+    """Load (and for int8, quantize) the IVF arrays onto ``device`` (default:
+    the GPU; ``default_device``).
 
     int8 quantization runs on the host in numpy exactly as the reference's
     does (round half to even), chunked so a 10M x 768 store never needs a
@@ -257,6 +262,8 @@ def load_ivf_state(
     ``residual_int8`` stores quantize (vec - list centroid) and fall back to
     plain int8 when residuals are no smaller than the raw vectors.
     """
+
+    device = torch.device(device) if device is not None else default_device()
 
     def wrap(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)

@@ -12,7 +12,8 @@ tables that XLA builds.  Here plain torch ops build the tables and K1
 3. the chunk table (list id of every 128-pair chunk, cumsum + searchsorted)
    and the padded query layout;
 4. K1 (``probe_fold``): per (list, chunk) a top-2 per 64 strided lanes
-   across the whole list, 128 candidates per pair;
+   across the whole list, 128 candidates per pair (a top-1, 64 candidates,
+   under ``FOLD = "top1"``);
 5. reassembly per pair, packed-id decode, residual bias, the pool top-k,
    dedup on spilled stores only, and the per-query int8 scale;
 6. optional exact f32 rescoring (``ops/ivf.py::rescore_candidates``).
@@ -21,13 +22,14 @@ The launch needs no host sync: the grid is the static bound
 ``P // QU + nlist + 1`` and blocks past the live chunk count write
 MASK_SCORE.  The reference's experiment knobs that are off by default
 (``_DEBUG_STAGE``, ``POOL_PREREDUCE``, ``CUMSUM_MATMUL``, ``APPROX_TOPK``,
-``COARSE_APPROX``) and its top-1 fold are not carried.
+``COARSE_APPROX``) are not carried; its fold mode ``FOLD`` is.
 
 Requires an index built with ``build_ivf(..., block_align=...)``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any
 
 import torch
@@ -39,13 +41,26 @@ QU = 128  # query slots per chunk
 BL = 1024  # default build alignment (db rows per kernel block)
 BUCKET = 8  # buckets per 512 storage rows -> NBK = 64 lanes, 128 candidates per pair
 NBK = 512 // BUCKET
-NCAND = 2 * NBK  # top-2 fold
+# Fold mode, as the reference's (pallas_ivf.py:63): "top2" keeps two
+# survivors per lane, "top1" one (64 candidates per pair; pair collisions
+# return).  Read at each call of ``_grouped_probe``.
+FOLD = "top2"
+NCAND = 2 * NBK  # candidates per pair under the default top-2 fold
 LOCAL_BITS = 13  # packed ids cover probe windows up to 8192 rows
 _LOCAL_MASK = (1 << LOCAL_BITS) - 1
 # Above this many histogram cells the pair grouping takes one stable sort.
 HIST_MAX_CELLS = 1 << 26
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# How K1 ran (ivf_probe.cu's Route): on the CUDA cores (f32, or rows TMA
+# cannot describe), or on the tensor cores with the store loaded by TMA, or
+# by TMA as raw int8 rows converted to bf16 in shared memory.
+_ROUTES = ("cuda-cores", "wgmma+tma", "wgmma+tma+convert")
+
+
+def ncand(top1: bool) -> int:
+    """Candidates per pair of K1's output: 64 under the top-1 fold, else 128."""
+    return NBK if top1 else 2 * NBK
 
 
 def probe_fold_reference(
@@ -61,20 +76,22 @@ def probe_fold_reference(
     int8_dot: bool,
     l2: bool,
     packed: bool,
+    top1: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of K1: the same scores, masking, packed-id bits
     and fold order as the kernel (and as ``_probe_kernel``).
 
-    Returns ``(out_s, out_i)`` of shape ``(len(chunk_list), QU, NCAND)``;
+    Returns ``(out_s, out_i)`` of shape ``(len(chunk_list), QU, ncand(top1))``;
     ``out_i`` is None when ``packed``.  Rows of chunks whose table entry is
     -1 hold MASK_SCORE (ids 0).
     """
     from lotus_tpu_torch.ops.quant import exact_int8_dot
 
     grid = chunk_list.shape[0]
+    nc = ncand(top1)
     dev = xb.device
-    out_s = torch.full((grid, QU, NCAND), MASK_SCORE, dtype=torch.float32, device=dev)
-    out_i = None if packed else torch.zeros((grid, QU, NCAND), dtype=torch.int32, device=dev)
+    out_s = torch.full((grid, QU, nc), MASK_SCORE, dtype=torch.float32, device=dev)
+    out_i = None if packed else torch.zeros((grid, QU, nc), dtype=torch.int32, device=dev)
     starts, sizes = list_start.cpu().tolist(), list_size.cpu().tolist()
     for c, lid in enumerate(chunk_list.cpu().tolist()):
         if lid < 0:
@@ -103,9 +120,9 @@ def probe_fold_reference(
             pk = ((bits & ~_LOCAL_MASK) | col.to(torch.int32)[None, :]).view(torch.float32)
             pk = torch.where(ok, pk, torch.full_like(pk, MASK_SCORE))
             # Packed values are distinct except masked lanes (all MASK_SCORE),
-            # so an order-free top-2 equals the kernel's fmaxf/fminf fold.
-            top2 = torch.topk(pk.reshape(QU, nsl, NBK), 2, dim=1).values
-            out_s[c, :, :NBK], out_s[c, :, NBK:] = top2[:, 0], top2[:, 1]
+            # so an order-free top-k equals the kernel's fmaxf/fminf fold.
+            # (QU, 1 or 2, NBK): the best of every lane, then the second.
+            out_s[c] = torch.topk(pk.reshape(QU, nsl, NBK), nc // NBK, dim=1).values.reshape(QU, nc)
             continue
         s = torch.where(ok, s, torch.full_like(s, MASK_SCORE)).reshape(QU, nsl, NBK)
         best_s = torch.full((QU, NBK), MASK_SCORE, dtype=torch.float32, device=dev)
@@ -121,8 +138,9 @@ def probe_fold_reference(
                 torch.where(upd, best_i, torch.where(upd2, idx, sec_i)),
             )
             best_s, best_i = torch.where(upd, sl, best_s), torch.where(upd, idx, best_i)
-        out_s[c] = torch.cat([best_s, sec_s], 1)
-        out_i[c] = torch.cat([best_i, sec_i], 1)
+        # The top-1 fold's best is the top-2 fold's: the same strict '>'.
+        out_s[c] = best_s if top1 else torch.cat([best_s, sec_s], 1)
+        out_i[c] = best_i if top1 else torch.cat([best_i, sec_i], 1)
     return out_s, out_i
 
 
@@ -139,6 +157,7 @@ def probe_fold(
     int8_dot: bool,
     l2: bool,
     packed: bool,
+    top1: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """K1's wrapper.  On CUDA tensors it launches the kernel (or raises);
     only tensors on the CPU take ``probe_fold_reference``.
@@ -146,11 +165,11 @@ def probe_fold(
     ``xq_units``: (chunks * QU, d) queries in chunk layout; ``xb``: (rows, d)
     block-aligned storage; ``scales`` / ``norms``: (rows,) f32 or None;
     ``chunk_list``: (grid,) int32 list id per chunk, -1 for dead chunks;
-    ``list_start`` / ``list_size``: (nlist,) int32.
+    ``list_start`` / ``list_size``: (nlist,) int32; ``top1``: the top-1 fold.
     """
     args = (xq_units, xb, scales, norms, chunk_list, list_start, list_size)
     if not xb.is_cuda:
-        return probe_fold_reference(*args, bl=bl, int8_dot=int8_dot, l2=l2, packed=packed)
+        return probe_fold_reference(*args, bl=bl, int8_dot=int8_dot, l2=l2, packed=packed, top1=top1)
     from lotus_tpu_torch.ops import _kernels
 
     d = xb.shape[1]
@@ -176,24 +195,32 @@ def probe_fold(
         if need and (t is None or t.dtype != torch.float32 or t.shape != (xb.shape[0],)
                      or not t.is_contiguous() or t.device != xb.device):
             raise ValueError(f"probe_fold: {name} must be a contiguous ({xb.shape[0]},) f32 tensor on {xb.device}")
-    out_s = torch.empty((grid, QU, NCAND), dtype=torch.float32, device=xb.device)
-    out_i = None if packed else torch.empty((grid, QU, NCAND), dtype=torch.int32, device=xb.device)
+    nc = ncand(top1)
+    out_s = torch.empty((grid, QU, nc), dtype=torch.float32, device=xb.device)
+    out_i = None if packed else torch.empty((grid, QU, nc), dtype=torch.int32, device=xb.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    route, streamed = ctypes.c_int(), ctypes.c_int()
     code = _kernels.lib().lotus_ivf_probe(
         ptr(xq_units), ptr(xb), ptr(scales), ptr(norms), ptr(chunk_list), ptr(list_start),
-        ptr(list_size), ptr(out_s), ptr(out_i), grid, d, bl,
-        _DTYPE_CODE[xq_units.dtype], _DTYPE_CODE[xb.dtype], int(int8_dot), int(l2), int(packed),
-        torch.cuda.current_stream(xb.device).cuda_stream,
+        ptr(list_size), ptr(out_s), ptr(out_i), grid, d, bl, xq_units.shape[0], xb.shape[0],
+        _DTYPE_CODE[xq_units.dtype], _DTYPE_CODE[xb.dtype], int(int8_dot), int(l2), int(packed), int(top1),
+        torch.cuda.current_stream(xb.device).cuda_stream, ctypes.byref(route), ctypes.byref(streamed),
     )
     _kernels.check(code, "ivf_probe launch")
     probe_fold.launches += 1
+    probe_fold.last_plan = {"route": _ROUTES[route.value],
+                            "query": "streamed" if streamed.value else "resident"}
     return out_s, out_i
 
 
 probe_fold.launches = 0  # K1 launches in this process (read by chip_smoke.py)
+# The last launch's route (CUDA cores, or tensor cores with TMA or TMA and
+# conversion) and query tile (resident or streamed with the stages), read by
+# chip_smoke.py and the card tests.
+probe_fold.last_plan = None
 
 
 def probe_layout(
@@ -313,15 +340,16 @@ def _grouped_probe(
     # exactly re-ranks the candidates; windows beyond the packed-id range
     # take the unpacked fold.
     packed = packed_ok and max_blocks * bl <= (1 << LOCAL_BITS)
+    top1 = FOLD == "top1"
     cand_pk, cand_idx = fold(
         xq_units, xb_sorted, row_scales if is_int8 else None, norms_sq if is_l2 else None,
-        chunk_list, list_start, list_size, bl=bl, int8_dot=int8_dot, l2=is_l2, packed=packed,
+        chunk_list, list_start, list_size, bl=bl, int8_dot=int8_dot, l2=is_l2, packed=packed, top1=top1,
     )
 
     # ---- reassemble per pair -----------------------------------------------
     # Pair p's candidates are row padpos[p] of the kernel output; a pair
     # whose list is empty reads a MASK_SCORE row, and 'empty' masks it too.
-    kc = NCAND
+    kc = ncand(top1)
     empty = (blocks[l_flat] > 0)[:, None]
     mask = torch.tensor(MASK_SCORE, dtype=torch.float32, device=dev)
     flat_s = cand_pk.reshape((n_chunks_max + 1) * QU, kc)

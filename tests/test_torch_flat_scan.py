@@ -167,7 +167,7 @@ def _ivf_stores(tmp_path, emb, encoding):
         meta["encoding"] = encoding
     js = jax_load(idx_dir, meta, jnp.int8)
     js.setdefault("meta", meta)
-    ts = torch_load(idx_dir, meta, torch.int8)
+    ts = torch_load(idx_dir, meta, torch.int8, device="cpu")
     ts.setdefault("meta", meta)
     assert js["meta"].get("encoding") == ts["meta"].get("encoding")
     return js, ts

@@ -65,7 +65,7 @@ def test_load_ivf_state_identical(tmp_path, metric, dtype, encoding, refine):
     if encoding:
         meta["encoding"] = encoding
     js = jivf.load_ivf_state(idx, meta, _JT[dtype], refine_int4=refine)
-    ts = tivf.load_ivf_state(idx, meta, dtype, refine_int4=refine)
+    ts = tivf.load_ivf_state(idx, meta, dtype, refine_int4=refine, device="cpu")
     _assert_states_equal(js, ts)
 
 
@@ -78,7 +78,7 @@ def test_residual_downgrade_rule_matches(tmp_path):
     meta = {"kind": "ivf", "metric": "ip", "encoding": "residual_int8",
             **jivf.build_ivf(idx, emb, nlist=4, metric="ip", block_align=512)}
     js = jivf.load_ivf_state(idx, meta, jnp.int8)
-    ts = tivf.load_ivf_state(idx, meta, torch.int8)
+    ts = tivf.load_ivf_state(idx, meta, torch.int8, device="cpu")
     assert js["meta"]["encoding"] == ts["meta"]["encoding"] == "int8"
     _assert_states_equal(js, ts)
 
@@ -90,7 +90,7 @@ def test_rescore_and_position_maps_match(tmp_path):
             **jivf.build_ivf(idx, emb, nlist=6, metric="ip", block_align=512)}
     js = jivf.load_ivf_state(idx, meta, jnp.int8, refine_int4=True)
     js.setdefault("meta", meta)
-    ts = tivf.load_ivf_state(idx, meta, torch.int8, refine_int4=True)
+    ts = tivf.load_ivf_state(idx, meta, torch.int8, refine_int4=True, device="cpu")
     ts.setdefault("meta", meta)
     np.testing.assert_array_equal(tivf.ensure_inv_perm(ts).numpy(), np.asarray(jivf.ensure_inv_perm(js)))
     np.testing.assert_array_equal(tivf.ensure_pos_list(ts).numpy(), np.asarray(jivf.ensure_pos_list(js)))
@@ -119,7 +119,7 @@ def test_cross_load(tmp_path, writer):
     assert sizes.sum() == len(emb) and np.array_equal(np.sort(row_ids[row_ids >= 0]), np.arange(len(emb)))
     js = jivf.load_ivf_state(idx, meta, jnp.int8, refine_int4=True)
     js.setdefault("meta", meta)
-    ts = tivf.load_ivf_state(idx, meta, torch.int8, refine_int4=True)
+    ts = tivf.load_ivf_state(idx, meta, torch.int8, refine_int4=True, device="cpu")
     ts.setdefault("meta", meta)
     _assert_states_equal(js, ts)
     xq = emb[:8] + 0.02 * rng.standard_normal((8, emb.shape[1])).astype(np.float32)

@@ -39,7 +39,7 @@ def _stores(tmp_path, emb, *, nlist, metric="ip", block_align=1024, dtype=torch.
         meta["encoding"] = encoding
     js = jax_load(idx_dir, meta, _JAX_DTYPE[dtype])
     js.setdefault("meta", meta)
-    ts = torch_load(idx_dir, meta, dtype)
+    ts = torch_load(idx_dir, meta, dtype, device="cpu")
     ts.setdefault("meta", meta)
     return js, ts
 
@@ -256,7 +256,7 @@ def test_search_rescored_sets_match_reference(tmp_path, dtype, int8_queries):
             **jax_build_ivf(idx_dir, emb, nlist=8, metric="ip", block_align=1024)}
     js = jax_load(idx_dir, meta, _JAX_DTYPE[dtype], refine_int4=True)
     js.setdefault("meta", meta)
-    ts = torch_load(idx_dir, meta, dtype, refine_int4=True)
+    ts = torch_load(idx_dir, meta, dtype, refine_int4=True, device="cpu")
     ts.setdefault("meta", meta)
     xq = emb[:16] + 0.02 * rng.standard_normal((16, 64)).astype(np.float32)
     jd, ji = pivf.ivf_search_pallas(js, jnp.asarray(xq), 10, nprobe=8, metric="ip", interpret=True,
@@ -266,3 +266,60 @@ def test_search_rescored_sets_match_reference(tmp_path, dtype, int8_queries):
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-5)
     for q in range(16):
         assert set(ti[q].tolist()) == set(np.asarray(ji)[q].tolist()), q
+
+
+@pytest.fixture
+def top1_fold(monkeypatch):
+    """Both packages under the top-1 fold.  The reference reads ``FOLD`` when
+    it traces, so its jit cache is cleared before and after."""
+    import jax
+
+    jax.clear_caches()
+    monkeypatch.setattr(pivf, "FOLD", "top1")
+    monkeypatch.setattr(tprobe, "FOLD", "top1")
+    yield
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize(
+    "dtype,metric,int8_queries,packed_ok",
+    [
+        (torch.int8, "ip", True, True),        # int8-dot packed: bit for bit
+        (torch.int8, "ip", True, False),       # int8-dot unpacked: bit for bit, ids included
+        (torch.float32, "l2", False, False),   # f32 l2 unpacked: within 1e-4, ids of clear lanes
+    ],
+)
+def test_top1_fold_matches_reference(tmp_path, top1_fold, dtype, metric, int8_queries, packed_ok):
+    rng = np.random.default_rng(10)
+    emb = _corpus(rng, 8192, 32)
+    js, ts = _stores(tmp_path, emb, nlist=8, metric=metric, dtype=dtype)
+    xq = _exact_scale(emb[:24] + 0.02 * rng.standard_normal((24, 32)).astype(np.float32))
+    pl = _probe_lists(rng, 24, 8, 4)
+    ref, got = _run_both(js, ts, xq, pl, metric=metric, int8_queries=int8_queries, packed_ok=packed_ok,
+                         k=4 * tprobe.NBK)
+    assert (ref[0] > -1e38).sum() > 0
+    if int8_queries:
+        _assert_pool_bitwise(ref, got)
+    else:
+        _assert_pool_close(ref, got, 1e-4)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_top1_fold_is_the_top2_folds_best(packed):
+    """The plain version's top-1 output is the best half of its top-2 output."""
+    g = torch.Generator().manual_seed(4)
+    bl, d = 512, 16
+    sizes = torch.tensor([1500, 0, 512, 37], dtype=torch.int32)
+    padded = torch.clamp((sizes + bl - 1) // bl, min=1) * bl
+    starts = (torch.cumsum(padded, 0) - padded).to(torch.int32)
+    x = torch.randint(-127, 128, (int(padded.sum()), d), generator=g, dtype=torch.int8)
+    q = torch.randint(-127, 128, (5 * tprobe.QU, d), generator=g, dtype=torch.int8)
+    scales = torch.rand(x.shape[0], generator=g) + 0.5
+    args = (q, x, scales, None, torch.tensor([0, 0, 1, 2, 3, -1], dtype=torch.int32), starts, sizes)
+    kw = dict(bl=bl, int8_dot=True, l2=False, packed=packed)
+    s2, i2 = tprobe.probe_fold(*args, **kw)
+    s1, i1 = tprobe.probe_fold(*args, **kw, top1=True)
+    assert s1.shape == (6, tprobe.QU, tprobe.NBK)
+    torch.testing.assert_close(s1.view(torch.int32), s2[:, :, : tprobe.NBK].view(torch.int32), rtol=0, atol=0)
+    if not packed:
+        torch.testing.assert_close(i1, i2[:, :, : tprobe.NBK], rtol=0, atol=0)

@@ -64,6 +64,93 @@ def test_kernel_matches_plain_version_on_gpu(dtype, metric, int8_dot, packed):
     torch.testing.assert_close(got, ref, rtol=tol, atol=1e-3)
 
 
+_I8, _BF = torch.int8, torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "qdt,xdt,d,sizes,chunks,l2,packed,top1,route,query",
+    [
+        # lists probed by several chunks, at the config-4 depth
+        (_I8, _I8, 768, [3000, 64, 2100], [0, 0, 0, 1, 2, 2, -1], False, True, False, "wgmma+tma", "resident"),
+        # a window past 8192 rows (unpacked; the ids are storage rows)
+        (_I8, _I8, 64, [12283, 9000, 8193], [0, 1, 2, 0, -1], False, False, False, "wgmma+tma", "resident"),
+        # ternary rows and unit scales: scores tie, the earlier row wins
+        ("ternary", _I8, 64, [5000, 2048], [0, 1, 0, -1], False, False, False, "wgmma+tma", "resident"),
+        # depths TMA cannot take: the CUDA cores
+        (_I8, _I8, 772, [3000, 17], [0, 1, 0, -1], False, True, False, "cuda-cores", "resident"),
+        (_BF, _BF, 100, [3000, 17], [0, 1, -1], False, False, False, "cuda-cores", "resident"),
+        # a deep store: the query tile streams with the ring
+        (_I8, _I8, 1536, [2100, 700], [0, 1, 0, -1], False, True, False, "wgmma+tma", "streamed"),
+        (_BF, _BF, 1536, [2100, 700], [0, 1, -1], False, False, False, "wgmma+tma", "streamed"),
+        # bf16 queries on int8 rows (converted in shared memory), with l2
+        (_BF, _I8, 768, [3000, 500], [0, 1, 1, -1], True, False, False, "wgmma+tma+convert", "streamed"),
+        (_BF, _I8, 256, [3000, 500], [0, 1, -1], False, True, False, "wgmma+tma+convert", "resident"),
+        # the top-1 fold
+        (_I8, _I8, 768, [3000, 64, 2100], [0, 0, 1, 2, -1], False, True, True, "wgmma+tma", "resident"),
+        (_I8, _I8, 64, [12283, 9000], [0, 1, 0, -1], False, False, True, "wgmma+tma", "resident"),
+        (_BF, _BF, 768, [3000, 500], [0, 1, -1], True, False, True, "wgmma+tma", "streamed"),
+        (torch.float32, torch.float32, 64, [3000, 500], [0, 1, -1], False, True, True, "cuda-cores", "resident"),
+    ],
+)
+def test_probe_fold_edges_on_gpu(qdt, xdt, d, sizes, chunks, l2, packed, top1, route, query):
+    """K1's redesign at its edges, each against the plain version: the int8
+    dot bit for bit with ids, the float variants as above; and the route the
+    wrapper reports (tensor cores or CUDA cores, query tile resident or
+    streamed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: K1 has no CPU mode")
+    g = torch.Generator().manual_seed(5)
+    ternary = qdt == "ternary"
+    qdt = _I8 if ternary else qdt
+    int8_dot = qdt == _I8
+    bl = 1024
+    sizes = torch.tensor(sizes, dtype=torch.int32)
+    padded = torch.clamp((sizes + bl - 1) // bl, min=1) * bl
+    starts = (torch.cumsum(padded, 0) - padded).to(torch.int32)
+    rows = int(padded.sum())
+    chunk_list = torch.tensor(chunks, dtype=torch.int32)
+    nq = (len(chunks) - 1) * tprobe.QU
+
+    def values(dtype, n):
+        if ternary:
+            return torch.randint(-1, 2, (n, d), generator=g, dtype=_I8)
+        if dtype == _I8:
+            return torch.randint(-127, 128, (n, d), generator=g, dtype=_I8)
+        return torch.randn((n, d), generator=g).to(dtype)
+
+    q, x = values(qdt, nq), values(xdt, rows)
+    scales = None
+    if xdt == _I8:
+        scales = torch.ones(rows) if ternary else torch.rand(rows, generator=g) + 0.5
+    norms = torch.rand(rows, generator=g) if l2 else None
+    args = (q, x, scales, norms, chunk_list, starts, sizes)
+    kw = dict(bl=bl, int8_dot=int8_dot, l2=l2, packed=packed, top1=top1)
+    ref_s, ref_i = tprobe.probe_fold_reference(*args, **kw)
+    got_s, got_i = tprobe.probe_fold(*[None if t is None else t.cuda() for t in args], **kw)
+    torch.cuda.synchronize()
+    assert (tprobe.probe_fold.last_plan["route"], tprobe.probe_fold.last_plan["query"]) == (route, query)
+    assert got_s.shape == (len(chunks), tprobe.QU, tprobe.ncand(top1))
+    if ternary:  # the ties are there: many lanes hold equal best and second scores
+        assert int((ref_s[:, :, :64] == ref_s[:, :, 64:]).sum()) > ref_s.numel() // 8
+    if int8_dot:
+        torch.testing.assert_close(got_s.cpu().view(torch.int32), ref_s.view(torch.int32), rtol=0, atol=0)
+        if not packed:
+            torch.testing.assert_close(got_i.cpu(), ref_i, rtol=0, atol=0)
+        return
+    tol = 2e-3 if packed else 1e-4
+    got, ref = got_s.cpu(), ref_s
+    if packed:
+        got = (got.view(torch.int32) & ~tprobe._LOCAL_MASK).view(torch.float32)
+        ref = (ref.view(torch.int32) & ~tprobe._LOCAL_MASK).view(torch.float32)
+    torch.testing.assert_close(got, ref, rtol=tol, atol=1e-3)
+    if not packed:  # the best id of every lane whose best lies clear of its second
+        sec = tprobe.probe_fold_reference(*args, **{**kw, "top1": False})[0][:, :, 64:]
+        best = ref[:, :, :64]
+        clear = ((best - sec).abs() > 1e-2 * (1 + best.abs())) & (best > -1e38)
+        assert torch.equal(got_i.cpu()[:, :, :64][clear], ref_i[:, :, :64][clear])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "qdt,xdt,d,blk",
