@@ -21,17 +21,39 @@ Phases (each prints its seconds and the card's name and power limit):
 5. IVF main path: ``ivf_search_grouped_probe`` at nprobe 208, rescore 24,
    int8 queries, query_chunk 2048 over B = 4096; recall@10 against the
    exact f32 oracle must reach 0.99; QPS over chained batches;
-6. IVF store: ``TorchVS`` indexes 262,144 x 768 seeded vectors (nlist 256,
+6. window probe over config 4's store (``ops/ivf.py::ivf_search``) at the
+   reference's small-batch setting (nprobe 208, rescore 24) for B = 1, 16
+   and 64: recall@10 over 64 queries must reach 0.99 at each B; ms per call
+   beside K1's grouped probe at the same B; the query chunks and slot groups
+   of the gather budget; the transient peak (``max_memory_allocated`` over
+   what was allocated before the call), which must stay within the budget
+   plus ``PEAK_MARGIN`` at every B (B 64 is the shape that crashed the
+   reference's worker); then B 16 under a 1 GiB budget, which must cut each
+   query's probe slots into groups and return the same top-10 sets;
+7. IVF store: ``TorchVS`` indexes 262,144 x 768 seeded vectors (nlist 256,
    block-aligned) and serves a search without ids (through K1) and one
    with ids (only allowed ids come back);
-7. IVF exhaustive scan: K2 against its plain version on the inputs
+8. calibration through K1: ``calibrate_nprobe(0.95, k=10, nq=256,
+   oracle="exact")`` on phase 7's store walks its ladder through the
+   grouped probe (K1 launches > 0); a fresh store adopts the persisted entry
+   without launching K1; an entry with the grouped regime dropped sends
+   B 1 to the window probe (no K1 launch) and B 256 to the exhaustive scan;
+9. IVF exhaustive scan: K2 against its plain version on the inputs
    ``ivf_residual_scan`` gives it (bf16 queries, the q.c bias plane and the
    row mask over the whole config-4 store at B = 256), both timed; then
    ``ivf_residual_scan`` at rescore 64, whose recall@10 must reach 0.99;
-8. stage breakdown of one config-4 slice (CUDA events per stage);
-9. flat corpus: a seeded, normalised 2**20 x 768 corpus (4096 clusters),
+10. stage breakdown of one config-4 slice (CUDA events per stage);
+11. the reference's window-regime store: 200,000 x 768 seeded rows,
+   ``TorchVS(index_type="ivf", nlist=512, nprobe=32)`` as float32 and as
+   residual int8 with int4 refinement and rescore 24; ``index()`` leaves
+   both unaligned; B 1 and 8 go through the window probe, B 64 through the
+   exhaustive scan (counted by route, no K1 launch), with recall@10 against
+   exact f32 and the warm ms per call; ``ivf_search`` on the float32 store
+   at B 1, 16 and 64 with its transient peak; ``calibrate_nprobe(0.95,
+   oracle="exact")`` there must calibrate the window regime;
+12. flat corpus: a seeded, normalised 2**20 x 768 corpus (4096 clusters),
    4096 queries, the exact f32 top-10 of 256 of them;
-10. K2 vs plain: K2 (``scan_fold``) against ``scan_fold_reference`` on the
+13. K2 vs plain: K2 (``scan_fold``) against ``scan_fold_reference`` on the
    same card tensors: int8 store with int8 queries (bit for bit), int8 store
    with bf16 queries, bf16 store, f32 store, an n_valid past a 1024 block,
    the bias and row-mask planes at blk 512 and 1024, and a d-1536 store
@@ -41,19 +63,20 @@ Phases (each prints its seconds and the card's name and power limit):
    variants hold every pool score within 2e-5 * (1 + |s|), the best id of
    every lane whose best and second scores lie further apart than that,
    and the top-10 sets except at a near-tie;
-11. flat main path: ``flat_search_pallas`` over the bf16 store at k 10;
+14. flat main path: ``flat_search_pallas`` over the bf16 store at k 10;
    recall@10 against the exact f32 top-10 must reach 0.98; QPS over chained
    4096-query batches, K2 against the plain version (``scan_fold_reference``
    and the same pool top-k);
-12. Flat store: ``TorchVS(index_type="flat")`` over the same rows serves a
+15. Flat store: ``TorchVS(index_type="flat")`` over the same rows serves a
    4096-query search through K2 as bf16 with ``approx`` and as int8 with
    ``scan="pallas"`` (rescore 32); a search with ids does not launch K2 and
    returns only allowed ids;
-13. stage breakdown of one bf16 flat batch (CUDA events per stage).
+16. stage breakdown of one bf16 flat batch (CUDA events per stage).
 
 Each main path runs with its kernel's launch count set to 0 just before it
-and read just after: K1 over phases 5-6, K2 over phase 7 and over phases
-11-12; each must have launched its kernel, and each phase prints its count.  The last three lines are the
+and read just after: K1 over phases 5-8 (calibration included), K2 over
+phase 9 and over phases 14-15; each must have launched its kernel, and each
+phase prints its count.  The last three lines are the
 kernel table, the card, and ``{"ok": true, "device": {...}}``.  Without a
 GPU, or without the repository beside this file, it exits non-zero and
 prints no result.
@@ -81,6 +104,11 @@ K2_TOL = 2e-5
 GPU = ""  # the card's "name, power limit", printed beside every time
 # NVIDIA's H100 SXM data sheet (dense): the bounds' rates.
 HBM_BYTES_PER_S, INT8_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 1979e12, 989e12
+# The window probe's transient peak may pass its gather budget by this much:
+# the coarse ranking, the candidates' rescoring and the allocator's rounding.
+PEAK_MARGIN = 256 << 20
+WINDOW_NQ = 64  # queries over which each window-probe recall is taken
+PEAK_SEEN = 0  # the process's peak allocation before transient_peak last reset it
 
 
 def say(msg: str) -> None:
@@ -365,6 +393,188 @@ def flat_stage_breakdown(xb16, fq) -> None:
     }, lambda: flat_search_pallas(xb16, fq, K), reps=3)
 
 
+def transient_peak(fn):
+    """Run ``fn`` once: (its result, the most it had allocated at once beyond
+    what was allocated before it).  The process-wide peak so far is kept in
+    PEAK_SEEN, since this resets the allocator's."""
+    import torch
+
+    global PEAK_SEEN
+    torch.cuda.synchronize()
+    PEAK_SEEN = max(PEAK_SEEN, torch.cuda.max_memory_allocated())
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Best host-clock milliseconds of ``fn`` (a store call, whose results
+    reach the host before it returns) over ``reps`` runs."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def window_probe_runs(state, queries, gt, nprobe, rescore, *, min_recall=None, grouped=False,
+                      split_budget=None) -> None:
+    """``ivf_search`` (the window probe) over ``state`` at B = 1, 16 and 64:
+    recall@K over the first WINDOW_NQ queries (WINDOW_NQ / B calls), device ms
+    per call, the gather budget's query chunks and slot groups, and one call's
+    transient peak, which must stay within the budget plus PEAK_MARGIN;
+    beside it K1's grouped probe at the same B when ``grouped``.  With
+    ``split_budget``, B 16 runs again under that budget, which must cut each
+    query's slots into groups and return the same top-K sets."""
+    import torch
+
+    from lotus_tpu_torch.ops.ivf import DEFAULT_GATHER_BUDGET_BYTES, ivf_search, plan_window_probe
+    from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe
+
+    vecs, window = state["ivf_vectors"], int(state["meta"]["probe_window"])
+    budget = DEFAULT_GATHER_BUDGET_BYTES
+    say(f"  window {window} rows; gather budget {budget / 2**30:.2f} GiB "
+        f"(+ {PEAK_MARGIN / 2**20:.0f} MiB margin); {vecs.dtype} store")
+    for b in (1, 16, 64):
+        def win(lo=0, b=b):
+            return ivf_search(state, queries[lo : lo + b], K, nprobe=nprobe, metric="ip", rescore=rescore)
+
+        ids = torch.cat([win(lo)[1] for lo in range(0, WINDOW_NQ, b)]).cpu().numpy()
+        recall = recall_at(ids, gt[:WINDOW_NQ])
+        qc, group, step = plan_window_probe(b, nprobe, window, vecs.shape[1], vecs.dtype, budget)
+        _, peak = transient_peak(win)
+        ms = cuda_ms(win, 3)
+        line = (f"  window probe B={b}: recall@{K} {recall!r} over {WINDOW_NQ} queries; {ms:.3f} ms per call; "
+                f"{-(-b // qc)} query chunks x {-(-nprobe // group)} slot groups of {qc * group * window:,} rows "
+                f"({step / 2**30:.3f} GiB counted a step); transient peak {peak / 2**30:.3f} GiB")
+        if grouped:
+            k1_ms = cuda_ms(lambda: ivf_search_grouped_probe(
+                state, queries[:b], K, nprobe=nprobe, metric="ip", rescore=rescore, int8_queries=True), 5)
+            line += f"; K1's grouped probe {k1_ms:.3f} ms"
+        say(line + f" [{GPU}]")
+        assert peak <= budget + PEAK_MARGIN, f"window probe B={b}: transient peak {peak} past the budget"
+        if min_recall is not None:
+            assert recall >= min_recall, f"window probe B={b}: recall@10 {recall} below {min_recall}"
+    if split_budget is not None:
+        b = 16
+        qc, group, step = plan_window_probe(b, nprobe, window, vecs.shape[1], vecs.dtype, split_budget)
+
+        def split():
+            return ivf_search(state, queries[:b], K, nprobe=nprobe, metric="ip", rescore=rescore,
+                              gather_budget_bytes=split_budget)
+
+        (_, got), peak = transient_peak(split)
+        _, want = ivf_search(state, queries[:b], K, nprobe=nprobe, metric="ip", rescore=rescore)
+        same = all(set(x) == set(y) for x, y in zip(got.tolist(), want.tolist()))
+        say(f"  window probe B={b} under a {split_budget / 2**30:.2f} GiB budget: {-(-b // qc)} query chunks x "
+            f"{-(-nprobe // group)} slot groups ({step / 2**30:.3f} GiB counted a step); top-{K} sets "
+            f"{'equal to' if same else 'DIFFER from'} the {budget / 2**30:.0f} GiB run; {cuda_ms(split, 2):.3f} ms "
+            f"per call; transient peak {peak / 2**30:.3f} GiB [{GPU}]")
+        assert group < nprobe and same, "the slot-grouped window probe changed the top-k sets"
+        assert peak <= split_budget + PEAK_MARGIN, f"slot-grouped window probe: transient peak {peak}"
+
+
+def window_store_phase(dev) -> None:
+    """The reference's window-regime store (``docs/benchmarks.md:65,80``):
+    200,000 x 768 seeded rows, nlist 512, nprobe 32, float32 and residual
+    int8 with int4 refinement and rescore 24."""
+    import torch
+
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk
+    from lotus_tpu_torch.ops.io import read_meta
+    from lotus_tpu_torch.ops.ivf_probe import probe_fold
+
+    n, nlist, nprobe = 200_000, 512, 32
+    emb_t = gen_chunk(13, 0, corpus_centers(13, 4096, 768, dev), n, 2.5)
+    emb = emb_t.cpu().numpy()
+    g = torch.Generator(device=dev).manual_seed(13)
+    qs = emb_t[torch.randint(0, n, (WINDOW_NQ,), generator=g, device=dev)]
+    qs = qs + 0.05 * torch.randn((WINDOW_NQ, 768), generator=g, device=dev)
+    qs = qs / torch.linalg.vector_norm(qs, dim=1, keepdim=True)
+    gt = torch.topk(qs @ emb_t.T, K, dim=1).indices.cpu().numpy()
+    qs_np = qs.cpu().numpy()
+    index_dir = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_window_index")
+    k1_before = probe_fold.launches
+    for label, kw in (("float32", {}), ("residual int8 + int4 refinement, rescore 24",
+                                        dict(device_dtype="int8", int8_refine=True, rescore=RESCORE))):
+        shutil.rmtree(index_dir, ignore_errors=True)
+        vs = TorchVS(index_type="ivf", nlist=nlist, nprobe=nprobe, **kw)
+        t0 = time.perf_counter()
+        vs.index([], emb, index_dir)
+        meta = read_meta(index_dir)
+        say(f"  {label}: index() {time.perf_counter() - t0:.2f} s [{GPU}]; block_align {meta['block_align']}; "
+            f"window {meta['probe_window']} rows")
+        assert int(meta["block_align"]) == 0, "the 200k store came out block-aligned"
+        for b, route in ((1, "window_probe"), (8, "window_probe"), (64, "scan")):
+            before = dict(vs.stats["routes"])
+            ids = [row for lo in range(0, WINDOW_NQ, b) for row in vs(qs_np[lo : lo + b], K).indices]
+            served = {r: vs.stats["routes"][r] - before[r] for r in before}
+            assert served == {**dict.fromkeys(before, 0), route: WINDOW_NQ // b}, f"B={b} served by {served}"
+            say(f"    B={b}: {route.replace('_', ' ')}; recall@{K} {recall_at(ids, gt)!r} over {WINDOW_NQ} "
+                f"queries; {host_ms(lambda: vs(qs_np[:b], K)):.3f} ms per call warm (host clock) [{GPU}]")
+        if not kw:
+            window_probe_runs(vs._materialize(), qs, gt, nprobe, None)
+            t0 = time.perf_counter()
+            cal = vs.calibrate_nprobe(0.95, oracle="exact")
+            say(f"    calibrate_nprobe(0.95, oracle='exact'): regimes {cal['regimes']}; ladder {cal['ladder']}; "
+                f"nprobe {cal['nprobe']}; ceiling {cal['ceiling']!r}; {time.perf_counter() - t0:.2f} s [{GPU}]")
+            assert cal["regimes"] == ["window"], cal
+        shutil.rmtree(index_dir, ignore_errors=True)
+        del vs
+    k1 = probe_fold.launches - k1_before
+    say(f"  K1 launches over the window-regime stores: {k1}")
+    assert k1 == 0, "an unaligned store launched K1"
+
+
+def calibration_phase(vs, index_dir: str, store_kw: dict, qs_np, store_gt) -> None:
+    """``calibrate_nprobe(0.95, k=K, nq=256, oracle="exact")`` on the
+    block-aligned store of phase 7 walks its ladder through K1; a fresh store
+    adopts the persisted entry without launching K1; an entry whose grouped
+    regime was dropped routes B 1 to the window probe and B 256 to the
+    exhaustive scan, with no K1 launch."""
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.ops.io import read_meta, write_meta
+    from lotus_tpu_torch.ops.ivf_probe import probe_fold
+
+    before = probe_fold.launches
+    t0 = time.perf_counter()
+    cal = vs.calibrate_nprobe(0.95, k=K, nq=256, oracle="exact")
+    cal_s = time.perf_counter() - t0
+    cal_launches = probe_fold.launches - before
+    say(f"  ladder {cal['ladder']}; nprobe {cal['nprobe']} at recall@{K} {cal['recall']!r} vs exact f32; "
+        f"ceiling {cal['ceiling']!r}; regimes {cal['regimes']}; {cal_s:.2f} s; K1 launches {cal_launches} "
+        f"[{GPU}]")
+    assert cal_launches > 0, "calibration did not launch K1"
+    assert cal["regimes"] == ["pallas"] and not cal["target_unreachable"], cal
+    fresh = TorchVS(recall_target=0.95, **store_kw)
+    fresh.load_index(index_dir)
+    before = probe_fold.launches
+    adopted = fresh.calibrate_nprobe(0.95, k=K, oracle="exact")
+    adopted_launches = probe_fold.launches - before
+    say(f"  a fresh TorchVS(recall_target=0.95) adopts nprobe {fresh.nprobe} from meta.json; "
+        f"K1 launches {adopted_launches}")
+    assert adopted_launches == 0 and adopted["nprobe"] == cal["nprobe"] == fresh.nprobe, adopted
+    # An entry whose grouped regime was dropped: the lazy autotune adopts
+    # it and routes B 1 to the window probe, B 256 to the exhaustive scan.
+    disk = read_meta(index_dir)
+    disk["calibration"][f"0.95@{K}"] = {**disk["calibration"][f"0.95@{K}/exact"], "regimes_dropped": ["pallas"]}
+    write_meta(index_dir, disk)
+    dropped = TorchVS(recall_target=0.95, **store_kw)
+    dropped.load_index(index_dir)
+    before = probe_fold.launches
+    one, many = dropped(qs_np[:1], K), dropped(qs_np, K)
+    dropped_launches = probe_fold.launches - before
+    say(f"  regimes_dropped ['pallas']: routes {dropped.stats['routes']}; recall@{K} B=1 "
+        f"{recall_at(one.indices, store_gt[:1])!r}, B=256 {recall_at(many.indices, store_gt)!r}; "
+        f"K1 launches {dropped_launches}")
+    assert dropped.stats["routes"] == {"grouped_probe": 0, "window_probe": 1, "scan": 1}, dropped.stats
+    assert dropped_launches == 0, "a dropped grouped regime launched K1"
+
+
 def main() -> int:
     import torch
 
@@ -510,6 +720,9 @@ def main() -> int:
         assert recall >= 0.99, f"recall@10 {recall} below the 0.99 target"
         assert launches_search > 0, "the main path did not launch K1"
 
+    with Phase("window probe over config 4 (ivf_search)"):
+        window_probe_runs(state, xq, gt, NPROBE, RESCORE, min_recall=0.99, grouped=True, split_budget=1 << 30)
+
     with Phase("store entry point (TorchVS)"):
         from lotus_tpu_torch.ops.io import read_meta
 
@@ -519,29 +732,35 @@ def main() -> int:
         emb = emb_t.cpu().numpy()
         index_dir = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_index")
         shutil.rmtree(index_dir, ignore_errors=True)
-        vs = TorchVS(index_type="ivf", device_dtype="int8", int8_refine=True, rescore=RESCORE, nlist=256)
+        store_kw = dict(index_type="ivf", device_dtype="int8", int8_refine=True, rescore=RESCORE, nlist=256)
+        vs = TorchVS(**store_kw)
         t0 = time.perf_counter()
         vs.index([], emb, index_dir)
         say(f"  index() {time.perf_counter() - t0:.2f} s; block_align {read_meta(index_dir)['block_align']}")
         g = torch.Generator(device=dev).manual_seed(11)
         qs = emb_t[:256] + 0.05 * torch.randn((256, 768), generator=g, device=dev)
         qs = (qs / torch.linalg.vector_norm(qs, dim=1, keepdim=True))
+        qs_np = qs.cpu().numpy()
+        store_gt = torch.topk(qs @ emb_t.T, K, dim=1).indices.tolist()
         before = probe_fold.launches
-        out = vs(qs.cpu().numpy(), K)
+        out = vs(qs_np, K)
         store_launches = probe_fold.launches - before
-        store_recall = recall_at(out.indices, torch.topk(qs @ emb_t.T, K, dim=1).indices.tolist())
+        store_recall = recall_at(out.indices, store_gt)
         allowed = sorted(torch.randperm(n_store, generator=torch.Generator().manual_seed(3))[:1000].tolist())
-        sub_out = vs(qs[:4].cpu().numpy(), K, ids=allowed)
+        sub_out = vs(qs_np[:4], K, ids=allowed)
         allowed_set = set(allowed)
         only_allowed = all(i in allowed_set or i == -1 for row in sub_out.indices for i in row)
         say(f"  search without ids: recall@{K} vs exact f32 = {store_recall!r}, K1 launches {store_launches}; "
             f"with ids: only allowed ids {only_allowed}; stats {vs.stats}")
-        shutil.rmtree(index_dir, ignore_errors=True)
         assert store_launches > 0, "TorchVS did not reach K1"
         assert only_allowed, "ids-restricted search returned an id outside ids"
+
+    with Phase("calibration through K1 (TorchVS.calibrate_nprobe)"):
+        calibration_phase(vs, index_dir, store_kw, qs_np, store_gt)
+        shutil.rmtree(index_dir, ignore_errors=True)
         del vs, emb, emb_t
 
-    launches = probe_fold.launches  # the main path's launches: search, QPS runs, store
+    launches = probe_fold.launches  # the main path's launches: search, QPS, window phase, store, calibration
 
     with Phase("IVF exhaustive scan (ivf_residual_scan, K2)"):
         args, blk, _ = residual_scan_inputs(state, xq[:256])
@@ -565,6 +784,10 @@ def main() -> int:
     with Phase("stage breakdown"):
         stage_breakdown(state, xq)
     del state, built, xq
+    torch.cuda.empty_cache()
+
+    with Phase("window-regime store (200,000 x 768, nlist 512)"):
+        window_store_phase(dev)
     torch.cuda.empty_cache()
 
     with Phase("flat corpus"):
@@ -687,7 +910,8 @@ def main() -> int:
     with Phase("flat stage breakdown"):
         flat_stage_breakdown(xb16, fq)
 
-    say(f"total {time.perf_counter() - t_all:.1f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak_all = max(PEAK_SEEN, torch.cuda.max_memory_allocated())
+    say(f"total {time.perf_counter() - t_all:.1f} s; peak {peak_all / 2**30:.2f} GiB [{GPU}]")
     print(json.dumps({"kernels": [
         {
             "name": "ivf_probe (K1)",

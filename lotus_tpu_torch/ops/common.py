@@ -49,6 +49,14 @@ def dedup_topk(scores: torch.Tensor, ids: torch.Tensor, k: int, aux: torch.Tenso
     return top_s, top_i
 
 
+def require_full_f32(t: torch.Tensor) -> None:
+    """Raise if f32 products on ``t``'s device would round through TF32: the
+    reference computes them at ``Precision.HIGHEST``, and the package turns
+    TF32 off when it is imported."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("lotus_tpu_torch: f32 scoring needs torch.backends.cuda.matmul.allow_tf32 off")
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

@@ -3,11 +3,12 @@
 
 Port of ``lotus_tpu/ops/ivf.py``: ``plan_block_aligned_layout`` (:31-74),
 ``build_ivf`` (:77-196), ``centroid_of_position`` / ``ensure_inv_perm`` /
-``ensure_pos_list`` (:199-224), ``rescore_candidates`` (:227-285) and
-``load_ivf_state`` (:288-383).  The on-disk layout is the reference's, so an
-index built by either package loads in the other.  The window probe
-(``_ivf_probe`` / ``ivf_search``) is not ported yet; block-aligned stores are
-probed by ``ops/ivf_probe.py``.
+``ensure_pos_list`` (:199-224), ``rescore_candidates`` (:227-285),
+``load_ivf_state`` (:288-383) and the window probe ``_ivf_probe`` /
+``ivf_search`` (:386-537), which serves stores that are not block-aligned
+(and stores whose calibration dropped the grouped probe).  The on-disk layout
+is the reference's, so an index built by either package loads in the other.
+Block-aligned stores are probed by ``ops/ivf_probe.py``.
 """
 
 from __future__ import annotations
@@ -18,11 +19,23 @@ import numpy as np
 import torch
 
 from lotus_tpu_torch.ops import io as index_io
-from lotus_tpu_torch.ops.common import MASK_SCORE, NO_HIT, round_up
+from lotus_tpu_torch.ops.common import (
+    MASK_SCORE, NO_HIT, as_distance, dedup_topk, require_full_f32, round_up,
+)
+from lotus_tpu_torch.ops.flat import flat_search
 from lotus_tpu_torch.ops.kmeans import kmeans_assign, kmeans_assign_top2, kmeans_fit
 
 # Max points used to train the coarse quantizer (~256 samples per centroid).
 TRAIN_POINTS_PER_CENTROID = 256
+
+# Transient device memory one window-probe step may allocate by default.  A
+# config-4 store (10.5M x 768 residual int8 with its int4 refinement) holds
+# about 15 GB on the card; 4 GiB of transients keeps the whole far inside an
+# 80 GB H100, and a step of about a million gathered int8 rows is long enough
+# that the per-step launches do not count.  It replaces the reference's
+# ``vmem_budget_rows = 2**21`` (:483), which counted rows, not bytes, and
+# only chunked queries: one config-4 query alone gathers 208 * window rows.
+DEFAULT_GATHER_BUDGET_BYTES = 4 << 30
 
 
 def default_device() -> torch.device:
@@ -187,14 +200,19 @@ def centroid_of_position(list_start: torch.Tensor, total_rows: int) -> torch.Ten
 
 
 def ensure_inv_perm(state: dict[str, Any]) -> torch.Tensor:
-    """original-row-id -> one storage position (cached in the state, int32)."""
+    """original-row-id -> one storage position (cached in the state, int32).
+
+    A spilled row is stored twice; like the reference's numpy assignment, it
+    maps to its last position in storage order, the copy whose residual the
+    int4 refinement encodes (``load_ivf_state`` writes it last-wins too).  An
+    index assignment would leave the choice to the backend."""
     if "ivf_inv_perm" not in state:
         storage_ids = state["ivf_row_ids"]
         live_pos = torch.nonzero(storage_ids >= 0).squeeze(1)
         n_rows = int(storage_ids.max()) + 1 if live_pos.numel() else 0
-        inv = torch.zeros(max(n_rows, 1), dtype=torch.int32, device=storage_ids.device)
-        inv[storage_ids[live_pos].long()] = live_pos.to(torch.int32)
-        state["ivf_inv_perm"] = inv
+        inv = torch.zeros(max(n_rows, 1), dtype=torch.int64, device=storage_ids.device)
+        inv.scatter_reduce_(0, storage_ids[live_pos].long(), live_pos, reduce="amax")
+        state["ivf_inv_perm"] = inv.to(torch.int32)
     return state["ivf_inv_perm"]
 
 
@@ -205,6 +223,16 @@ def ensure_pos_list(state: dict[str, Any]) -> torch.Tensor:
             state["ivf_list_start"], int(state["ivf_vectors"].shape[0])
         )
     return state["ivf_pos_list"]
+
+
+def ensure_norms_sq(state: dict[str, Any]) -> torch.Tensor:
+    """Squared row norms of the storage (cached in the state): l2 scoring's
+    ||x||^2.  int8 stores get them at load time from the quantized rows;
+    float stores square their rows here, as the reference's probes do."""
+    if "ivf_norms_sq" not in state:
+        vf = state["ivf_vectors"].float()
+        state["ivf_norms_sq"] = torch.sum(vf * vf, dim=-1)
+    return state["ivf_norms_sq"]
 
 
 def _rescore_impl(xq, cand_i, cand_rows, vecs, scales, refine, refine_scales, pos_list, centroids, k):
@@ -338,3 +366,178 @@ def load_ivf_state(
         norms = (q.astype(np.float32) ** 2).sum(axis=1) * scales.astype(np.float64) ** 2
         state["ivf_norms_sq"] = wrap(norms.astype(np.float32))
     return state
+
+
+def window_row_bytes(d: int, store_dtype: torch.dtype) -> int:
+    """Transient bytes one gathered row costs a window-probe step: the row in
+    the store's dtype, its f32 copy for the product (int8 and bf16 stores),
+    and five per-row planes: the int32 storage row, the bool mask, the f32
+    scores, one gathered f32 factor (the row scale or norm) and top-k's
+    workspace."""
+    esize = torch.empty((), dtype=store_dtype).element_size()
+    cast = 4 * d if store_dtype != torch.float32 else 0
+    return d * esize + cast + 4 + 1 + 4 + 4 + 4
+
+
+def plan_window_probe(
+    b: int, nprobe: int, window: int, d: int, store_dtype: torch.dtype, budget: int
+) -> tuple[int, int, int]:
+    """How the window probe cuts a batch so that no step allocates more than
+    ``budget`` bytes: ``(query_chunk, slot_group, step_bytes)``.
+
+    A step gathers ``query_chunk * slot_group * window`` rows.  Queries are
+    chunked while one query's whole slab fits; when it does not, each query
+    runs alone and its probe slots are cut into groups of ``slot_group``.
+    Raises ``ValueError`` when the budget cannot hold one slot of one query.
+    """
+    per_slot = window * window_row_bytes(d, store_dtype)
+    if per_slot > budget:
+        raise ValueError(
+            f"gather_budget_bytes={budget:,} cannot hold one probe slot of one query "
+            f"({window} rows, {per_slot:,} bytes)"
+        )
+    per_query = nprobe * per_slot
+    if per_query <= budget:
+        query_chunk, slot_group = max(1, min(b, budget // per_query)), nprobe
+    else:
+        query_chunk, slot_group = 1, budget // per_slot
+    return query_chunk, slot_group, query_chunk * slot_group * per_slot
+
+
+def _ivf_probe(
+    centroids: torch.Tensor,
+    xb_sorted: torch.Tensor,
+    row_ids: torch.Tensor,
+    list_start: torch.Tensor,
+    list_size: torch.Tensor,
+    xq: torch.Tensor,
+    k: int,
+    nprobe: int,
+    window: int,
+    metric: str,
+    query_chunk: int,
+    slot_group: int,
+    row_scales: torch.Tensor | None = None,
+    norms_sq: torch.Tensor | None = None,
+    residual: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The window probe (``ivf.py:386-473``): per query, gather a window of
+    rows from each of its ``nprobe`` nearest lists, mask the tail of each list,
+    score, top-k and keep each id's best copy.
+
+    int8 and bf16 stores compute with bf16 operands and f32 sums (bf16
+    products are exact in f32, so f32 products of the rounded operands are
+    the reference's); f32 stores compute in f32 (no TF32).  Steps of
+    ``query_chunk`` queries by ``slot_group`` probe slots each keep their
+    top-kc; the top-kc of their union is the top-kc over all slots.
+    """
+    b, d = xq.shape
+    dev = xq.device
+    require_full_f32(xq)
+    # Coarse ranking: nearest nprobe centroids per query.  For residual
+    # stores the coarse similarities double as the exact q.c score term.
+    coarse_s, probe_lists = flat_search(centroids, xq, nprobe, metric=metric)
+    if xb_sorted.dtype in (torch.int8, torch.bfloat16):
+        xq = xq.to(torch.bfloat16).float()
+    offsets = torch.arange(window, dtype=torch.int32, device=dev)
+    kc = min(2 * k, nprobe * window)
+    out_s, out_i = [], []
+    for lo in range(0, b, query_chunk):
+        q = xq[lo : lo + query_chunk]
+        qc = q.shape[0]
+        lists = probe_lists[lo : lo + query_chunk].long()
+        starts, sizes = list_start[lists], list_size[lists]  # (qc, nprobe)
+        part_s, part_r = [], []
+        for s0 in range(0, nprobe, slot_group):
+            s1 = min(s0 + slot_group, nprobe)
+            rows = (starts[:, s0:s1, None] + offsets).view(-1)  # (qc * g * W,) int32
+            gathered = xb_sorted.index_select(0, rows)
+            if gathered.dtype != torch.float32:
+                gathered = gathered.float()
+            sims = torch.bmm(gathered.view(qc, -1, d), q.unsqueeze(2)).view(qc, -1)
+            del gathered
+            if row_scales is not None:
+                # Dequantize at the score level: int8 rows factor their scale
+                # out of the dot product.
+                sims.mul_(row_scales.index_select(0, rows).view(qc, -1))
+            if residual:
+                # Every candidate of probe slot s owes q.c of that slot's list.
+                sims.view(qc, s1 - s0, window).add_(coarse_s[lo : lo + qc, s0:s1, None])
+            if metric == "l2":
+                sims.mul_(2.0).sub_(norms_sq.index_select(0, rows).view(qc, -1))
+            sims.masked_fill_((offsets >= sizes[:, s0:s1, None]).view(qc, -1), MASK_SCORE)
+            top_s, pos = torch.topk(sims, min(kc, sims.shape[1]), dim=1)
+            part_s.append(top_s)
+            part_r.append(torch.gather(rows.view(qc, -1), 1, pos))
+            del sims
+        top_s, top_r = torch.cat(part_s, 1), torch.cat(part_r, 1)
+        if len(part_s) > 1:
+            top_s, pos = torch.topk(top_s, kc, dim=1)
+            top_r = torch.gather(top_r, 1, pos)
+        # 2k head-room, then drop duplicate row ids (spilled rows can appear
+        # through two probed lists) keeping each id's best-scored copy.
+        top_ids = row_ids[top_r.long()]
+        top_ids = torch.where(top_s <= MASK_SCORE / 2, torch.full_like(top_ids, NO_HIT), top_ids)
+        s, i = dedup_topk(top_s, top_ids, k)
+        out_s.append(s)
+        out_i.append(i)
+    return torch.cat(out_s), torch.cat(out_i)
+
+
+def ivf_search(
+    state: dict[str, Any],
+    xq: torch.Tensor,
+    k: int,
+    *,
+    nprobe: int,
+    metric: str,
+    gather_budget_bytes: int = DEFAULT_GATHER_BUDGET_BYTES,
+    rescore: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Search the IVF index through the window probe. Returns (distances,
+    original-row ids), ids int32 and -1 for no hit.
+
+    ``gather_budget_bytes`` bounds the transient memory of each step: 4 GiB
+    by default, which fits beside a config-4 store on an 80 GB card (see
+    ``DEFAULT_GATHER_BUDGET_BYTES`` and ``plan_window_probe``).  It raises
+    rather than exceed it, and never moves the work off the state's device.
+    ``rescore`` widens the probe to that many candidates and exactly
+    re-ranks them with f32 queries over reconstructed rows (int8 stores,
+    ip/cosine; see ``rescore_candidates``).  Runs on the device that holds
+    the state.
+    """
+    meta = state["meta"]
+    nlist = int(meta["nlist"])
+    window = int(meta["probe_window"])
+    nprobe = max(1, min(nprobe, nlist))
+    vecs = state["ivf_vectors"]
+    # Residual scoring applies only when storage really is int8 residuals
+    # (an f32 load of the same index stores the raw vectors).
+    residual = meta.get("encoding") == "residual_int8" and vecs.dtype == torch.int8
+    if residual and metric == "l2":
+        raise ValueError("residual_int8 stores support ip/cosine only")
+
+    squeeze = xq.ndim == 1
+    if squeeze:
+        xq = xq[None, :]
+    xq = xq.to(device=vecs.device, dtype=torch.float32)
+    query_chunk, slot_group, _ = plan_window_probe(
+        xq.shape[0], nprobe, window, vecs.shape[1], vecs.dtype, gather_budget_bytes
+    )
+    do_rescore = rescore is not None and metric != "l2" and vecs.dtype == torch.int8
+    k_probe = max(k, rescore) if do_rescore else k
+    scores, idx = _ivf_probe(
+        state["centroids"], vecs, state["ivf_row_ids"], state["ivf_list_start"], state["ivf_list_size"],
+        xq, k_probe, nprobe, window, metric, query_chunk, slot_group,
+        state.get("ivf_row_scales"), ensure_norms_sq(state) if metric == "l2" else None,
+        residual=residual,
+    )
+    if do_rescore:
+        scores, idx = rescore_candidates(state, xq, idx, k)
+    dists = as_distance(scores, metric)
+    if metric == "l2":
+        q_norms = torch.sum(xq * xq, dim=-1, keepdim=True)
+        dists = torch.where(idx == NO_HIT, torch.finfo(torch.float32).max, dists + q_norms)
+    if squeeze:
+        return dists[0], idx[0]
+    return dists, idx

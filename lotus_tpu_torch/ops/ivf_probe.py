@@ -36,6 +36,7 @@ import torch
 
 from lotus_tpu_torch.ops.common import MASK_SCORE, NO_HIT, as_distance, cdiv, dedup_topk
 from lotus_tpu_torch.ops.flat import flat_search
+from lotus_tpu_torch.ops.ivf import ensure_norms_sq, rescore_candidates
 
 QU = 128  # query slots per chunk
 BL = 1024  # default build alignment (db rows per kernel block)
@@ -447,9 +448,6 @@ def ivf_search_grouped_probe(
 
     if vecs.shape[0] % bl != 0:
         raise ValueError(f"block-aligned IVF storage expected (rows % {bl} != 0)")
-    if metric == "l2" and "ivf_norms_sq" not in state:
-        vf = vecs.float()
-        state["ivf_norms_sq"] = torch.sum(vf * vf, dim=-1)
     probe_lists = probe_bias = None
     if residual:
         probe_bias, probe_lists = flat_search(state["centroids"], xq, nprobe, metric=metric)
@@ -458,14 +456,12 @@ def ivf_search_grouped_probe(
     scores, idx = _grouped_probe(
         state["centroids"], vecs, state["ivf_row_ids"], state["ivf_list_start"],
         state["ivf_list_size"], xq, state.get("ivf_row_scales"),
-        state.get("ivf_norms_sq") if metric == "l2" else None,
+        ensure_norms_sq(state) if metric == "l2" else None,
         k_probe, nprobe, max_blocks, metric, int8_queries,
         probe_lists=probe_lists, probe_bias=probe_bias, packed_ok=do_rescore, bl=bl,
         spilled=float(meta.get("spill_frac", 0.0) or 0.0) > 0.0, fold=fold,
     )
     if do_rescore:
-        from lotus_tpu_torch.ops.ivf import rescore_candidates
-
         scores, idx = rescore_candidates(state, xq, idx, k)
     dists = as_distance(scores, metric)
     if metric == "l2":

@@ -1,11 +1,12 @@
 """TorchVS — the device-resident vector store of the port.
 
 Counterpart of ``lotus_tpu/vector_store/tpu_vs.py``.  Vectors live in device
-memory; the planner routes
+memory; the planner (``tpu_vs.py:699-817``) routes
 
 - an IVF store without ``ids`` to the grouped probe (``ops/ivf_probe.py``,
-  kernel K1) when the store is block-aligned, and to the exhaustive flat scan
-  when B * nprobe >= nlist otherwise;
+  kernel K1) when the store is block-aligned and calibration has not dropped
+  that regime; otherwise to the window probe (``ops/ivf.py::ivf_search``)
+  when B * nprobe < nlist, and to the exhaustive flat scan when not;
 - an IVF store with ``ids`` to an exact scan of just the allowed rows
   (``_ivf_subset_search``) — the path the pandas operators take, since
   ``sem_search`` and ``sem_sim_join`` always pass ``ids``;
@@ -16,12 +17,16 @@ memory; the planner routes
 - any other Flat search to ``flat_search`` with a validity mask.
   int8 Flat stores rescore exactly in f32 (32 candidates by default).
 
-Paths not ported yet raise ``NotImplementedError`` naming the ROADMAP item
-that adds them; none falls back silently.
+With ``recall_target`` an IVF store calibrates ``nprobe`` on first use
+(``calibrate_nprobe``, ``ops/autotune.py``) or adopts a calibration persisted
+in ``meta.json`` by either package.  ``stats["routes"]`` counts the searches
+each route served.  Sharded stores (``mesh``, ROADMAP M11) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Any, Optional
 
@@ -30,11 +35,13 @@ import torch
 from numpy.typing import NDArray
 
 from lotus_tpu_torch.ops import io as index_io
-from lotus_tpu_torch.ops.common import round_up
+from lotus_tpu_torch.ops.common import require_full_f32, round_up
 from lotus_tpu_torch.ops.flat import DEFAULT_BLOCK_ROWS, flat_search
-from lotus_tpu_torch.ops.ivf import default_device
+from lotus_tpu_torch.ops.ivf import default_device, ivf_search
 from lotus_tpu_torch.types import RMOutput
 from lotus_tpu_torch.vector_store.vs import VS
+
+logger = logging.getLogger("lotus_tpu_torch")
 
 _DTYPE_NAMES = {
     "float32": torch.float32,
@@ -48,11 +55,11 @@ class TorchVS(VS):
     """Flat / IVF-Flat vector store on one torch device.
 
     Takes ``TpuVS``'s constructor arguments plus ``device`` (default: the
-    GPU when there is one).  ``mesh`` (ROADMAP M11) and ``recall_target``
-    (calibration, ROADMAP M6) are not ported yet and raise
-    ``NotImplementedError``.  ``approx`` routes bf16 Flat searches of
+    GPU when there is one).  ``mesh`` (ROADMAP M11) is not ported yet and
+    raises ``NotImplementedError``.  ``approx`` routes bf16 Flat searches of
     B >= 256 to K2 under ``scan="auto"``; ``flat_search`` itself serves it
-    exactly (see ``ops/flat.py``).
+    exactly (see ``ops/flat.py``).  ``recall_target``: see
+    ``calibrate_nprobe``.
     """
 
     def __init__(
@@ -84,12 +91,15 @@ class TorchVS(VS):
             raise ValueError(f"scan must be 'auto', 'xla' or 'pallas', got {scan!r}")
         if mesh is not None:
             raise NotImplementedError("TorchVS: sharded stores (mesh) are ROADMAP item M11")
-        if recall_target is not None:
-            raise NotImplementedError("TorchVS: nprobe calibration (recall_target) is ROADMAP item M6")
         self.index_type = index_type
         self.metric = metric
         self.device_dtype = device_dtype
         self.nlist = nlist
+        # None = "use the default (32) until calibration picks one"; an
+        # explicit value is respected, and calibration warns before repinning it.
+        self._nprobe_user_set = nprobe is not None
+        # Serving regimes disabled by calibration (see _adopt_calibration).
+        self._regimes_dropped: set[str] = set()
         self.nprobe = 32 if nprobe is None else int(nprobe)
         self.approx = approx
         self.block_rows = block_rows
@@ -101,6 +111,7 @@ class TorchVS(VS):
         # None = int8 queries exactly when the store is int8 and rescoring is on.
         self.int8_queries = int8_queries
         self.query_chunk = query_chunk
+        self.recall_target = recall_target
         self.device = torch.device(device) if device is not None else default_device()
         self.index_dir: str | None = None
         self._state: dict[str, Any] | None = None
@@ -110,6 +121,9 @@ class TorchVS(VS):
             "subset_searches": 0,
             # End-to-end wall time per search, device->host transfer included.
             "total_wall_s": 0.0,
+            # Searches by the route that served them; IVF searches with ids
+            # take the subset scan and count in subset_searches only.
+            "routes": {"grouped_probe": 0, "window_probe": 0, "scan": 0},
         }
 
     # ------------------------------------------------------------------ build
@@ -250,16 +264,30 @@ class TorchVS(VS):
             dists, idx = self._ivf_subset_search(state, xq_t, k_eff, ids)
             return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
 
+        route = "scan"
         if meta["kind"] == "ivf":
+            if self.recall_target is not None and "nprobe" not in kwargs:
+                # Lazy autotune: the first search calibrates (or adopts the
+                # entry persisted in meta.json) and pins self.nprobe, once, at
+                # recall@10 — not per K, which would rerun the oracle for
+                # every distinct K.  calibrate_nprobe(k=...) for another k.
+                self.calibrate_nprobe(self.recall_target, k=min(10, max(n, 1)))
             nprobe = int(kwargs.get("nprobe", self.nprobe))
-            if int(meta.get("block_align", 0)) >= 512:
-                dists, idx = self._probe_ivf(state, xq_t, k_eff, nprobe, kwargs)
-                return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
-            if xq.shape[0] * max(nprobe, 1) < int(meta.get("nlist", 1)):
-                raise NotImplementedError(
-                    "TorchVS: the window probe for non-block-aligned IVF stores is ROADMAP item M4"
-                )
-            # Exhaustive-scan fallback for large batches on a non-aligned store.
+            if self._pallas_eligible(meta) and "pallas" not in self._regimes_dropped:
+                route = "grouped_probe"
+            elif xq.shape[0] * max(nprobe, 1) < int(meta.get("nlist", 1)):
+                route = "window_probe"
+            # Otherwise the exhaustive scan: one pass over the store serves
+            # the whole batch.
+        self.stats["routes"][route] += 1
+        if route != "scan":
+            dists, idx = self._probe_ivf(
+                state, xq_t, k_eff, nprobe, use_pallas=route == "grouped_probe",
+                rescore=kwargs.get("rescore", self.rescore),
+                int8_queries=kwargs.get("int8_queries", self.int8_queries),
+                query_chunk=kwargs.get("query_chunk", self.query_chunk),
+            )
+            return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
 
         self._ensure_flat_arrays(state)
         xb = state["xb"]
@@ -303,20 +331,190 @@ class TorchVS(VS):
             dists, idx = dists[:, :k_eff], idx[:, :k_eff]
         return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
 
-    def _probe_ivf(self, state, xq_t, k_eff, nprobe, kwargs):
-        """The grouped probe (K1) on a block-aligned store, with the
-        int8-queries default of ``tpu_vs.py:434-440``."""
-        from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe
+    def _probe_ivf(
+        self,
+        state: dict[str, Any],
+        xq_t: torch.Tensor,
+        k_eff: int,
+        nprobe: int,
+        *,
+        use_pallas: bool,
+        rescore: Optional[int],
+        int8_queries: Optional[bool],
+        query_chunk: Optional[int],
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One IVF probe on the serving path: the grouped probe (K1), with the
+        int8-queries default of ``tpu_vs.py:434-440``, or the window probe."""
+        metric = state["meta"]["metric"]
+        if use_pallas:
+            from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe
 
-        rescore = kwargs.get("rescore", self.rescore)
-        int8_q = kwargs.get("int8_queries", self.int8_queries)
-        if int8_q is None:  # auto: int8 store + rescoring active
-            int8_q = bool(state["ivf_vectors"].dtype == torch.int8 and rescore)
-        return ivf_search_grouped_probe(
-            state, xq_t, k_eff, nprobe=nprobe, metric=state["meta"]["metric"],
-            rescore=rescore, int8_queries=int8_q,
-            query_chunk=kwargs.get("query_chunk", self.query_chunk),
+            if int8_queries is None:  # auto: int8 store + rescoring active
+                int8_queries = bool(state["ivf_vectors"].dtype == torch.int8 and rescore)
+            return ivf_search_grouped_probe(
+                state, xq_t, k_eff, nprobe=nprobe, metric=metric, rescore=rescore,
+                int8_queries=int8_queries, query_chunk=query_chunk,
+            )
+        return ivf_search(state, xq_t, k_eff, nprobe=nprobe, metric=metric, rescore=rescore)
+
+    def _pallas_eligible(self, meta: dict[str, Any]) -> bool:
+        """The grouped probe serves block-aligned stores: on the card through
+        K1, on the CPU through K1's plain version.  (The reference also asks
+        for a TPU or interpret mode, ``tpu_vs.py:461-464``.)"""
+        return int(meta.get("block_align", 0)) >= 512
+
+    def _exact_topk(self, xq: np.ndarray, k: int, metric: str) -> np.ndarray:
+        """Exact float32 top-k over the unquantised on-disk corpus: the ground
+        truth for absolute-recall calibration.  Streams ``vectors`` in row
+        chunks to ``self.device`` and keeps a running top-k there, with TF32
+        off (``tpu_vs.py:466-493`` keeps it on the host)."""
+        vecs = index_io.read_array(self.index_dir, "vectors")
+        n = vecs.shape[0]
+        q = torch.from_numpy(np.ascontiguousarray(xq, dtype=np.float32)).to(self.device)
+        require_full_f32(q)
+        best_s = torch.empty((q.shape[0], 0), dtype=torch.float32, device=self.device)
+        best_i = torch.empty((q.shape[0], 0), dtype=torch.int64, device=self.device)
+        chunk = 1 << 18
+        for start in range(0, n, chunk):
+            block = torch.from_numpy(np.array(vecs[start : start + chunk], dtype=np.float32)).to(self.device)
+            scores = q @ block.T
+            if metric == "l2":  # argmin ||x-q||^2 == argmax (2 q.x - ||x||^2)
+                scores = 2.0 * scores - torch.sum(block * block, dim=-1)[None, :]
+            ids = torch.arange(start, start + block.shape[0], device=self.device).expand(q.shape[0], -1)
+            cat_s, cat_i = torch.cat([best_s, scores], 1), torch.cat([best_i, ids], 1)
+            best_s, pos = torch.topk(cat_s, min(k, cat_s.shape[1]), dim=1)
+            best_i = torch.gather(cat_i, 1, pos)
+        return best_i.cpu().numpy()
+
+    def calibrate_nprobe(
+        self,
+        recall_target: Optional[float] = None,
+        *,
+        k: int = 10,
+        nq: int = 256,
+        seed: int = 0,
+        persist: bool = True,
+        ladder: Optional[list[int]] = None,
+        oracle: str = "full_probe",
+    ) -> dict[str, Any]:
+        """Calibrate nprobe for a recall@k target and adopt it
+        (``tpu_vs.py:495-642``).
+
+        Samples ``nq`` stored rows as stand-in queries and walks an nprobe
+        ladder on the probe path ``__call__`` serves with: the grouped probe
+        on block-aligned stores, the window probe otherwise.  The result is
+        persisted into ``meta.json`` under ``calibration["<target>@<k>"]``
+        (``.../exact`` for the exact oracle), the key ``TpuVS`` uses, so a
+        store calibrated by either package is adopted by the other without
+        measuring; ``self.nprobe`` is set to the chosen value.
+
+        ``oracle="full_probe"`` measures recall relative to the store's own
+        full probe; ``"exact"`` against an exact f32 scan of the unquantised
+        corpus (``_exact_topk``), flagging ``target_unreachable`` when the
+        full probe itself falls short.  When the grouped probe's ceiling is
+        below the target but the window probe reaches it, the ``"pallas"``
+        regime is dropped (``regimes_dropped``, persisted with the entry):
+        ``__call__`` then routes small batches to the window probe and large
+        ones to the exhaustive scan.
+        """
+        from lotus_tpu_torch.ops import autotune
+
+        if oracle not in ("full_probe", "exact"):
+            raise ValueError(f"oracle must be 'full_probe' or 'exact', got {oracle!r}")
+        state = self._materialize()
+        meta = state["meta"]
+        if meta["kind"] != "ivf":
+            raise ValueError("calibrate_nprobe requires an IVF index")
+        target = self.recall_target if recall_target is None else float(recall_target)
+        if target is None:
+            raise ValueError("pass recall_target= (or construct TorchVS with one)")
+        key = f"{target:g}@{int(k)}" + ("" if oracle == "full_probe" else "/exact")
+        cal = dict(meta.get("calibration") or {})
+        if key in cal:
+            self._adopt_calibration(cal[key])
+            return cal[key]
+
+        n = state["n_rows"]
+        rng = np.random.default_rng(seed)
+        sample = np.sort(rng.choice(n, size=min(nq, n), replace=False))
+        xq = np.asarray(self.get_vectors_from_index(self.index_dir, sample.tolist()), dtype=np.float32)
+        use_pallas = self._pallas_eligible(meta)
+
+        def probe_fn(use_pallas_path: bool, q_chunk: int | None):
+            def search_fn(q: np.ndarray, kk: int, nprobe: int) -> np.ndarray:
+                q_t = torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32)).to(self.device)
+                # The window probe runs 32 queries at a time, as the reference's.
+                parts = [q_t] if q_chunk is None else torch.split(q_t, q_chunk)
+                out = [
+                    self._probe_ivf(
+                        state, p, kk, nprobe, use_pallas=use_pallas_path, rescore=self.rescore,
+                        int8_queries=self.int8_queries, query_chunk=self.query_chunk,
+                    )[1]
+                    for p in parts
+                ]
+                return torch.cat(out).cpu().numpy()
+
+            return search_fn
+
+        # Calibrate the path __call__ serves: a block-aligned store serves
+        # every batch size through the grouped probe, any other store through
+        # the window probe.  Taking the min over a never-served regime would
+        # inflate nprobe.
+        fns = {"pallas": probe_fn(True, None)} if use_pallas else {"window": probe_fn(False, 32)}
+        oracle_idx = self._exact_topk(xq, k, meta["metric"]) if oracle == "exact" else None
+        result = autotune.calibrate_nprobe(
+            fns, xq, nlist=int(meta["nlist"]), recall_target=target, k=k, ladder=ladder,
+            oracle_indices=oracle_idx, oracle_regime="pallas" if use_pallas else "window",
         )
+        if result.get("target_unreachable") and use_pallas:
+            # The grouped probe's ceiling (its per-(query, list) candidate
+            # caps) misses the target; the window probe scans whole lists.
+            # Drop the grouped regime and recalibrate on the window probe, but
+            # only when that reaches the target.  Otherwise the grouped
+            # result is kept as it is, without comparing the two ceilings:
+            # the reference's rule (tpu_vs.py:607), mirrored on purpose.
+            recal = autotune.calibrate_nprobe(
+                {"window": probe_fn(False, 32)}, xq, nlist=int(meta["nlist"]), recall_target=target,
+                k=k, ladder=ladder, oracle_indices=oracle_idx, oracle_regime="window",
+            )
+            if not recal.get("target_unreachable"):
+                logger.warning(
+                    "calibrate_nprobe: the pallas regime cannot reach recall_target=%.4g (ceiling %.4f); "
+                    "dropping it from serving and recalibrating on the window probe.",
+                    target, result["ceiling"],
+                )
+                recal["regimes_dropped"] = ["pallas"]
+                result = recal
+        if result.get("target_unreachable"):
+            logger.warning(
+                "calibrate_nprobe: recall_target=%.4g is UNREACHABLE on this store — the full probe's "
+                "recall@%d ceiling on the worst serving regime (%s oracle) is %.4f. Serving the full "
+                "probe; rebuild with higher-fidelity storage (rescore/int8_refine/float32) to reach it.",
+                target, k, result["oracle"], result["ceiling"],
+            )
+        cal[key] = result
+        meta["calibration"] = cal
+        if persist and self.index_dir is not None:
+            # Persist onto the on-disk manifest (not the runtime meta, which
+            # load_ivf_state may have annotated), so reloads skip the run.
+            disk_meta = index_io.read_meta(self.index_dir)
+            disk_meta["calibration"] = {**(disk_meta.get("calibration") or {}), key: result}
+            index_io.write_meta(self.index_dir, disk_meta)
+        self._adopt_calibration(result)
+        return result
+
+    def _adopt_calibration(self, result: dict[str, Any]) -> None:
+        # Regimes dropped by calibration persist with the entry, so reloads
+        # route the same way without measuring again.
+        self._regimes_dropped = set(result.get("regimes_dropped", []))
+        new = int(result["nprobe"])
+        if self._nprobe_user_set and new != self.nprobe:
+            logger.warning(
+                "calibrate_nprobe: overriding explicitly constructed nprobe=%d with calibrated "
+                "nprobe=%d (recall_target=%g). Drop the nprobe= argument to silence this.",
+                self.nprobe, new, result["recall_target"],
+            )
+        self.nprobe = new
 
     def _finish_output(
         self, dists: torch.Tensor, idx: torch.Tensor, xq: np.ndarray, k_eff: int, K: int,

@@ -65,8 +65,10 @@ def test_torch_vs_defaults_to_the_gpu(no_gpu, index_type):
 
 
 def test_unported_options_raise_before_the_device(no_gpu):
-    """mesh and recall_target name their ROADMAP item whatever the device."""
+    """mesh names its ROADMAP item whatever the device; recall_target is
+    ported, so it meets the device check like any other store."""
     with pytest.raises(NotImplementedError, match="M11"):
         TorchVS(mesh=object())
-    with pytest.raises(NotImplementedError, match="M6"):
+    with pytest.raises(RuntimeError, match=_NO_GPU):
         TorchVS(index_type="ivf", recall_target=0.9)
+    assert TorchVS(index_type="ivf", recall_target=0.9, device="cpu").recall_target == 0.9

@@ -19,7 +19,7 @@ def test_port_runs_without_jax_pandas_or_lotus_tpu(tmp_path):
         import numpy as np
         import lotus_tpu_torch
         from lotus_tpu_torch import TorchVS
-        from lotus_tpu_torch.ops import bench_data, flat, flat_scan, ivf, ivf_probe, kmeans  # noqa: F401
+        from lotus_tpu_torch.ops import autotune, bench_data, flat, flat_scan, ivf, ivf_probe, kmeans  # noqa: F401
 
         rng = np.random.default_rng(0)
         emb = rng.standard_normal((2048, 16)).astype(np.float32)
@@ -28,6 +28,11 @@ def test_port_runs_without_jax_pandas_or_lotus_tpu(tmp_path):
         vs.index([], emb, {str(tmp_path / "idx")!r})
         out = vs(emb[:3], 4)
         assert [row[0] for row in out.indices] == [0, 1, 2], out.indices
+        # An unaligned store (64 rows a list): one query through the window probe.
+        small = TorchVS(index_type="ivf", nlist=32, nprobe=4, device="cpu")
+        small.index([], emb, {str(tmp_path / "small")!r})
+        out = small(emb[5], 4)
+        assert out.indices[0][0] == 5 and small.stats["routes"]["window_probe"] == 1, out.indices
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "pandas", "lotus_tpu")
                and sys.modules[m] is not None]
         assert not bad, bad

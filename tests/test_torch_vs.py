@@ -73,16 +73,23 @@ def test_flat_store_matches_reference(tmp_path, dtype):
 
 
 def test_paths_not_ported_raise(tmp_path):
+    """Only sharded stores (mesh, ROADMAP M11) are left unported: an
+    unaligned IVF store serves B 1 through the window probe, and
+    ``recall_target`` is accepted."""
     with pytest.raises(NotImplementedError, match="M11"):
         TorchVS(mesh=object())
-    with pytest.raises(NotImplementedError, match="M6"):
-        TorchVS(index_type="ivf", recall_target=0.9)
+    assert TorchVS(index_type="ivf", recall_target=0.9, device="cpu").recall_target == 0.9
     emb, q, _ = _emb(2, n=600, d=16)
+    idx = str(tmp_path / "small")
     vs = TorchVS(index_type="ivf", nlist=16, nprobe=4, device="cpu")
-    vs.index([], emb, str(tmp_path / "small"))  # 600 / 16 rows per list: not block-aligned
-    with pytest.raises(NotImplementedError, match="M4"):
-        vs(q[:1], 5)
+    vs.index([], emb, idx)  # 600 / 16 rows per list: not block-aligned
+    ref_vs = TpuVS(index_type="ivf", nlist=16, nprobe=4)
+    ref_vs.load_index(idx)
+    out = vs(q[:1], 5)  # 1 * 4 < 16: the window probe
+    assert vs.stats["routes"] == {"grouped_probe": 0, "window_probe": 1, "scan": 0}
+    assert _same_sets(out, ref_vs(q[:1], 5))
     out = vs(q[:4], 5)  # 4 * 4 >= 16: the exhaustive scan serves it
+    assert vs.stats["routes"]["scan"] == 1
     ref = np.argsort(-(q[:4] @ emb.T), axis=1)[:, :5]
     assert _same_sets(out, type(out)(distances=[], indices=ref.tolist()))
 
