@@ -15,12 +15,16 @@ Phases (each prints its seconds and the card's name and power limit):
    the card for each variant, with the route each took — int8-dot packed
    (and under the top-1 fold) and int8 store with bf16 queries at the
    config-4 shape of one 2048-query slice, the first two timed beside their
-   bound (``k1_bound``) and the plain version; bf16 packed, f32 unpacked
-   and bf16 l2 on the first 512 lists at full width; and int8 over a window
-   past 8192 rows (unpacked, top-2 and top-1 folds);
+   bound (``k1_bound``) and the plain version; bf16 packed, f32 unpacked,
+   bf16 l2 and f16 rows under f32 queries (packed and unpacked, the latter
+   timed) on the first 512 lists at full width; the int8 dot at d 770 and
+   66 over the same lists (ragged last words; packed and unpacked, bit for
+   bit, d 770 packed timed); and int8 over a window past 8192 rows
+   (unpacked, top-2 and top-1 folds);
 5. IVF main path: ``ivf_search_grouped_probe`` at nprobe 208, rescore 24,
    int8 queries, query_chunk 2048 over B = 4096; recall@10 against the
-   exact f32 oracle must reach 0.99; QPS over chained batches;
+   exact f32 oracle must reach 0.99; QPS over chained batches; the capacity
+   model (``ops/capacity.py``) must equal the served state's bytes;
 6. window probe over config 4's store (``ops/ivf.py::ivf_search``) at the
    reference's small-batch setting (nprobe 208, rescore 24) for B = 1, 16
    and 64: recall@10 over 64 queries must reach 0.99 at each B; ms per call
@@ -38,12 +42,21 @@ Phases (each prints its seconds and the card's name and power limit):
    grouped probe (K1 launches > 0); a fresh store adopts the persisted entry
    without launching K1; an entry with the grouped regime dropped sends
    B 1 to the window probe (no K1 launch) and B 256 to the exhaustive scan;
-9. IVF exhaustive scan: K2 against its plain version on the inputs
+9. config 4 with ids: ``TorchVS._ivf_subset_search`` (the path the pandas
+   operators take) at |ids| = 2**16, B 1 and 256: device ms, transient peak
+   beside the capacity model's, only allowed ids back;
+10. IVF exhaustive scan: K2 against its plain version on the inputs
    ``ivf_residual_scan`` gives it (bf16 queries, the q.c bias plane and the
    row mask over the whole config-4 store at B = 256), both timed; then
    ``ivf_residual_scan`` at rescore 64, whose recall@10 must reach 0.99;
-10. stage breakdown of one config-4 slice (CUDA events per stage);
-11. the reference's window-regime store: 200,000 x 768 seeded rows,
+11. stage breakdown of one config-4 slice (CUDA events per stage);
+12. config 4 at spill_frac 0.05, built once phases 3-11's store is freed:
+   build seconds per phase, spilled copies, peak memory, recall@10 (must
+   reach 0.99), QPS, K1 ms per slice beside the unspilled run; no top-10
+   repeats an id; every row's ``ivf_inv_perm`` slot lies in its top-1 list;
+   the capacity model against the state's bytes, and the most rows each
+   encoding holds on this card;
+13. the reference's window-regime store: 200,000 x 768 seeded rows,
    ``TorchVS(index_type="ivf", nlist=512, nprobe=32)`` as float32 and as
    residual int8 with int4 refinement and rescore 24; ``index()`` leaves
    both unaligned; B 1 and 8 go through the window probe, B 64 through the
@@ -51,11 +64,26 @@ Phases (each prints its seconds and the card's name and power limit):
    exact f32 and the warm ms per call; ``ivf_search`` on the float32 store
    at B 1, 16 and 64 with its transient peak; ``calibrate_nprobe(0.95,
    oracle="exact")`` there must calibrate the window regime;
-12. flat corpus: a seeded, normalised 2**20 x 768 corpus (4096 clusters),
+14. the stores the card refused before: through ``TorchVS`` without ids,
+   an f16 IVF store (K1, f32 queries on f16 rows), a residual int8 IVF
+   store at d 770 with rescore 24 (K1's ragged int8 dot) and an f16 Flat
+   store under ``scan="pallas"`` (K2): each must launch its kernel and
+   reach recall@10 0.95 against exact f32;
+15. BASELINE config 3: ``cluster_vectors`` at 1,000,000 x 768, k 1024, 10
+   iterations (seconds, vecs/s, inertia), the k-means++ seeding alone at
+   k 1024 and 4096, the ``sem_dedup`` self-join as store calls (a Flat
+   store, ids = every row, K 65) over 65,536 query rows, extrapolated,
+   whose thresholded pairs of 256 queries must equal exact f32's, and the
+   reference's 20k x 20k self-join at K 16;
+16. the ids path at config 1's shape (10,000 x 384 Flat, one query a call:
+   recall@10 must be 1.0) and config 2's (100,000 x 100,000 x 768, k 5:
+   pair recall against the full exact oracle), warm host ms and device ms;
+17. flat corpus: a seeded, normalised 2**20 x 768 corpus (4096 clusters),
    4096 queries, the exact f32 top-10 of 256 of them;
-13. K2 vs plain: K2 (``scan_fold``) against ``scan_fold_reference`` on the
+18. K2 vs plain: K2 (``scan_fold``) against ``scan_fold_reference`` on the
    same card tensors: int8 store with int8 queries (bit for bit), int8 store
-   with bf16 queries, bf16 store, f32 store, an n_valid past a 1024 block,
+   with bf16 queries, bf16 store, f32 store, f16 store (timed beside its
+   bound), an n_valid past a 1024 block,
    the bias and row-mask planes at blk 512 and 1024, and a d-1536 store
    (bf16, and int8 under bf16 and int8 queries) whose query tile streams
    with the ring; times at the main shape (B = 4096 over all 2**20 rows)
@@ -63,21 +91,23 @@ Phases (each prints its seconds and the card's name and power limit):
    variants hold every pool score within 2e-5 * (1 + |s|), the best id of
    every lane whose best and second scores lie further apart than that,
    and the top-10 sets except at a near-tie;
-14. flat main path: ``flat_search_pallas`` over the bf16 store at k 10;
+19. flat main path: ``flat_search_pallas`` over the bf16 store at k 10;
    recall@10 against the exact f32 top-10 must reach 0.98; QPS over chained
    4096-query batches, K2 against the plain version (``scan_fold_reference``
    and the same pool top-k);
-15. Flat store: ``TorchVS(index_type="flat")`` over the same rows serves a
+20. Flat store: ``TorchVS(index_type="flat")`` over the same rows serves a
    4096-query search through K2 as bf16 with ``approx`` and as int8 with
    ``scan="pallas"`` (rescore 32); a search with ids does not launch K2 and
    returns only allowed ids;
-16. stage breakdown of one bf16 flat batch (CUDA events per stage).
+21. stage breakdown of one bf16 flat batch (CUDA events per stage).
 
 Each main path runs with its kernel's launch count set to 0 just before it
-and read just after: K1 over phases 5-8 (calibration included), K2 over
-phase 9 and over phases 14-15; each must have launched its kernel, and each
-phase prints its count.  The last three lines are the
-kernel table, the card, and ``{"ok": true, "device": {...}}``.  Without a
+and read just after: K1 over phases 5-8 (calibration included), over phase
+12 and over each K1 store of phase 14; K2 over phase 10, over phases 19-20
+and over phase 14's Flat store; each must have launched its kernel, and
+each phase prints its count.  The last three lines are the kernel table
+(K1 and K2, then the variants the sixth slice added, each with its own
+path's launches), the card, and ``{"ok": true, "device": {...}}``.  Without a
 GPU, or without the repository beside this file, it exits non-zero and
 prints no result.
 """
@@ -103,7 +133,7 @@ DEEP_N = 2**18  # rows of the d-1536 K2 comparison
 K2_TOL = 2e-5
 GPU = ""  # the card's "name, power limit", printed beside every time
 # NVIDIA's H100 SXM data sheet (dense): the bounds' rates.
-HBM_BYTES_PER_S, INT8_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 1979e12, 989e12
+HBM_BYTES_PER_S, INT8_OPS_PER_S, BF16_OPS_PER_S, F32_OPS_PER_S = 3.35e12, 1979e12, 989e12, 67e12
 # The window probe's transient peak may pass its gather budget by this much:
 # the coarse ranking, the candidates' rescoring and the allocator's rounding.
 PEAK_MARGIN = 256 << 20
@@ -287,12 +317,13 @@ def kernel_report() -> None:
                 assert counts[f][op] > 0, f"{f} has no {op}: not on the tensor cores"
 
 
-def k1_bound(units, vecs, chunk_list, sizes, *, int8_dot, packed, top1=False):
+def k1_bound(units, vecs, chunk_list, sizes, *, int8_dot, packed, top1=False, rate=None):
     """K1's bound on this card for one launch: the larger of its bytes (each
     probed list's live rows, whole 64-row slices, and their scales read once;
     the live chunks' query tiles; the whole output written) over 3.35 TB/s
     and its operations (2 * 128 * d per live row of every live chunk) over
-    the dense tensor-core rate (int8 1,979 TOP/s, bf16 989 TFLOP/s), from
+    the dense tensor-core rate (int8 1,979 TOP/s, bf16 989 TFLOP/s) or
+    ``rate`` (f32 variants: 67 TFLOP/s outside the tensor cores), from
     NVIDIA's H100 SXM data sheet.  Returns (ms, "bytes" or "operations",
     live chunks, MACs, bytes the kernel streams: every live chunk's rows)."""
     import torch
@@ -311,7 +342,7 @@ def k1_bound(units, vecs, chunk_list, sizes, *, int8_dot, packed, top1=False):
     need = rows64(torch.unique(live)) * row_bytes + q_bytes + out_bytes
     macs = QU * d * rows64(live)
     t_bytes = need / HBM_BYTES_PER_S
-    t_ops = 2 * macs / (INT8_OPS_PER_S if int8_dot else BF16_OPS_PER_S)
+    t_ops = 2 * macs / (rate or (INT8_OPS_PER_S if int8_dot else BF16_OPS_PER_S))
     streamed = rows64(live) * row_bytes + q_bytes + out_bytes
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", int(live.numel()),
             macs, streamed)
@@ -575,57 +606,382 @@ def calibration_phase(vs, index_dir: str, store_kw: dict, qs_np, store_gt) -> No
     assert dropped_launches == 0, "a dropped grouped regime launched K1"
 
 
-def main() -> int:
+def reset_peak() -> None:
+    """Reset the allocator's peak, keeping the process-wide one in PEAK_SEEN."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU", file=sys.stderr)
-        return 1
-    if not os.path.isdir(os.path.join(REPO, "lotus_tpu_torch")):
-        print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
-    from lotus_tpu_torch.ops import _kernels
-    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk, synth_ivf_device_build
-    from lotus_tpu_torch import TorchVS
+    global PEAK_SEEN
+    torch.cuda.synchronize()
+    PEAK_SEEN = max(PEAK_SEEN, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+
+def seeded_queries(rows, nq: int, seed: int):
+    """``nq`` unit queries: perturbed copies of seeded picks of ``rows``."""
+    import torch
+
+    g = torch.Generator(device=rows.device).manual_seed(seed)
+    q = rows[torch.randint(0, rows.shape[0], (nq,), generator=g, device=rows.device)]
+    q = q + 0.05 * torch.randn(q.shape, generator=g, device=rows.device)
+    return q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+
+
+def exact_topk(q, rows, k: int, chunk: int = 8192):
+    """Exact f32 top-k ids of ``q`` over ``rows`` (no TF32), in query chunks."""
+    import torch
+
+    return torch.cat([torch.topk(q[lo : lo + chunk] @ rows.T, k, dim=1).indices
+                      for lo in range(0, q.shape[0], chunk)])
+
+
+def capacity_report(label: str, state, n: int, peak: int) -> int:
+    """The capacity model's bytes for a served config-4 state beside the
+    state's own ``nbytes`` and the build's ``max_memory_allocated``; they
+    must agree.  Returns the state's bytes."""
+    import torch
+
+    from lotus_tpu_torch.ops import capacity
+    from lotus_tpu_torch.ops.ivf import ensure_pos_list
+
+    ensure_pos_list(state)
+    have = sum(t.nbytes for t in state.values() if isinstance(t, torch.Tensor))
+    meta = state["meta"]
+    want = capacity.state_bytes(n, state["ivf_vectors"].shape[0], int(meta["nlist"]), int(meta["d"]), torch.int8,
+                                residual=True, refine=True)
+    say(f"  capacity ({label}): formula {want / 2**30:.3f} GiB, state nbytes {have / 2**30:.3f} GiB "
+        f"({state['ivf_vectors'].shape[0]:,} slots for {n:,} rows), build peak {peak / 2**30:.2f} GiB [{GPU}]")
+    assert have == want, f"capacity formula {want} != state nbytes {have}"
+    return have
+
+
+def capacity_table(dev, window: int) -> None:
+    """The most rows of d 768 each encoding holds on this card at config 4's
+    geometry (nlist 4096, block_align 1024, this run's window) beside the
+    transients of the serving paths: the window probe's gather budget plus
+    PEAK_MARGIN, K1's pool at query_chunk 2048 and nprobe 208, and the ids
+    path's f32 reconstruction of 2**16 rows."""
+    import torch
+
+    from lotus_tpu_torch.ops import capacity
+    from lotus_tpu_torch.ops.ivf import DEFAULT_GATHER_BUDGET_BYTES
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    transient = {"window probe": DEFAULT_GATHER_BUDGET_BYTES + PEAK_MARGIN,
+                 "K1 pool": capacity.k1_pool_bytes(QUERY_CHUNK, NPROBE, 4096),
+                 "ids path": capacity.subset_bytes(1 << 16, 768, torch.int8, residual=True)}
+    free = total - max(transient.values())
+    say(f"  card memory {total / 2**30:.2f} GiB; transients " + ", ".join(
+        f"{k} {v / 2**30:.3f} GiB" for k, v in transient.items()) + " (the largest is reserved)")
+    for name, dtype, kw in (("f32", torch.float32, {}), ("bf16", torch.bfloat16, {}),
+                            ("f16", torch.float16, {}), ("plain int8", torch.int8, {}),
+                            ("residual int8 + int4", torch.int8, dict(residual=True, refine=True)),
+                            ("residual int8 + int4, spill 0.05", torch.int8,
+                             dict(residual=True, refine=True, spill_frac=0.05))):
+        per_slot = capacity.slot_bytes(768, dtype, residual=kw.get("residual", False))
+        per_row = capacity.row_bytes(768, refine=kw.get("refine", False))
+        rows = capacity.max_rows(free, 768, dtype, nlist=4096, block_align=1024, window=window, **kw)
+        say(f"    {name}: {per_slot} B a slot + {per_row} B a row -> at most {rows:,} rows")
+
+
+CONFIG4 = dict(n=10 * 2**20, d=768, nlist=4096, n_clusters=65536, cluster_scale=2.5, chunk=2**18,
+               queries_b=B, gt_queries=256, k=K, block_align=1024, seed=0)
+
+
+def spill_phase(dev, unspilled: dict, cfg: dict = CONFIG4) -> int:
+    """Config 4 at ``spill_frac=0.05`` (the reference's measured spill point),
+    beside the unspilled run of this call: build seconds per phase, vecs/s,
+    spilled copies, peak memory, recall@10 at nprobe 208 / rescore 24, QPS,
+    K1's ms per slice; no id repeats in any top-10, and every row's
+    ``ivf_inv_perm`` slot lies in its top-1 list."""
+    import torch
+
+    from lotus_tpu_torch.ops.bench_data import synth_ivf_device_build
     from lotus_tpu_torch.ops.flat import flat_search
-    from lotus_tpu_torch.ops.flat_scan import (
-        _pool_topk, flat_search_pallas, ivf_residual_scan, residual_scan_inputs, scan_fold, scan_fold_reference,
-    )
+    from lotus_tpu_torch.ops.ivf import ensure_pos_list
+    from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe, probe_fold, probe_layout
+    from lotus_tpu_torch.ops.quant import quantize_rows
+
+    reset_peak()
+    held = torch.cuda.memory_allocated()  # what survives the unspilled store: nothing of it
+    built = synth_ivf_device_build(**cfg, spill_frac=0.05, device=dev, log=say)
+    peak = torch.cuda.max_memory_allocated()
+    state, xq, gt = built["state"], built["queries"], built["gt"]
+    say(f"  spill_frac 0.05: build {built['build_seconds']:.2f} s = {built['build_vecs_per_s']:,.0f} vecs/s; phases "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in built["timings"].items())
+        + f"; {built['spilled']:,} spilled copies; window {state['meta']['probe_window']}; "
+          f"peak {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB allocated before it) [{GPU}]")
+
+    def search(queries):
+        return ivf_search_grouped_probe(state, queries, K, nprobe=NPROBE, metric="ip", rescore=RESCORE,
+                                        int8_queries=True, query_chunk=QUERY_CHUNK)
+
+    probe_fold.launches = 0  # this path's launches
+    dists, ids = search(xq)
+    torch.cuda.synchronize()
+    k1_launches = probe_fold.launches
+    ids_np = ids.cpu().numpy()
+    recall = recall_at(ids_np, gt)
+    repeats = sum(len(set(r[r >= 0].tolist())) != int((r >= 0).sum()) for r in ids_np)
+    qps, batch_ms = chained_qps(lambda: search(xq), B)
+    k1_launches_all = probe_fold.launches
+    q = xq[:QUERY_CHUNK]
+    _, lists = flat_search(state["centroids"], q, NPROBE, metric="ip")
+    units, chunk_list, _, _ = probe_layout(lists.to(torch.int32), quantize_rows(q)[0], state["ivf_list_size"], 1024)
+    k1_ms = cuda_ms(lambda: probe_fold(units, state["ivf_vectors"], state["ivf_row_scales"], None, chunk_list,
+                                       state["ivf_list_start"], state["ivf_list_size"], bl=1024, int8_dot=True,
+                                       l2=False, packed=int(state["meta"]["probe_window"]) <= 8192), 10)
+    bound, by, n_live, _, _ = k1_bound(units, state["ivf_vectors"], chunk_list, state["ivf_list_size"],
+                                       int8_dot=True, packed=True)
+    primary_ok = bool((ensure_pos_list(state)[state["ivf_inv_perm"].long()] == built["assign"]).all())
+    say(f"  spilled: recall@{K} {recall!r}; QPS {qps:,.1f} ({batch_ms:.2f} ms per batch); K1 {k1_ms:.3f} ms per "
+        f"{QUERY_CHUNK}-query slice ({n_live} live chunks, bound {bound:.3f} ms, {by}); K1 launches {k1_launches} "
+        f"(then {k1_launches_all - k1_launches} timed); top-{K} rows repeating an id {repeats}; ivf_inv_perm in "
+        f"the top-1 list {primary_ok} [{GPU}]")
+    say(f"  unspilled, same call: build {unspilled['build_s']:.2f} s = {unspilled['vecs_s']:,.0f} vecs/s; phases "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in unspilled["timings"].items())
+        + f"; peak {unspilled['peak'] / 2**30:.2f} GiB; recall@{K} {unspilled['recall']!r}; QPS "
+          f"{unspilled['qps']:,.1f}; K1 {unspilled['k1_ms']:.3f} ms per slice [{GPU}]")
+    capacity_report("spill 0.05", state, cfg["n"], peak)
+    capacity_table(dev, int(state["meta"]["probe_window"]))
+    assert bool(torch.isfinite(dists).all()), "spilled search output is not finite"
+    assert recall >= 0.99, f"spilled recall@10 {recall} below 0.99"
+    assert repeats == 0, "a spilled top-10 repeats an id"
+    assert primary_ok, "ivf_inv_perm does not point at each row's primary copy"
+    assert k1_launches > 0, "the spilled search did not launch K1"
+    return k1_launches_all
+
+
+def queue3_stores_phase(dev, n: int = 131_072, nlist: int = 128) -> dict:
+    """The store types the card rejected before (ROADMAP Queue 3), through
+    ``TorchVS`` without ids: an f16 block-aligned IVF store (K1, f32 queries
+    on f16 rows), a residual int8 IVF store at d 770 with rescore 24 (K1's
+    int8 dot with a ragged last word) and an f16 Flat store under
+    ``scan="pallas"`` (K2, f16 rows rounded to bf16).  Each must launch its
+    kernel and reach recall@10 0.95 against exact f32.  Returns each
+    store's launches by label."""
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk
+    from lotus_tpu_torch.ops.flat_scan import scan_fold
+    from lotus_tpu_torch.ops.ivf_probe import probe_fold
+
+    index_dir = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_queue3_index")
+    launched = {}
+    for label, d, kw, fold in (
+        ("f16 IVF store", 768, dict(index_type="ivf", device_dtype="float16", nlist=nlist), probe_fold),
+        ("residual int8 IVF store, d 770, rescore 24", 770,
+         dict(index_type="ivf", device_dtype="int8", int8_refine=True, rescore=RESCORE, nlist=nlist), probe_fold),
+        ("f16 Flat store, scan='pallas'", 768, dict(index_type="flat", device_dtype="float16", scan="pallas"),
+         scan_fold),
+    ):
+        emb_t = gen_chunk(17, 0, corpus_centers(17, 1024, d, dev), n, 2.5)
+        qs = seeded_queries(emb_t, 256, 17)
+        gt = exact_topk(qs, emb_t, K).tolist()
+        shutil.rmtree(index_dir, ignore_errors=True)
+        vs = TorchVS(device=dev, **kw)
+        vs.index([], emb_t.cpu().numpy(), index_dir)
+        fold.launches = 0  # this path's launches
+        out = vs(qs.cpu().numpy(), K)
+        launches = fold.launches
+        recall = recall_at(out.indices, gt)
+        plan = fold.last_plan
+        say(f"  {label}: recall@{K} vs exact f32 {recall!r}; {'K1' if fold is probe_fold else 'K2'} launches "
+            f"{launches}; {plan} [{GPU}]")
+        assert launches > 0, f"{label}: TorchVS did not launch its kernel"
+        assert recall >= 0.95, f"{label}: recall@10 {recall} below 0.95"
+        launched[label] = launches
+        del vs, emb_t
+    shutil.rmtree(index_dir, ignore_errors=True)
+    return launched
+
+
+def config3_phase(dev, n: int = 1_000_000, k: int = 1024, seed_ks=(1024, 4096), q_rows: int = 65536) -> None:
+    """BASELINE config 3 on the port: k-means at 1,000,000 x 768, k 1024, 10
+    iterations (``benchmarks/cluster_dedup.py:18-34``: seconds, n * iters / s,
+    inertia), the k-means++ seeding alone at k 1024 and 4096, and the
+    self-join ``sem_dedup`` makes (``sem_dedup.py:57-60``) as the store calls
+    it: a ``TorchVS`` Flat store over the same rows, ids = every row, K =
+    max_neighbors + 1 = 65; then the reference's own measure, the 20k x 20k
+    self-join at K 16 (``cluster_dedup.py:36-41``)."""
+    import torch
+
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk
+    from lotus_tpu_torch.ops.flat import flat_search
+    from lotus_tpu_torch.ops.kmeans import _kmeanspp_init
+    from lotus_tpu_torch.utils import cluster_vectors
+
+    d, iters, kd = 768, 10, 65
+    x = gen_chunk(23, 0, corpus_centers(23, max(8, int(n ** 0.5 / 4)), d, dev), n, 2.5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cluster_vectors(x, k, iters, device=dev)
+    used = int(torch.unique(res.assignments).numel())
+    secs = time.perf_counter() - t0
+    say(f"  cluster_vectors: {n:,} x {d}, k {k}, {iters} iterations: {secs:.3f} s = {n * iters / secs:,.0f} "
+        f"vecs/s (n * iters / s); inertia {float(res.inertia)!r}; {used} clusters used [{GPU}]")
+    for kk in seed_ks:
+        sub = x[: max(64 * kk, 4096)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _kmeanspp_init(sub, kk, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        say(f"  k-means++ seeding, k {kk} over {sub.shape[0]:,} rows: {time.perf_counter() - t0:.3f} s [{GPU}]")
+    del res
+
+    index_dir = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_dedup_index")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    vs = TorchVS(index_type="flat", device=dev)
+    vs.index([], x.cpu().numpy(), index_dir)
+    every = list(range(n))
+    q_np = x[:q_rows].cpu().numpy()
+    vs(q_np[:256], kd, ids=every)  # loads the store
+    t0 = time.perf_counter()
+    out = vs(q_np, kd, ids=every)
+    slice_s = time.perf_counter() - t0
+    whole_s = slice_s * n / q_np.shape[0]
+    ran = ""
+    if whole_s < 20.0:
+        t0 = time.perf_counter()
+        vs(x.cpu().numpy(), kd, ids=every)
+        ran = f"; the whole {n:,} ran in {time.perf_counter() - t0:.3f} s"
+    say(f"  sem_dedup self-join (TorchVS Flat f32, ids = all {n:,} rows, K {kd}): {slice_s:.3f} s for "
+        f"{q_np.shape[0]:,} query rows (host clock, results on the host) -> {whole_s:.1f} s for all {n:,} "
+        f"rows, extrapolated{ran} [{GPU}]")
+    # The thresholded pairs of 256 queries against exact f32, except at a
+    # near-tie with the threshold or the K-th score.
+    q = x[:256]
+    top = torch.topk(q @ x.T, kd + 1, dim=1)
+    got_s, got_i = torch.tensor(out.distances[:256]), torch.tensor(out.indices[:256])
+    mismatched = 0
+    for r in range(256):
+        want = {int(j) for j, s in zip(top.indices[r, :kd].tolist(), top.values[r, :kd].tolist()) if s > 0.9}
+        have = {int(j) for j, s in zip(got_i[r].tolist(), got_s[r].tolist()) if s > 0.9}
+        edge = abs(float(top.values[r, kd - 1]) - float(top.values[r, kd])) < 1e-5 and top.values[r, kd - 1] > 0.9
+        near = [s for s in top.values[r, :kd + 1].tolist() if abs(s - 0.9) < 1e-5]
+        mismatched += want != have and not edge and not near
+    over = top.values[:, :kd] > 0.9
+    others = int((over & (top.indices[:, :kd] != torch.arange(256, device=dev)[:, None])).sum())
+    say(f"  thresholded pairs (> 0.9) of 256 queries vs exact f32: {int(over.sum())} pairs ({others} with another "
+        f"row), {mismatched} queries differ")
+    assert mismatched == 0, "the self-join's thresholded pairs differ from exact f32"
+    del vs
+    shutil.rmtree(index_dir, ignore_errors=True)
+    sub = x[:20_000]
+    flat_search(sub, sub, 16, metric="ip", block_rows=8192)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, i2 = flat_search(sub, sub, 16, metric="ip", block_rows=8192)
+    i2.cpu()
+    say(f"  the reference's measure, 20k x 20k self-join at K 16 (flat_search): "
+        f"{1e3 * (time.perf_counter() - t0):.3f} ms [{GPU}]")
+
+
+def ids_store_runs(label: str, vs, q, k: int, ids, device_fn, gt) -> float:
+    """One ids path: recall of the store call against ``gt``, its warm
+    host-clock ms, and the device ms of its search function (CUDA events)."""
+    out = vs(q.cpu().numpy(), k, ids=ids)
+    got = out.indices
+    recall = float(sum(len(set(a) & set(b)) for a, b in zip(got, gt)) / (k * len(gt)))
+    host = host_ms(lambda: vs(q.cpu().numpy(), k, ids=ids))
+    dev_ms = cuda_ms(device_fn, 3)
+    say(f"  {label}: recall@{k} {recall!r}; {host:.3f} ms warm (host clock), {dev_ms:.3f} ms on the device "
+        f"(CUDA events) [{GPU}]")
+    return recall
+
+
+def ids_path_phase(dev, shapes=((10_000, 384, 1), (100_000, 768, 100_000))) -> None:
+    """The ids path the pandas operators take (``sem_search`` and
+    ``sem_sim_join`` always pass ``ids``): config 1's shape (10,000 x 384
+    Flat, one query a call, ids = every row; recall@10 must be 1.0) and
+    config 2's (100,000 x 100,000 x 768, k 5: pair recall against the full
+    exact oracle)."""
+    import torch
+
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk
+    from lotus_tpu_torch.ops.flat import flat_search
+
+    index_dir = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_ids_index")
+    (n1, d1, _), (n2, d2, nq2) = shapes
+    for cfg, n, d, nq, k, seed in (("config 1 (sem_search)", n1, d1, 1, K, 29),
+                                   ("config 2 (sem_sim_join)", n2, d2, nq2, 5, 31)):
+        centers = corpus_centers(seed, max(8, int(n ** 0.5 / 4)), d, dev)
+        rows = gen_chunk(seed, 0, centers, n, 2.5)
+        q = gen_chunk(seed, 1, centers, nq, 2.5) if nq > 1 else seeded_queries(rows, 64, seed)
+        shutil.rmtree(index_dir, ignore_errors=True)
+        vs = TorchVS(index_type="flat", device=dev)
+        vs.index([], rows.cpu().numpy(), index_dir)
+        every = list(range(n))
+        state = vs._materialize()
+        gt = exact_topk(q, rows, k).tolist()
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        if nq == 1:  # one query a call, as sem_search makes them
+            ids = [i for row in q for i in vs(row[None].cpu().numpy(), k, ids=every).indices[0]]
+            recall = recall_at([ids[i * k : (i + 1) * k] for i in range(q.shape[0])], gt)
+            ids_store_runs(f"{cfg}: {n:,} x {d} Flat, B 1, ids = every row", vs, q[:1], k, every,
+                           lambda: flat_search(state["xb"], q[:1], k, n_rows=n, valid=valid), gt[:1])
+            say(f"    recall@{k} over {q.shape[0]} single-query calls {recall!r}")
+            assert recall == 1.0, f"{cfg}: recall@10 {recall} is not 1.0"
+        else:
+            recall = ids_store_runs(f"{cfg}: {nq:,} x {n:,} x {d}, k {k}, ids = every right row", vs, q,
+                                    k, every, lambda: flat_search(state["xb"], q, k, n_rows=n, valid=valid), gt)
+            say(f"    pair recall against the full exact oracle {recall!r} ({nq * k:,} pairs)")
+            assert recall >= 0.999, f"{cfg}: pair recall {recall}"
+        del vs, state, rows, q
+    shutil.rmtree(index_dir, ignore_errors=True)
+
+
+def ivf_ids_phase(state, xq, n_ids: int = 1 << 16) -> None:
+    """A config-4 IVF store searched with ids (``TorchVS._ivf_subset_search``,
+    the f32 reconstruction of the allowed rows) at |ids| = 2**16, B 1 and
+    256: device ms, and the transient peak beside the capacity model's
+    ``subset_bytes``; only allowed ids may come back."""
+    import torch
+
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.ops import capacity
+
+    n = int(state["meta"]["n"])
+    ids = sorted(torch.randperm(n, generator=torch.Generator().manual_seed(5))[:n_ids].tolist())
+    vs = TorchVS(index_type="ivf", device=state["centroids"].device)
+    model = capacity.subset_bytes(len(ids), state["ivf_vectors"].shape[1], torch.int8, residual=True)
+    for b in (1, 256):
+        q = xq[:b]
+        (_, got), peak = transient_peak(lambda: vs._ivf_subset_search(state, q, K, ids))
+        ms = cuda_ms(lambda: vs._ivf_subset_search(state, q, K, ids), 3)
+        say(f"  config 4 with ids, |ids| = {len(ids):,}, B {b}: {ms:.3f} ms on the device (CUDA events); transient "
+            f"peak {peak / 2**30:.3f} GiB (model {model / 2**30:.3f} GiB); ids in the allowed set "
+            f"{set(got.flatten().tolist()) <= set(ids)} [{GPU}]")
+        assert set(got.flatten().tolist()) <= set(ids), "an ids search returned an id outside ids"
+
+
+def config4_paths(dev) -> dict:
+    """Phases 3-10 and the ids path over config 4's store.  The store lives
+    only in this function's frame, so it is freed when the function returns
+    (the spilled build must not coexist with it).  Returns K1's main-variant
+    figures and launches, K2's launches on the residual scan, the new
+    variants' figures and the unspilled run's build and search figures."""
+    import torch
+
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk, synth_ivf_device_build
+    from lotus_tpu_torch.ops.flat import flat_search
+    from lotus_tpu_torch.ops.flat_scan import ivf_residual_scan, residual_scan_inputs, scan_fold
     from lotus_tpu_torch.ops.ivf_probe import (
-        LOCAL_BITS, QU, ivf_search_grouped_probe, probe_fold, probe_fold_reference, probe_layout,
+        LOCAL_BITS, ivf_search_grouped_probe, probe_fold, probe_fold_reference, probe_layout,
     )
     from lotus_tpu_torch.ops.quant import quantize_rows
 
-    dev = torch.device("cuda")
-    t_all = time.perf_counter()
-
-    global GPU
-    GPU = card()
-    with Phase("device"):
-        say(f"  {GPU}; torch {torch.__version__} (CUDA {torch.version.cuda}); "
-            f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-
-    with Phase("build kernels (nvcc)"):
-        _kernels.lib()
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", _kernels.build_log)]
-        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", _kernels.build_log)]
-        say(f"  nvcc {_kernels.build_seconds:.2f} s -> {os.path.relpath(_kernels.build(), REPO)}; "
-            f"ptxas: {len(regs)} kernels, <= {max(regs, default=0)} registers, "
-            f"spill stores {min(spills, default=0)}..{max(spills, default=0)} bytes")
-        kernel_report()
-
     with Phase("config 4 build"):
         torch.cuda.reset_peak_memory_stats()
-        built = synth_ivf_device_build(
-            n=10 * 2**20, d=768, nlist=4096, n_clusters=65536, cluster_scale=2.5, chunk=2**18,
-            queries_b=B, gt_queries=256, k=K, block_align=1024, seed=0, device=dev, log=say,
-        )
+        built = synth_ivf_device_build(**CONFIG4, device=dev, log=say)
         state, xq, gt = built["state"], built["queries"], built["gt"]
         meta = state["meta"]
+        unspilled = dict(build_s=built["build_seconds"], vecs_s=built["build_vecs_per_s"], timings=built["timings"],
+                         peak=torch.cuda.max_memory_allocated())
         say(f"  build {built['build_seconds']:.2f} s = {built['build_vecs_per_s']:,.0f} vecs/s; phases "
             + ", ".join(f"{k} {v:.2f} s" for k, v in built["timings"].items())
-            + f"; window {meta['probe_window']}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{GPU}]")
+            + f"; window {meta['probe_window']}; peak {unspilled['peak'] / 2**30:.2f} GiB [{GPU}]")
 
     with Phase("K1 vs plain version"):
         bl = int(meta["block_align"])
@@ -673,16 +1029,40 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(5)
         sub_lists = torch.argsort(torch.rand((512, nl), generator=g, device=dev), dim=1)[:, :26].to(torch.int32)
         sub = (starts[:nl].contiguous(), sizes[:nl].contiguous())
+        new_variants = {}  # the variants this slice added, for the kernels line
         for name, xs, qdt, l2, packed in (
             ("bf16 store, packed", xf.to(torch.bfloat16), torch.bfloat16, False, True),
             ("f32 store, unpacked", xf, torch.float32, False, False),
             ("bf16 store, l2, unpacked", xf.to(torch.bfloat16), torch.bfloat16, True, False),
+            ("f16 store, f32 queries, unpacked", xf.to(torch.float16), torch.float32, False, False),
+            ("f16 store, f32 queries, packed", xf.to(torch.float16), torch.float32, False, True),
         ):
             units_s, cl_s, _, _ = probe_layout(sub_lists, xq[:512].to(qdt), sub[1], bl)
             norms = (xs.float() ** 2).sum(1) if l2 else None
-            compare(name, (units_s, xs, None, norms, cl_s, *sub), bl=bl, int8_dot=False, l2=l2,
-                    packed=packed, exact=False, tol=1e-4 if not packed else 2e-3)
+            f16 = xs.dtype == torch.float16 and not packed
+            out = compare(name, (units_s, xs, None, norms, cl_s, *sub), bl=bl, int8_dot=False, l2=l2,
+                          packed=packed, exact=False, tol=1e-4 if not packed else 2e-3, reps=3 if f16 else 0)
+            if f16:
+                new_variants["K1 f16"] = (*out, *k1_bound(units_s, xs, cl_s, sub[1], int8_dot=False, packed=False,
+                                                          rate=F32_OPS_PER_S)[:2])
         del xf
+        # The int8 dot at depths that are not whole 32-bit words (d 770 and
+        # 66), packed and unpacked, bit for bit: config 4's rows of these
+        # lists widened or cut.
+        x8, q8 = vecs[:rows], quantize_rows(xq[:512])[0]
+        for dd in (770, 66):
+            xs = (torch.cat([x8, x8[:, : dd - 768]], 1) if dd > 768 else x8[:, :dd]).contiguous()
+            qs = (torch.cat([q8, q8[:, : dd - 768]], 1) if dd > 768 else q8[:, :dd]).contiguous()
+            units_r, cl_r, _, _ = probe_layout(sub_lists, qs, sub[1], bl)
+            for packed in (True, False):
+                timed = dd == 770 and packed
+                out = compare(f"int8-dot at d {dd}, {'packed' if packed else 'unpacked'}",
+                              (units_r, xs, scales[:rows], None, cl_r, *sub), bl=bl, int8_dot=True, l2=False,
+                              packed=packed, exact=True, reps=3 if timed else 0)
+                if timed:
+                    new_variants["K1 int8 d770"] = (*out, *k1_bound(units_r, xs, cl_r, sub[1], int8_dot=True,
+                                                                    packed=True)[:2])
+        del x8, xs
 
         # A window past 8192 rows: lists of 12 blocks (unpacked, ids compared).
         span = 12 * bl
@@ -719,6 +1099,8 @@ def main() -> int:
         assert finite, "search output is not finite or has the wrong shape"
         assert recall >= 0.99, f"recall@10 {recall} below the 0.99 target"
         assert launches_search > 0, "the main path did not launch K1"
+        unspilled.update(recall=recall, qps=qps, k1_ms=main_ms)
+        capacity_report("unspilled", state, CONFIG4["n"], unspilled["peak"])
 
     with Phase("window probe over config 4 (ivf_search)"):
         window_probe_runs(state, xq, gt, NPROBE, RESCORE, min_recall=0.99, grouped=True, split_budget=1 << 30)
@@ -762,6 +1144,9 @@ def main() -> int:
 
     launches = probe_fold.launches  # the main path's launches: search, QPS, window phase, store, calibration
 
+    with Phase("config 4 with ids (TorchVS._ivf_subset_search)"):
+        ivf_ids_phase(state, xq)
+
     with Phase("IVF exhaustive scan (ivf_residual_scan, K2)"):
         args, blk, _ = residual_scan_inputs(state, xq[:256])
         k2_compare(f"int8 store, bf16 queries, q.c bias + row mask, blk {blk} (ivf_residual_scan's inputs, "
@@ -783,11 +1168,65 @@ def main() -> int:
 
     with Phase("stage breakdown"):
         stage_breakdown(state, xq)
-    del state, built, xq
+    return dict(k1=(main_err, main_ms, main_plain_ms, main_bound, main_by), k1_launches=launches,
+                k2_launches=resid_launches, new_variants=new_variants, unspilled=unspilled)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(REPO, "lotus_tpu_torch")):
+        print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.ops import _kernels
+    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk
+    from lotus_tpu_torch.ops.flat_scan import _pool_topk, flat_search_pallas, scan_fold, scan_fold_reference
+    from lotus_tpu_torch.ops.quant import quantize_rows
+
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+
+    global GPU
+    GPU = card()
+    with Phase("device"):
+        say(f"  {GPU}; torch {torch.__version__} (CUDA {torch.version.cuda}); "
+            f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+
+    with Phase("build kernels (nvcc)"):
+        _kernels.lib()
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", _kernels.build_log)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", _kernels.build_log)]
+        say(f"  nvcc {_kernels.build_seconds:.2f} s -> {os.path.relpath(_kernels.build(), REPO)}; "
+            f"ptxas: {len(regs)} kernels, <= {max(regs, default=0)} registers, "
+            f"spill stores {min(spills, default=0)}..{max(spills, default=0)} bytes")
+        kernel_report()
+
+    c4 = config4_paths(dev)
+    torch.cuda.empty_cache()
+
+    with Phase("config 4 with spill_frac 0.05 (the unspilled store freed)"):
+        spill_launches = spill_phase(dev, c4["unspilled"])
     torch.cuda.empty_cache()
 
     with Phase("window-regime store (200,000 x 768, nlist 512)"):
         window_store_phase(dev)
+    torch.cuda.empty_cache()
+
+    with Phase("Queue 3 stores through TorchVS (f16 IVF, int8 IVF at d 770, f16 Flat)"):
+        q3 = queue3_stores_phase(dev)
+    torch.cuda.empty_cache()
+
+    with Phase("config 3: k-means 1M x 768 k 1024, the sem_dedup self-join"):
+        config3_phase(dev)
+    torch.cuda.empty_cache()
+
+    with Phase("the ids path at config 1's and config 2's shapes"):
+        ids_path_phase(dev)
     torch.cuda.empty_cache()
 
     with Phase("flat corpus"):
@@ -810,6 +1249,8 @@ def main() -> int:
         k2_main = k2_compare(f"bf16 store ({shape})", (qb, xb16, FLAT_N), exact=False, reps=5)
         k2_compare("int8 store, bf16 queries", (qb, x8, FLAT_N, s8), exact=False)
         k2_compare("f32 store (rounded to bf16)", (qb, corpus, FLAT_N), exact=False)
+        k2_f16 = k2_compare(f"f16 store (rounded to bf16; {shape})", (qb, corpus.to(torch.float16), FLAT_N),
+                            exact=False, reps=3)
         n_odd = FLAT_N - 1077
         k2_compare(f"int8, n_valid {n_odd:,} (not whole 1024 blocks)", (q8, x8, n_odd, s8), exact=True)
         mask = (torch.rand(FLAT_N, generator=g, device=dev) > 0.1).to(torch.int8)
@@ -837,7 +1278,8 @@ def main() -> int:
         # and ids moved once, against 2 * B * N * d operations.
         k2_bounds = {}
         for name, esize, rate, ms in (("bf16", 2, BF16_OPS_PER_S, k2_main[1]),
-                                      ("int8", 1, INT8_OPS_PER_S, k2_int8[1])):
+                                      ("int8", 1, INT8_OPS_PER_S, k2_int8[1]),
+                                      ("f16", 2, BF16_OPS_PER_S, k2_f16[1])):
             need = FLAT_N * (768 * esize + (4 if esize == 1 else 0)) + B * 768 * esize + B * 256 * 8
             t_bytes, t_ops = need / HBM_BYTES_PER_S, 2 * macs / rate
             k2_bounds[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -912,13 +1354,22 @@ def main() -> int:
 
     peak_all = max(PEAK_SEEN, torch.cuda.max_memory_allocated())
     say(f"total {time.perf_counter() - t_all:.1f} s; peak {peak_all / 2**30:.2f} GiB [{GPU}]")
+    f16_ivf, d770_ivf, f16_flat = q3.values()
+    variants = [  # the variants this slice added, each timed at its phase-4 or phase-13 shape
+        ("ivf_probe (K1), f16 rows under f32 queries", "ivf_probe.cu", "pallas_ivf.py:235", f16_ivf,
+         c4["new_variants"]["K1 f16"]),
+        ("ivf_probe (K1), int8 dot at d 770", "ivf_probe.cu", "pallas_ivf.py:235", d770_ivf,
+         c4["new_variants"]["K1 int8 d770"]),
+        ("flat_scan (K2), f16 rows", "flat_scan.cu", "pallas_flat.py:42", f16_flat, (*k2_f16, *k2_bounds["f16"])),
+    ]
+    main_err, main_ms, main_plain_ms, main_bound, main_by = c4["k1"]
     print(json.dumps({"kernels": [
         {
             "name": "ivf_probe (K1)",
             "route": "cuda",
             "source": "lotus_tpu_torch/csrc/ivf_probe.cu",
             "replaces": "lotus_tpu/ops/pallas_ivf.py:235",
-            "launches": launches,
+            "launches": c4["k1_launches"] + spill_launches + f16_ivf + d770_ivf,
             "max_abs_err": main_err,
             "ms": main_ms,
             "plain_ms": main_plain_ms,
@@ -931,7 +1382,7 @@ def main() -> int:
             "route": "cuda",
             "source": "lotus_tpu_torch/csrc/flat_scan.cu",
             "replaces": "lotus_tpu/ops/pallas_flat.py:42",
-            "launches": resid_launches + flat_launches,
+            "launches": c4["k2_launches"] + flat_launches + f16_flat,
             "max_abs_err": k2_main[0],
             "ms": k2_main[1],
             "plain_ms": k2_main[2],
@@ -939,6 +1390,11 @@ def main() -> int:
             "bound_by": k2_bounds["bf16"][1],
             "library_ms": None,  # no single PyTorch call folds a top-2 per lane
         },
+        *({
+            "name": name, "route": "cuda", "source": f"lotus_tpu_torch/csrc/{src}",
+            "replaces": f"lotus_tpu/ops/{tpu}", "launches": n_launch, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+        } for name, src, tpu, n_launch, (err, ms, plain_ms, bound, by) in variants),
     ]}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,9 @@
 // The dot is
 //   int8 x int8 -> int32 (exact), then __int2float_rn          (int8 queries, int8 store)
 //   bf16 x bf16 -> f32 sums                                     (everything else)
-// where int8 rows convert to bf16 exactly and f32 rows round to bf16
-// (__float2bfloat16_rn), as the reference casts the store to the queries'
-// type.  The multiply and the add use __fmul_rn / __fadd_rn, so no FMA
+// where int8 rows convert to bf16 exactly and f32 and f16 rows round to bf16
+// (__float2bfloat16_rn; f16 -> f32 is exact, so f16 rounds once), as the
+// reference casts the store to the queries' type.  The multiply and the add use __fmul_rn / __fadd_rn, so no FMA
 // contraction changes the last bit.  The top-2 is ordered by (score desc,
 // row asc): a strict '>' over the rows in ascending order, so ties go to the
 // earlier row and masked rows never enter; their lanes keep (MASK_SCORE, -1).
@@ -55,10 +55,10 @@
 //   a row stride that is a multiple of 16 bytes, TMA loads the stages
 //   (cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint, so no
 //   -lcuda); rows past n_valid and depth past d arrive as zeros.  For bf16
-//   queries on an int8 or f32 store (the residual scan is the first) TMA
-//   loads the raw rows into a small ring and the producer converts them to
-//   bf16: int8 exactly, with no int -> float instruction, f32 rounded with
-//   __float2bfloat16_rn.  A row stride TMA cannot describe goes through the
+//   queries on an int8, f32 or f16 store (the residual scan is the first)
+//   TMA loads the raw rows into a small ring and the producer converts them
+//   to bf16: int8 exactly, with no int -> float instruction, f32 and f16
+//   rounded with __float2bfloat16_rn.  A row stride TMA cannot describe goes through the
 //   producer's registers: it converts or rounds the same way, zero-fills the
 //   depth tail and writes the swizzled layout itself.  The producer's 128
 //   threads walk the stages in step; one of them arrives on each barrier.
@@ -82,6 +82,8 @@
 
 #include <type_traits>
 
+#include <cuda_fp16.h>
+
 #include "hopper.cuh"
 
 namespace {
@@ -102,7 +104,7 @@ constexpr int CHUNK_BYTES = NL * CHUNK;     // 16 KB: one slice x one depth chun
 constexpr int STAGE_BYTES = KPS * CHUNK_BYTES;
 constexpr int QCHUNK_BYTES = QB * CHUNK;    // 8 KB: one depth chunk of the query tile
 // The converting loader's raw ring: 4 slots of int8 rows (8 KB a bf16 depth
-// chunk) or 2 of f32 rows (32 KB a chunk).
+// chunk), or 2 of f16 (16 KB a chunk) or f32 rows (32 KB a chunk).
 __host__ __device__ constexpr int raw_slots(int xsize) { return xsize == 1 ? RAW : 2; }
 __host__ __device__ constexpr int raw_chunk_bytes(int xsize) { return NL * (CHUNK / 2) * xsize; }
 constexpr int SMEM_LIMIT = 232448;          // dynamic shared memory a block may have on sm_90
@@ -111,7 +113,7 @@ constexpr uint32_t NO_SLICE = 0xFFFF;
 constexpr float MASK_SCORE = -3.0e38f;
 constexpr int NO_HIT = -1;
 
-enum DType { F32 = 0, BF16 = 1, I8 = 2 };
+enum DType { F32 = 0, BF16 = 1, I8 = 2, F16 = 3 };
 // How the producer fills the store ring.
 enum Loader { REGISTERS = 0, TMA = 1, TMA_CONVERT = 2 };
 
@@ -132,6 +134,20 @@ constexpr int BAR_BYTES = 8 * (2 * MAX_STAGES + RAW + 2 * NSI + 1);
 constexpr int smem_fixed(int nk, int loader, int xsize) {
   return 1024 + nk * QCHUNK_BYTES +
          (loader == TMA_CONVERT ? raw_slots(xsize) * raw_chunk_bytes(xsize) : 0) + INFO_BYTES + BAR_BYTES;
+}
+
+// Eight f16 values (16 bytes) as eight bf16, each rounded once: f16 -> f32 is
+// exact, then __float2bfloat16_rn, as the reference's astype rounds.
+__device__ __forceinline__ uint4 half8_to_bf16(uint4 v) {
+  const uint32_t in[4] = {v.x, v.y, v.z, v.w};
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lo = __half2float(__ushort_as_half(static_cast<unsigned short>(in[i] & 0xFFFFu)));
+    const float hi = __half2float(__ushort_as_half(static_cast<unsigned short>(in[i] >> 16)));
+    w[i] = bf16_bits(lo) | (bf16_bits(hi) << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // ---- the register loader ---------------------------------------------------
@@ -161,6 +177,10 @@ __device__ __forceinline__ uint4 load_unit(const XT* __restrict__ row, int k0, i
 #pragma unroll
         for (int e = 0; e < 8; ++e) f[e] = k0 + e < d ? static_cast<float>(row[k0 + e]) : 0.f;
       }
+    } else if constexpr (std::is_same_v<XT, __half>) {  // rounds to bf16
+      if (whole) return half8_to_bf16(__ldg(reinterpret_cast<const uint4*>(row + k0)));
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = k0 + e < d ? __half2float(row[k0 + e]) : 0.f;
     } else if constexpr (std::is_same_v<XT, float>) {  // rounds to bf16 below
       if (whole) {
         const float4 a = __ldg(reinterpret_cast<const float4*>(row + k0));
@@ -204,8 +224,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(
     int rows_per_split, int blk, int nk, int nst, int qstream, int qvec, int xvec) {
   constexpr bool INT8_DOT = std::is_same_v<OT, int8_t>;
   constexpr bool CAN_TMA = std::is_same_v<OT, XT>;
-  constexpr bool CAN_CONVERT =
-      std::is_same_v<OT, __nv_bfloat16> && (std::is_same_v<XT, int8_t> || std::is_same_v<XT, float>);
+  constexpr bool CAN_CONVERT = std::is_same_v<OT, __nv_bfloat16> &&
+                                (std::is_same_v<XT, int8_t> || std::is_same_v<XT, float> || std::is_same_v<XT, __half>);
   constexpr int XS = static_cast<int>(sizeof(XT));
   constexpr int SLOTS = raw_slots(XS);
   constexpr int RAW_BYTES = raw_chunk_bytes(XS);
@@ -282,7 +302,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(
       mbar_arrive(qbar);
     }
 
-    // TMA_CONVERT: chunk g (slice-major) of the int8 or f32 store into raw slot g % SLOTS.
+    // TMA_CONVERT: chunk g (slice-major) of the int8, f16 or f32 store into raw slot g % SLOTS.
     auto issue_raw = [&](int g) {
       const int s = g / nk, kc = g - s * nk, slot = g % SLOTS;
       mbar_arrive_tx(&raw_full[slot], RAW_BYTES);
@@ -345,6 +365,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(
               if constexpr (XS == 1) {
                 const uint2 v = *reinterpret_cast<const uint2*>(unit);
                 *swizzled(part, r, u) = int8x8_to_bf16(v.x, v.y);
+              } else if constexpr (XS == 2) {  // f16 rows: rounds to bf16
+                *swizzled(part, r, u) = half8_to_bf16(*reinterpret_cast<const uint4*>(unit));
               } else {  // rounds to bf16, as the reference casts the store
                 const float4 a = *reinterpret_cast<const float4*>(unit);
                 const float4 c = *reinterpret_cast<const float4*>(unit + 16);
@@ -551,15 +573,17 @@ __global__ void merge_kernel(const float* __restrict__ part_s, const int* __rest
 
 // TMA needs 16-byte aligned bases and row strides, of the queries and of the
 // store.  It loads the operand stages itself when the store is of the
-// operand type, and the raw rows of an int8 or f32 store under bf16
+// operand type, and the raw rows of an int8, f16 or f32 store under bf16
 // queries, which the producer converts; everything else goes through the
-// producer's registers.
+// producer's registers.  ops/flat_scan.py::kernel_variant states the same
+// rules.
 int pick_loader(const void* xq, const void* xb, int b, int d, int n_scan, int q_dtype, int x_dtype) {
   if (b <= 0 || n_scan <= 0 || !aligned(xq, 16) || !aligned(xb, 16)) return REGISTERS;
   if (q_dtype == x_dtype && q_dtype == I8 && d % 16 == 0) return TMA;
   if (q_dtype == x_dtype && q_dtype == BF16 && d % 8 == 0) return TMA;
   if (q_dtype == BF16 && x_dtype == I8 && d % 16 == 0) return TMA_CONVERT;
   if (q_dtype == BF16 && x_dtype == F32 && d % 8 == 0) return TMA_CONVERT;
+  if (q_dtype == BF16 && x_dtype == F16 && d % 8 == 0) return TMA_CONVERT;
   return REGISTERS;
 }
 
@@ -609,8 +633,9 @@ int launch(const void* xq, const void* xb, const void* scales, const void* bias,
 extern "C" {
 
 // Launches K2 (scan, then merge) on `stream` and returns a cudaError_t (0 on
-// success).  q_dtype / x_dtype: 0 = f32, 1 = bf16, 2 = int8.  Pairs: (int8,
-// int8) with the int8 dot; (bf16, int8), (bf16, bf16), (bf16, f32).  scales,
+// success).  q_dtype / x_dtype: 0 = f32, 1 = bf16, 2 = int8, 3 = f16.  Pairs:
+// (int8, int8) with the int8 dot; (bf16, int8), (bf16, bf16), (bf16, f32),
+// (bf16, f16).  scales,
 // bias and row_mask may be null.  part_s / part_i hold splits * b * 256
 // values; rows_per_split and blk are multiples of 128, rows_per_split at most
 // 65,535 slices of 128 rows, as lotus_flat_scan_plan gives them.  Any d > 0.
@@ -643,6 +668,9 @@ int lotus_flat_scan(const void* xq, const void* xb, const void* scales, const vo
   else if (q_dtype == BF16 && x_dtype == F32)
     code = launch<__nv_bfloat16, float>(xq, xb, scales, bias, row_mask, part_s, part_i, b, d,
                                         n_scan, splits, rows_per_split, blk, ld, streamed, s);
+  else if (q_dtype == BF16 && x_dtype == F16)
+    code = launch<__nv_bfloat16, __half>(xq, xb, scales, bias, row_mask, part_s, part_i, b, d,
+                                         n_scan, splits, rows_per_split, blk, ld, streamed, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (code != 0) return code;

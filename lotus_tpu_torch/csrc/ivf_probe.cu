@@ -13,7 +13,7 @@
 // (128 x 64) scores
 //   int8 x int8 -> int32 (exact)         when the queries and rows are int8
 //   bf16 x bf16 -> f32 sums              bf16 queries on bf16 or int8 rows
-//   f32 x f32 -> f32 (FMA)               f32 queries and rows
+//   f32 x f32 -> f32 (FMA)               f32 queries on f32 or f16 rows
 // multiplies them by the row scales (int8 rows), forms 2*dot - |x|^2 (l2),
 // masks columns at or past the list's size, and folds them into a top-2
 // (or, under the top-1 fold, a top-1) per (query slot, lane): lane j of a
@@ -67,14 +67,18 @@
 //   blocks of dead chunks write MASK_SCORE and exit before any barrier.
 //
 // Two cases stay on the CUDA cores (probe_cores, the first design):
-// - f32 queries and rows.  The reference runs them at Precision.HIGHEST
-//   (pallas_ivf.py:283-286), and the tensor cores' TF32 would round the
-//   operands, so the products are f32 FMAs.
+// - f32 queries, on f32 or f16 rows.  The reference runs them at
+//   Precision.HIGHEST (pallas_ivf.py:283-286; an f16 store keeps f32
+//   queries, :373-376, and the kernel casts its rows to f32, :282), and the
+//   tensor cores' TF32 would round the operands, so the products are f32
+//   FMAs; f16 rows convert to f32 exactly in the loader.
 // - Rows TMA cannot describe: a row stride or base that is not a multiple of
 //   16 bytes (int8 rows with d % 16 != 0, bf16 rows with d % 8 != 0).
 // probe_cores keeps the depth tiled in padded shared memory (128 int8 or 32
 // float values a tile), an 8 x 4 register tile per thread, and __dp4a for
-// the int8 dot.
+// the int8 dot.  At d % 4 != 0 an int8 row does not start on a 32-bit word,
+// so its words are assembled byte by byte, zero past d: the int32 sums stay
+// exact at any depth.
 //
 // Build without --use_fast_math or -ftz=true: a score of exactly +-0 packs
 // into a denormal that carries the id.  The epilogues use __fmul_rn and
@@ -85,6 +89,8 @@
 
 #include <type_traits>
 
+#include <cuda_fp16.h>
+
 #include "hopper.cuh"
 
 namespace {
@@ -94,7 +100,7 @@ constexpr int NBK = 64;  // candidate lanes (512 / BUCKET), rows per slice
 constexpr int LOCAL_MASK = (1 << 13) - 1;
 constexpr float MASK_SCORE = -3.0e38f;
 
-enum DType { F32 = 0, BF16 = 1, I8 = 2 };
+enum DType { F32 = 0, BF16 = 1, I8 = 2, F16 = 3 };
 // How K1 ran, reported to the wrapper: on the CUDA cores, or on the tensor
 // cores with the store loaded by TMA, or by TMA as raw int8 rows converted
 // to bf16 in shared memory.
@@ -437,6 +443,19 @@ constexpr int LD = KT + 1;  // padded row stride in shared memory
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+
+// 32-bit word k (int8 values 4k .. 4k + 3) of a d-long int8 row, zero past
+// d: one load when rows are whole words (`words`: d % 4 == 0 and a 4-byte
+// aligned base), else byte by byte.
+__device__ __forceinline__ uint32_t int8_word(const int8_t* row, int k, int d, bool words) {
+  if (words) return reinterpret_cast<const uint32_t*>(row)[k];
+  uint32_t w = 0u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (4 * k + e < d) w |= static_cast<uint32_t>(static_cast<uint8_t>(row[4 * k + e])) << (8 * e);
+  return w;
+}
 
 template <typename QT, typename XT, bool INT8_DOT, bool DEQUANT, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 2) probe_cores(
@@ -469,8 +488,10 @@ __global__ void __launch_bounds__(THREADS, 2) probe_cores(
     const int size = list_size[l];
     const int nblk = (size + bl - 1) / bl;
     const int bucket = bl / NBK;
-    // int8 operands are read as 32-bit words of four values.
-    const int dk = INT8_DOT ? d / 4 : d;
+    // int8 operands are read as 32-bit words of four values (the last one
+    // zero-padded past d).
+    const int dk = INT8_DOT ? (d + 3) / 4 : d;
+    const bool words = d % 4 == 0;
     for (int blk = 0; blk < nblk; ++blk) {
       const int vcount = min(size - blk * bl, bl);
       for (int j = 0; j < bucket && j * NBK < vcount; ++j) {
@@ -486,15 +507,15 @@ __global__ void __launch_bounds__(THREADS, 2) probe_cores(
           }
         for (int k0 = 0; k0 < dk; k0 += KT) {
           if constexpr (INT8_DOT) {
-            const int32_t* qw = reinterpret_cast<const int32_t*>(xq) + (long)c * QU * dk;
-            const int32_t* xw = reinterpret_cast<const int32_t*>(xb) + row0 * dk;
+            const int8_t* qp = reinterpret_cast<const int8_t*>(xq) + (long)c * QU * d;
+            const int8_t* xp = reinterpret_cast<const int8_t*>(xb) + row0 * d;
             for (int idx = tid; idx < QU * KT; idx += THREADS) {
               const int r = idx / KT, cc = idx % KT, k = k0 + cc;
-              smem[r * LD + cc] = k < dk ? static_cast<uint32_t>(qw[(long)r * dk + k]) : 0u;
+              smem[r * LD + cc] = k < dk ? int8_word(qp + (long)r * d, k, d, words) : 0u;
             }
             for (int idx = tid; idx < NBK * KT; idx += THREADS) {
               const int r = idx / KT, cc = idx % KT, k = k0 + cc;
-              smem[(QU + r) * LD + cc] = k < dk ? static_cast<uint32_t>(xw[(long)r * dk + k]) : 0u;
+              smem[(QU + r) * LD + cc] = k < dk ? int8_word(xp + (long)r * d, k, d, words) : 0u;
             }
           } else {
             float* fs = reinterpret_cast<float*>(smem);
@@ -686,8 +707,10 @@ int cores_variant(const Args& a, int packed, int top1) {
 extern "C" {
 
 // Launches K1 on `stream` and returns a cudaError_t (0 on success).
-// q_dtype / x_dtype: 0 = f32, 1 = bf16, 2 = int8.  Supported pairs: (int8,
-// int8) with int8_dot and no l2; (bf16, int8); (bf16, bf16); (f32, f32).
+// q_dtype / x_dtype: 0 = f32, 1 = bf16, 2 = int8, 3 = f16.  Supported
+// pairs: (int8, int8) with int8_dot and no l2, at any d; (bf16, int8);
+// (bf16, bf16); (f32, f32); (f32, f16).  ops/ivf_probe.py::kernel_variant
+// states the same rules.
 // q_rows / n_rows: the rows of xq and xb.  top1: the top-1 fold (64 output
 // columns) instead of the top-2 (128).  For reports it writes how K1 ran
 // into *route (0 on the CUDA cores, 1 on the tensor cores with the store
@@ -706,7 +729,7 @@ int lotus_ivf_probe(const void* xq, const void* xb, const void* scales, const vo
   if (grid <= 0) return 0;
   if (bl <= 0 || bl % NBK != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (int8_dot) {
-    if (q_dtype != I8 || x_dtype != I8 || l2 || d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (q_dtype != I8 || x_dtype != I8 || l2) return static_cast<int>(cudaErrorInvalidValue);
     if (*route == TMA) return wgmma_variant<int8_t, int8_t>(a, packed, top1, TMA, streamed);
     return cores_variant<int8_t, int8_t, true, true>(a, packed, top1);
   }
@@ -719,6 +742,7 @@ int lotus_ivf_probe(const void* xq, const void* xb, const void* scales, const vo
     return cores_variant<__nv_bfloat16, __nv_bfloat16, false, false>(a, packed, top1);
   }
   if (q_dtype == F32 && x_dtype == F32) return cores_variant<float, float, false, false>(a, packed, top1);
+  if (q_dtype == F32 && x_dtype == F16) return cores_variant<float, __half, false, false>(a, packed, top1);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -35,14 +35,34 @@ BLK = 1024  # db rows per grid step of the reference kernel (the default bias bl
 NL = 128    # candidate lanes (running top-2 each): lane = row mod NL
 REF_BLOCK_ROWS = 65536  # rows per plain-version step: bounds its (B, rows) score tile
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3}
 # How K2 loads the store (flat_scan.cu's Loader): through the producer's
-# registers, by TMA, or by TMA as raw int8 or f32 rows converted to bf16 in
-# shared memory.
+# registers, by TMA, or by TMA as raw int8, f16 or f32 rows converted to bf16
+# in shared memory.
 _LOADERS = ("register", "tma", "tma+convert")
-# (query, store) dtypes K2 takes: the int8 dot, else bf16 queries.
-_PAIRS = {(torch.int8, torch.int8), (torch.bfloat16, torch.int8),
-          (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)}
+
+
+def kernel_variant(q_dtype: torch.dtype, x_dtype: torch.dtype, d: int) -> str:
+    """K2's accept and loader rule (``flat_scan.cu::pick_loader`` and
+    ``lotus_flat_scan``): the store loader K2 takes for these operands when
+    both bases are 16-byte aligned, or ``ValueError`` for a pair it lacks.
+
+    int8 queries take the int8 dot on an int8 store (TMA at d % 16 == 0).
+    bf16 queries take a bf16 store (TMA at d % 8 == 0), or an int8 (d % 16),
+    f32 or f16 (d % 8) store loaded raw and converted to bf16 in shared
+    memory, as the reference casts the store to the queries' type.  Other
+    depths go through the producer's registers.
+    """
+    i8, bf = torch.int8, torch.bfloat16
+    if q_dtype == i8 and x_dtype == i8:
+        return _LOADERS[1] if d % 16 == 0 else _LOADERS[0]
+    if q_dtype == bf and x_dtype == bf:
+        return _LOADERS[1] if d % 8 == 0 else _LOADERS[0]
+    if q_dtype == bf and x_dtype == i8:
+        return _LOADERS[2] if d % 16 == 0 else _LOADERS[0]
+    if q_dtype == bf and x_dtype in (torch.float32, torch.float16):
+        return _LOADERS[2] if d % 8 == 0 else _LOADERS[0]
+    raise ValueError(f"scan_fold: unsupported dtypes {q_dtype} / {x_dtype}")
 
 
 def _merge_top2(run, new):
@@ -136,8 +156,8 @@ def scan_fold(
     only tensors on the CPU take ``scan_fold_reference``.
 
     ``xq``: (B, d) int8 queries (with an int8 store: the exact int8 dot) or
-    bf16 queries; ``xb``: (rows, d) int8, bf16 or f32 store (f32 rounds to
-    bf16); ``scales``: (rows,) f32 row factors or None; ``bias``:
+    bf16 queries; ``xb``: (rows, d) int8, bf16, f16 or f32 store (f16 and
+    f32 round to bf16); ``scales``: (rows,) f32 row factors or None; ``bias``:
     (ceil(n / blk), B) f32, added per (row // blk, query), or None;
     ``row_mask``: (rows,) int8 or bool, 0 masks the row, or None.
     Returns ``(best_s, best_i, sec_s, sec_i)``, each (B, NL).
@@ -150,8 +170,7 @@ def scan_fold(
     if xq.ndim != 2 or xb.ndim != 2 or xq.shape[1] != xb.shape[1]:
         raise ValueError(f"scan_fold: xq {tuple(xq.shape)} and xb {tuple(xb.shape)} need one depth")
     b, d = xq.shape
-    if (xq.dtype, xb.dtype) not in _PAIRS:
-        raise ValueError(f"scan_fold: unsupported dtypes {xq.dtype} / {xb.dtype}")
+    kernel_variant(xq.dtype, xb.dtype, d)
     n_scan = max(0, min(int(n_valid), xb.shape[0]))
     if blk <= 0 or blk % NL:
         raise ValueError(f"scan_fold: blk {blk} must be a positive multiple of {NL}")

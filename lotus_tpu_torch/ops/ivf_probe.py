@@ -52,11 +52,36 @@ _LOCAL_MASK = (1 << LOCAL_BITS) - 1
 # Above this many histogram cells the pair grouping takes one stable sort.
 HIST_MAX_CELLS = 1 << 26
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3}
 # How K1 ran (ivf_probe.cu's Route): on the CUDA cores (f32, or rows TMA
 # cannot describe), or on the tensor cores with the store loaded by TMA, or
 # by TMA as raw int8 rows converted to bf16 in shared memory.
 _ROUTES = ("cuda-cores", "wgmma+tma", "wgmma+tma+convert")
+
+
+def kernel_variant(q_dtype: torch.dtype, x_dtype: torch.dtype, d: int, *, int8_dot: bool, l2: bool) -> str:
+    """K1's accept and route rule (``ivf_probe.cu::pick_route`` and
+    ``lotus_ivf_probe``): the route K1 takes for these operands when every
+    base is 16-byte aligned, or ``ValueError`` for a pair it lacks.
+
+    The int8 dot (int8 queries and rows, not l2) takes any d: the tensor
+    cores at d % 16 == 0, else the CUDA cores with a ragged last word.  bf16
+    queries run on bf16 rows (TMA at d % 8 == 0) or int8 rows (converted, at
+    d % 16 == 0); f32 queries on f32 or f16 rows run on the CUDA cores in
+    full f32, as the reference computes them at ``Precision.HIGHEST``.
+    """
+    i8, bf = torch.int8, torch.bfloat16
+    if int8_dot:
+        if q_dtype != i8 or x_dtype != i8 or l2:
+            raise ValueError("probe_fold: int8_dot needs int8 queries and storage and no l2")
+        return _ROUTES[1] if d % 16 == 0 else _ROUTES[0]
+    if q_dtype == bf and x_dtype == bf:
+        return _ROUTES[1] if d % 8 == 0 else _ROUTES[0]
+    if q_dtype == bf and x_dtype == i8:
+        return _ROUTES[2] if d % 16 == 0 else _ROUTES[0]
+    if q_dtype == torch.float32 and x_dtype in (torch.float32, torch.float16):
+        return _ROUTES[0]
+    raise ValueError(f"probe_fold: unsupported dtypes {q_dtype} / {x_dtype}")
 
 
 def ncand(top1: bool) -> int:
@@ -186,10 +211,7 @@ def probe_fold(
         raise ValueError(f"probe_fold: xq_units {tuple(xq_units.shape)} does not cover {grid - 1} chunks of d={d}")
     if xb.shape[0] % bl != 0 or bl % NBK != 0:
         raise ValueError(f"probe_fold: storage rows {xb.shape[0]} must be whole blocks of bl={bl}")
-    if xq_units.dtype not in _DTYPE_CODE or xb.dtype not in _DTYPE_CODE:
-        raise ValueError(f"probe_fold: unsupported dtypes {xq_units.dtype} / {xb.dtype}")
-    if int8_dot and (d % 4 != 0 or xq_units.dtype != torch.int8 or xb.dtype != torch.int8 or l2):
-        raise ValueError("probe_fold: int8_dot needs int8 queries and storage, d % 4 == 0, no l2")
+    kernel_variant(xq_units.dtype, xb.dtype, d, int8_dot=int8_dot, l2=l2)
     if int8_dot and (xq_units.data_ptr() % 4 or xb.data_ptr() % 4):
         raise ValueError("probe_fold: int8_dot reads 32-bit words; xq_units and xb must be 4-byte aligned")
     for name, t, need in (("scales", scales, xb.dtype == torch.int8), ("norms", norms, l2)):

@@ -87,34 +87,43 @@ def kmeans_assign(
     return best_t, score_t
 
 
+def pp_distances(x32: torch.Tensor, x_sq: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Squared l2 distance of every row of ``x32`` to ``c`` as
+    ||x||^2 - 2 x.c + ||c||^2, clamped at 0, with ``x_sq`` = ||x||^2 computed
+    once: one matrix-vector product a round and no (n, d) difference tensor.
+    It differs from sum((x - c)^2) by the cancellation of the expanded form,
+    a few f32 ulps of ||x||^2 + ||c||^2."""
+    return torch.clamp(x_sq - 2.0 * (x32 @ c) + torch.dot(c, c), min=0.0)
+
+
 def _kmeanspp_init(x: torch.Tensor, k: int, generator: torch.Generator) -> torch.Tensor:
     """k-means++ (D^2-weighted) seeding over x.
 
-    Each of the k rounds scores all points against only the newest centroid.
-    The D^2 draw is Gumbel-max on log distances, as in the reference; the
-    rounds stay on the device (no host sync per round).
+    Each of the k rounds scores all points against only the newest centroid
+    (``pp_distances``).  The D^2 draw is Gumbel-max on log distances, as in
+    the reference; the rounds stay on the device (no host sync per round).
     """
     n, d = x.shape
     x32 = x.float()
     dev = x32.device
     first = torch.randint(0, n, (), generator=generator, device=dev)
     centroids = torch.zeros((k, d), dtype=torch.float32, device=dev)
-    centroids[0] = x32[first]
-
-    def dist_to(c):
-        diff = x32 - c[None, :]
-        return torch.sum(diff * diff, dim=-1)
-
-    min_d = dist_to(x32[first])
+    x_sq = torch.sum(x32 * x32, dim=-1)
+    min_d = torch.full((n,), float("inf"), device=dev)
     tiny = torch.finfo(torch.float32).tiny
-    for j in range(1, k):
-        logits = torch.where(min_d > 0, torch.log(torch.clamp(min_d, min=tiny)), float("-inf"))
-        u = torch.rand((n,), generator=generator, device=dev).clamp_(min=tiny)
-        gumbel = -torch.log((-torch.log(u)).clamp_(min=tiny))
-        pick = torch.argmax(logits + gumbel)
+    pick = first
+    for j in range(k):
+        if j:
+            logits = torch.where(min_d > 0, torch.log(torch.clamp(min_d, min=tiny)), float("-inf"))
+            u = torch.rand((n,), generator=generator, device=dev).clamp_(min=tiny)
+            gumbel = -torch.log((-torch.log(u)).clamp_(min=tiny))
+            pick = torch.argmax(logits + gumbel)
         c = x32[pick]
         centroids[j] = c
-        min_d = torch.minimum(min_d, dist_to(c))
+        min_d = torch.minimum(min_d, pp_distances(x32, x_sq, c))
+        # The expanded form may leave the picked row a few ulps above 0; the
+        # direct form's exact 0 keeps it from being drawn again.
+        min_d[pick] = 0.0
     return centroids
 
 

@@ -24,7 +24,7 @@ from lotus_tpu_torch.ops import flat_scan as tscan
 from lotus_tpu_torch.ops.ivf import load_ivf_state as torch_load
 from lotus_tpu_torch.ops.quant import quantize_rows as torch_quantize
 
-_JAX = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+_JAX = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
 
 
 def _data(seed, n=3072, d=64, b=300, centers=0):
@@ -82,10 +82,11 @@ def test_int8_query_pool_bitwise(n_rows):
     _assert_pool_bitwise(ref, got)
 
 
-@pytest.mark.parametrize("store", ["bfloat16", "float32", "int8_bf16_queries"])
+@pytest.mark.parametrize("store", ["bfloat16", "float32", "int8_bf16_queries", "float16"])
 def test_float_variants_pool_close(store):
     """bf16 products are exact in f32; only the order of the f32 sums
-    differs (64 terms of magnitude <= 1: well under 1e-5)."""
+    differs (64 terms of magnitude <= 1: well under 1e-5).  f32 and f16
+    stores round to bf16 first in both packages (``pallas_flat.py:74``)."""
     xb, xq, _ = _data(1, n=2048, d=48, b=200)
     if store == "int8_bf16_queries":
         j8, js = jax_quantize(jnp.asarray(xb))
@@ -98,6 +99,31 @@ def test_float_variants_pool_close(store):
         ref = pflat.flat_search_pallas(jnp.asarray(xb, _JAX[dt]), jnp.asarray(xq), 256, interpret=True)
         got = tscan.flat_search_pallas(torch.from_numpy(xb).to(dt), torch.from_numpy(xq), 256)
     _assert_pool_close(ref, got, 1e-5)
+
+
+_I8, _BF, _F32, _F16 = torch.int8, torch.bfloat16, torch.float32, torch.float16
+
+
+@pytest.mark.parametrize(
+    "qdt,xdt,d,loader",
+    [
+        (_BF, _F16, 768, "tma+convert"),   # f16 store: rounded to bf16 in shared memory
+        (_BF, _F16, 66, "register"),
+        (_BF, _F32, 768, "tma+convert"),
+        (_BF, _I8, 768, "tma+convert"),
+        (_BF, _BF, 768, "tma"),
+        (_I8, _I8, 768, "tma"),
+        (_I8, _I8, 770, "register"),
+    ],
+)
+def test_kernel_variant_accepts(qdt, xdt, d, loader):
+    assert tscan.kernel_variant(qdt, xdt, d) == loader
+
+
+@pytest.mark.parametrize("qdt,xdt", [(_I8, _F16), (_I8, _BF), (_F32, _F32), (_F16, _F16), (_F32, _F16)])
+def test_kernel_variant_rejects_what_k2_lacks(qdt, xdt):
+    with pytest.raises(ValueError, match="scan_fold"):
+        tscan.kernel_variant(qdt, xdt, 64)
 
 
 @pytest.mark.parametrize("blk", [512, 1024])

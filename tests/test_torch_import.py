@@ -19,7 +19,8 @@ def test_port_runs_without_jax_pandas_or_lotus_tpu(tmp_path):
         import numpy as np
         import lotus_tpu_torch
         from lotus_tpu_torch import TorchVS
-        from lotus_tpu_torch.ops import autotune, bench_data, flat, flat_scan, ivf, ivf_probe, kmeans  # noqa: F401
+        from lotus_tpu_torch import utils  # noqa: F401
+        from lotus_tpu_torch.ops import autotune, bench_data, capacity, flat, flat_scan, ivf, ivf_probe, kmeans  # noqa: F401
 
         rng = np.random.default_rng(0)
         emb = rng.standard_normal((2048, 16)).astype(np.float32)

@@ -20,7 +20,8 @@ from lotus_tpu.ops.ivf import load_ivf_state as jax_load
 from lotus_tpu_torch.ops import ivf_probe as tprobe
 from lotus_tpu_torch.ops.ivf import load_ivf_state as torch_load
 
-_JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8}
+_JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8,
+              torch.float16: jnp.float16}
 
 
 def _corpus(rng, n, d, n_centers=8, spread=0.3):
@@ -134,6 +135,56 @@ def test_int8_query_packed_pool_bitwise(tmp_path):
     _assert_pool_bitwise(ref, got)
 
 
+@pytest.mark.parametrize("d", [66, 770])
+def test_int8_query_packed_pool_bitwise_ragged_depth(tmp_path, d):
+    """The int8 dot at d % 4 != 0, which K1 takes on the CUDA cores with a
+    zero-padded last word: the pool equals the reference's bit for bit."""
+    rng = np.random.default_rng(d)
+    emb = _corpus(rng, 4096, d)
+    js, ts = _stores(tmp_path, emb, nlist=4, block_align=512)
+    xq = _exact_scale(emb[:6] + 0.02 * rng.standard_normal((6, d)).astype(np.float32))
+    ref, got = _run_both(js, ts, xq, _probe_lists(rng, 6, 4, 2), int8_queries=True)
+    assert (ref[0] > -1e38).sum() > 0
+    _assert_pool_bitwise(ref, got)
+
+
+_I8, _BF, _F32, _F16 = torch.int8, torch.bfloat16, torch.float32, torch.float16
+
+
+@pytest.mark.parametrize(
+    "qdt,xdt,d,int8_dot,l2,route",
+    [
+        (_F32, _F16, 768, False, False, "cuda-cores"),   # f16 store: f32 queries, as the reference keeps them
+        (_F32, _F16, 770, False, True, "cuda-cores"),
+        (_I8, _I8, 66, True, False, "cuda-cores"),       # the int8 dot at d % 4 != 0
+        (_I8, _I8, 770, True, False, "cuda-cores"),
+        (_I8, _I8, 768, True, False, "wgmma+tma"),
+        (_BF, _I8, 768, False, False, "wgmma+tma+convert"),
+        (_BF, _I8, 770, False, False, "cuda-cores"),
+        (_BF, _BF, 768, False, True, "wgmma+tma"),
+        (_F32, _F32, 768, False, False, "cuda-cores"),
+    ],
+)
+def test_kernel_variant_accepts(qdt, xdt, d, int8_dot, l2, route):
+    assert tprobe.kernel_variant(qdt, xdt, d, int8_dot=int8_dot, l2=l2) == route
+
+
+@pytest.mark.parametrize(
+    "qdt,xdt,int8_dot,l2",
+    [
+        (_I8, _I8, True, True),     # int8 queries with l2: the query scale is not rank-neutral
+        (_I8, _I8, False, False),   # int8 queries without the int8 dot
+        (_BF, _F16, False, False),  # the reference keeps f32 queries for f16 rows
+        (_F16, _F16, False, False),
+        (_F32, _I8, False, False),
+        (_BF, _I8, True, False),
+    ],
+)
+def test_kernel_variant_rejects_what_k1_lacks(qdt, xdt, int8_dot, l2):
+    with pytest.raises(ValueError, match="probe_fold"):
+        tprobe.kernel_variant(qdt, xdt, 64, int8_dot=int8_dot, l2=l2)
+
+
 def test_int8_query_packed_residual_bias(tmp_path):
     rng = np.random.default_rng(1)
     emb = _corpus(rng, 8192, 32)
@@ -155,6 +206,8 @@ def test_int8_query_packed_residual_bias(tmp_path):
         (torch.float32, "l2", False, 1e-4),     # f32 l2
         (torch.bfloat16, "l2", False, 2e-2),    # bf16 l2
         (torch.int8, "l2", False, 2e-2),        # l2 over int8 (bf16 queries)
+        (torch.float16, "ip", False, 1e-5),     # f16 store, f32 queries
+        (torch.float16, "l2", False, 1e-4),     # f16 l2
     ],
 )
 def test_float_variants_close(tmp_path, dtype, metric, packed_ok, tol):

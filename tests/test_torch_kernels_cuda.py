@@ -64,7 +64,7 @@ def test_kernel_matches_plain_version_on_gpu(dtype, metric, int8_dot, packed):
     torch.testing.assert_close(got, ref, rtol=tol, atol=1e-3)
 
 
-_I8, _BF = torch.int8, torch.bfloat16
+_I8, _BF, _F16 = torch.int8, torch.bfloat16, torch.float16
 
 
 @pytest.mark.cuda
@@ -91,6 +91,14 @@ _I8, _BF = torch.int8, torch.bfloat16
         (_I8, _I8, 64, [12283, 9000], [0, 1, 0, -1], False, False, True, "wgmma+tma", "resident"),
         (_BF, _BF, 768, [3000, 500], [0, 1, -1], True, False, True, "wgmma+tma", "streamed"),
         (torch.float32, torch.float32, 64, [3000, 500], [0, 1, -1], False, True, True, "cuda-cores", "resident"),
+        # f16 rows under f32 queries (an f16 store): converted to f32 in the loader
+        (torch.float32, _F16, 768, [3000, 500], [0, 1, 0, -1], False, False, False, "cuda-cores", "resident"),
+        (torch.float32, _F16, 768, [3000, 500], [0, 1, -1], False, True, False, "cuda-cores", "resident"),
+        (torch.float32, _F16, 770, [3000, 17], [0, 1, -1], True, False, True, "cuda-cores", "resident"),
+        # the int8 dot at d % 4 != 0: a ragged last word, bit for bit
+        (_I8, _I8, 66, [3000, 17], [0, 1, 0, -1], False, True, False, "cuda-cores", "resident"),
+        (_I8, _I8, 770, [3000, 500], [0, 1, -1], False, False, False, "cuda-cores", "resident"),
+        (_I8, _I8, 66, [12283, 9000], [0, 1, -1], False, False, True, "cuda-cores", "resident"),
     ],
 )
 def test_probe_fold_edges_on_gpu(qdt, xdt, d, sizes, chunks, l2, packed, top1, route, query):
@@ -130,6 +138,7 @@ def test_probe_fold_edges_on_gpu(qdt, xdt, d, sizes, chunks, l2, packed, top1, r
     got_s, got_i = tprobe.probe_fold(*[None if t is None else t.cuda() for t in args], **kw)
     torch.cuda.synchronize()
     assert (tprobe.probe_fold.last_plan["route"], tprobe.probe_fold.last_plan["query"]) == (route, query)
+    assert tprobe.kernel_variant(q.dtype, x.dtype, d, int8_dot=int8_dot, l2=l2) == route
     assert got_s.shape == (len(chunks), tprobe.QU, tprobe.ncand(top1))
     if ternary:  # the ties are there: many lanes hold equal best and second scores
         assert int((ref_s[:, :, :64] == ref_s[:, :, 64:]).sum()) > ref_s.numel() // 8
@@ -216,6 +225,7 @@ def _hold_scan(got, ref, *, exact):
         (torch.bfloat16, torch.bfloat16, 768, 1, 3000, 2917, False, "tma"),  # a lone query
         (torch.bfloat16, torch.int8, 768, 70, 3000, 2917, False, "tma+convert"),  # residual-scan pair
         (torch.bfloat16, torch.float32, 768, 70, 3000, 2917, False, "tma+convert"),  # f32 rows rounded
+        (torch.bfloat16, torch.float16, 768, 150, 3000, 2917, False, "tma+convert"),  # f16 rows rounded
         (torch.int8, torch.int8, 64, 150, 5000, 1000 + 37, True, "tma"),  # ties across splits
         (torch.int8, torch.int8, 70, 150, 5000, 4999, True, "register"),
     ],
@@ -247,7 +257,7 @@ def test_scan_fold_edges_on_gpu(qdt, xdt, d, b, n, n_valid, ternary, loader):
     ref = tscan.scan_fold_reference(*args)
     got = tscan.scan_fold(*[t.cuda() if isinstance(t, torch.Tensor) else t for t in args])
     torch.cuda.synchronize()
-    assert tscan.scan_fold.last_plan["loader"] == loader
+    assert tscan.scan_fold.last_plan["loader"] == loader == tscan.kernel_variant(qdt, xdt, d)
     if ternary:  # the ties are there: many lanes hold equal best and second scores
         assert int((ref[0] == ref[2]).sum()) > b * tscan.NL // 16
     _hold_scan(got, ref, exact=qdt == torch.int8)
@@ -264,6 +274,8 @@ def test_scan_fold_edges_on_gpu(qdt, xdt, d, b, n, n_valid, ternary, loader):
         (torch.bfloat16, torch.bfloat16, 1536, "tma", "streamed"),  # text-embedding-3-small's d
         (torch.bfloat16, torch.int8, 1536, "tma+convert", "streamed"),
         (torch.bfloat16, torch.float32, 1536, "tma+convert", "streamed"),
+        (torch.bfloat16, torch.float16, 1536, "tma+convert", "streamed"),
+        (torch.bfloat16, torch.float16, 70, "register", "resident"),  # f16 -> bf16 one value at a time
         (torch.bfloat16, torch.bfloat16, 1540, "register", "streamed"),
         (torch.int8, torch.int8, 3072, "tma", "streamed"),
         (torch.int8, torch.int8, 2600, "register", "streamed"),

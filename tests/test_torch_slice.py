@@ -46,8 +46,3 @@ def test_grouped_probe_recall(built, int8_queries):
     got = ids[: gt.shape[0]].numpy()
     recall = np.mean([len(set(got[i]) & set(gt[i])) / 10 for i in range(gt.shape[0])])
     assert recall >= 0.95, recall
-
-
-def test_spill_build_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        synth_ivf_device_build(**CFG, spill_frac=0.1, device="cpu")

@@ -12,9 +12,12 @@ store.  Each keeps its original checks and gives the same rows as
 
 Left out: the sharded cases (ROADMAP M11) and
 ``test_external_stores_gate_on_missing_clients``, which has no counterpart
-in the port.  ``sem_cluster_by`` and ``sem_partition_by`` still train JAX's
-k-means (``lotus_tpu/utils.py:35-38``; ROADMAP M10) on vectors the port's
-store returns.  The ops-level mirrors of ``test_grouped_probe_matches_window_probe``
+in the port.  With the port's store configured, ``sem_cluster_by`` and
+``sem_partition_by`` run the port's ``cluster`` (``lotus_tpu_torch.utils``,
+selected by assigning ``bind_cluster(vs)`` to ``lotus_tpu.utils.cluster``)
+with JAX's k-means blocked; the two packages seed k-means with different
+random numbers, so their partitions are compared up to relabelling.  The
+ops-level mirrors of ``test_grouped_probe_matches_window_probe``
 and ``test_grouped_probe_l2`` are in ``tests/test_torch_window_probe.py``.
 """
 
@@ -27,6 +30,7 @@ import lotus_tpu
 from lotus_tpu.models import HashRM
 from lotus_tpu.vector_store import TpuVS
 from lotus_tpu_torch import TorchVS
+from lotus_tpu_torch.utils import bind_cluster
 
 
 @pytest.fixture
@@ -347,11 +351,17 @@ def _sem_sim_join(tmp_path):
     return sorted(map(tuple, joined[["query", "title"]].values))
 
 
+def _partition(labels):
+    """Cluster labels up to relabelling: each label replaced by the order of
+    its first row."""
+    first: dict = {}
+    return [first.setdefault(x, len(first)) for x in labels]
+
+
 def _sem_cluster_by(tmp_path):
-    # JAX's k-means (lotus_tpu/utils.py:35-38, ROADMAP M10) on the port's vectors.
     out = _df(tmp_path).sem_cluster_by("title", 2, niter=10)
     assert "cluster_id" in out.columns and out["cluster_id"].nunique() == 2
-    return out["cluster_id"].tolist()
+    return _partition(out["cluster_id"])
 
 
 def _dup_components(df, threshold):
@@ -403,7 +413,7 @@ def _sem_dedup(tmp_path):
 def _sem_partition_by(tmp_path):
     out = _df(tmp_path).sem_partition_by(lotus_tpu.utils.cluster("title", 2))
     assert "_lotus_partition_id" in out.columns
-    return out["_lotus_partition_id"].tolist()
+    return _partition(out["_lotus_partition_id"])
 
 
 def _sem_search_rerank_with_fake_reranker(tmp_path):
@@ -455,14 +465,22 @@ OPERATOR_SCENARIOS = {fn.__name__.lstrip("_"): fn for fn in (
 )}
 
 
+def _no_jax_kmeans(*args, **kwargs):
+    raise AssertionError("the port's store ran JAX's k-means")
+
+
 @pytest.mark.parametrize("name", sorted(OPERATOR_SCENARIOS))
-def test_operator_scenario_matches_reference(tmp_path, name):
+def test_operator_scenario_matches_reference(tmp_path, monkeypatch, name):
     results = {}
     for tag, vs in (("ref", TpuVS()), ("port", TorchVS(device="cpu"))):
         lotus_tpu.settings.configure(rm=HashRM(dim=48), vs=vs, lm=None, enable_cache=False)
         try:
             (tmp_path / tag).mkdir()
-            results[tag] = OPERATOR_SCENARIOS[name](tmp_path / tag)
+            with monkeypatch.context() as m:
+                if tag == "port":  # the port's cluster(), as the README selects it
+                    m.setattr(lotus_tpu.utils, "cluster", bind_cluster(vs))
+                    m.setattr(lotus_tpu.ops.kmeans, "kmeans_fit", _no_jax_kmeans)
+                results[tag] = OPERATOR_SCENARIOS[name](tmp_path / tag)
         finally:
             lotus_tpu.settings.configure(rm=None, vs=None, reranker=None)
     assert results["port"] == results["ref"]
