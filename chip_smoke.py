@@ -50,13 +50,39 @@ Phases (each prints its seconds and the card's name and power limit):
    row mask over the whole config-4 store at B = 256), both timed; then
    ``ivf_residual_scan`` at rescore 64, whose recall@10 must reach 0.99;
 11. stage breakdown of one config-4 slice (CUDA events per stage);
-12. config 4 at spill_frac 0.05, built once phases 3-11's store is freed:
+12. BASELINE config 5's lifecycle on 4 ranks sharing the card: the parent
+   writes config 4's store as 4 shards (``save_ivf_shards``, planned on the
+   card; the free disk first), frees it, and starts 4 ranks of this script
+   as ``torchrun`` would (``--rank``: ``MASTER_ADDR``, a free
+   ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), all on
+   ``cuda:0`` under gloo, each through ``init_runtime()``.  Each rank loads
+   only its shard (resident bytes equal to the plan's) and runs
+   ``sharded_ivf_search_pallas`` on config 4's queries (nprobe 208, rescore
+   24, int8 queries, query_chunk 2048).  Every rank's top-10 sets must equal
+   those of the same 4 shards searched in this process before the store was
+   freed, K1 must launch on every rank, no id may come back from two ranks'
+   local top-10, every local candidate must lie in a list its rank owns, and
+   recall@10 against exact f32 must reach 0.95 (the reference's sharded
+   gate: its shards rescore with no int4 refinement), printed beside phase
+   5's (with the refinement) and the single device's without it.  Chained
+   QPS, the merge's all-gathers' ms per batch and one small all-gather's,
+   labelled as 4 ranks sharing one card.  Then
+   ``TorchVS(mesh=...)`` on the window-regime store of phase 14
+   (``index()`` writes the shards, every rank loads): B 1 and 8 through the sharded window probe, B 64
+   through the sharded scan, each equal to a single-device store's sets; an
+   ids search through ``_disk_subset_search`` and a Flat store with a mesh,
+   with ids and without, against exact f32.  Last, ``sharded_kmeans_fit``
+   at config 3's shape (1,000,000 x 768, k 1024, 10 iterations), whose
+   Lloyd step from the same centroids must equal one process's on the card
+   (counts exactly, sums within 1e-4 * (1 + |x|)).  A rank that finds no
+   card, or fails, fails the phase;
+13. config 4 at spill_frac 0.05, built once phases 3-12's store is freed:
    build seconds per phase, spilled copies, peak memory, recall@10 (must
    reach 0.99), QPS, K1 ms per slice beside the unspilled run; no top-10
    repeats an id; every row's ``ivf_inv_perm`` slot lies in its top-1 list;
    the capacity model against the state's bytes, and the most rows each
    encoding holds on this card;
-13. the reference's window-regime store: 200,000 x 768 seeded rows,
+14. the reference's window-regime store: 200,000 x 768 seeded rows,
    ``TorchVS(index_type="ivf", nlist=512, nprobe=32)`` as float32 and as
    residual int8 with int4 refinement and rescore 24; ``index()`` leaves
    both unaligned; B 1 and 8 go through the window probe, B 64 through the
@@ -64,23 +90,24 @@ Phases (each prints its seconds and the card's name and power limit):
    exact f32 and the warm ms per call; ``ivf_search`` on the float32 store
    at B 1, 16 and 64 with its transient peak; ``calibrate_nprobe(0.95,
    oracle="exact")`` there must calibrate the window regime;
-14. the stores the card refused before: through ``TorchVS`` without ids,
+15. the stores the card refused before: through ``TorchVS`` without ids,
    an f16 IVF store (K1, f32 queries on f16 rows), a residual int8 IVF
    store at d 770 with rescore 24 (K1's ragged int8 dot) and an f16 Flat
    store under ``scan="pallas"`` (K2): each must launch its kernel and
    reach recall@10 0.95 against exact f32;
-15. BASELINE config 3: ``cluster_vectors`` at 1,000,000 x 768, k 1024, 10
-   iterations (seconds, vecs/s, inertia), the k-means++ seeding alone at
-   k 1024 and 4096, the ``sem_dedup`` self-join as store calls (a Flat
+16. BASELINE config 3: ``cluster_vectors`` at 1,000,000 x 768, k 1024, 10
+   iterations (seconds, vecs/s, inertia; beside phase 12's sharded fit),
+   the k-means++ seeding alone at k 1024 and 4096, the ``sem_dedup``
+   self-join as store calls (a Flat
    store, ids = every row, K 65) over 65,536 query rows, extrapolated,
    whose thresholded pairs of 256 queries must equal exact f32's, and the
    reference's 20k x 20k self-join at K 16;
-16. the ids path at config 1's shape (10,000 x 384 Flat, one query a call:
+17. the ids path at config 1's shape (10,000 x 384 Flat, one query a call:
    recall@10 must be 1.0) and config 2's (100,000 x 100,000 x 768, k 5:
    pair recall against the full exact oracle), warm host ms and device ms;
-17. flat corpus: a seeded, normalised 2**20 x 768 corpus (4096 clusters),
+18. flat corpus: a seeded, normalised 2**20 x 768 corpus (4096 clusters),
    4096 queries, the exact f32 top-10 of 256 of them;
-18. K2 vs plain: K2 (``scan_fold``) against ``scan_fold_reference`` on the
+19. K2 vs plain: K2 (``scan_fold``) against ``scan_fold_reference`` on the
    same card tensors: int8 store with int8 queries (bit for bit), int8 store
    with bf16 queries, bf16 store, f32 store, f16 store (timed beside its
    bound), an n_valid past a 1024 block,
@@ -91,25 +118,27 @@ Phases (each prints its seconds and the card's name and power limit):
    variants hold every pool score within 2e-5 * (1 + |s|), the best id of
    every lane whose best and second scores lie further apart than that,
    and the top-10 sets except at a near-tie;
-19. flat main path: ``flat_search_pallas`` over the bf16 store at k 10;
+20. flat main path: ``flat_search_pallas`` over the bf16 store at k 10;
    recall@10 against the exact f32 top-10 must reach 0.98; QPS over chained
    4096-query batches, K2 against the plain version (``scan_fold_reference``
    and the same pool top-k);
-20. Flat store: ``TorchVS(index_type="flat")`` over the same rows serves a
+21. Flat store: ``TorchVS(index_type="flat")`` over the same rows serves a
    4096-query search through K2 as bf16 with ``approx`` and as int8 with
    ``scan="pallas"`` (rescore 32); a search with ids does not launch K2 and
    returns only allowed ids;
-21. stage breakdown of one bf16 flat batch (CUDA events per stage).
+22. stage breakdown of one bf16 flat batch (CUDA events per stage).
 
 Each main path runs with its kernel's launch count set to 0 just before it
-and read just after: K1 over phases 5-8 (calibration included), over phase
-12 and over each K1 store of phase 14; K2 over phase 10, over phases 19-20
-and over phase 14's Flat store; each must have launched its kernel, and
-each phase prints its count.  The last three lines are the kernel table
-(K1 and K2, then the variants the sixth slice added, each with its own
+and read just after: K1 over phases 5-8 (calibration included), in each
+rank over phase 12's sharded search, over phase 13 and over each K1 store of
+phase 15; K2 over phase 10, over phases 20-21 and over phase 15's Flat
+store; each must have launched its kernel, and each phase prints its count.
+The last three lines are the kernel table (K1, whose launches add the
+ranks', and K2, then the variants the sixth slice added, each with its own
 path's launches), the card, and ``{"ok": true, "device": {...}}``.  Without a
 GPU, or without the repository beside this file, it exits non-zero and
-prints no result.
+prints no result.  ``chip_smoke.py --rank <dir>`` is one rank of phase 12,
+started by the script itself.
 """
 
 from __future__ import annotations
@@ -348,18 +377,24 @@ def k1_bound(units, vecs, chunk_list, sizes, *, int8_dot, packed, top1=False, ra
             macs, streamed)
 
 
-def chained_qps(fn, batch: int) -> tuple[float, float]:
-    """Best of 3 windows of 3 chained calls, with a synchronize around each
-    window: (queries per second, ms per call)."""
+def sync(dev=None) -> None:
+    """Wait for ``dev`` (default: the current card); a CPU device has nothing to wait for."""
     import torch
 
+    if dev is None or torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def chained_qps(fn, batch: int, dev=None) -> tuple[float, float]:
+    """Best of 3 windows of 3 chained calls, with a synchronize around each
+    window: (queries per second, ms per call)."""
     per_call = float("inf")
     for _ in range(3):
-        torch.cuda.synchronize()
+        sync(dev)
         t0 = time.perf_counter()
         for _ in range(3):
             fn()
-        torch.cuda.synchronize()
+        sync(dev)
         per_call = min(per_call, (time.perf_counter() - t0) / 3)
     return batch / per_call, per_call * 1e3
 
@@ -819,6 +854,10 @@ def config3_phase(dev, n: int = 1_000_000, k: int = 1024, seed_ks=(1024, 4096), 
     secs = time.perf_counter() - t0
     say(f"  cluster_vectors: {n:,} x {d}, k {k}, {iters} iterations: {secs:.3f} s = {n * iters / secs:,.0f} "
         f"vecs/s (n * iters / s); inertia {float(res.inertia)!r}; {used} clusters used [{GPU}]")
+    if SHARDED_KMEANS:
+        say(f"    beside sharded_kmeans_fit on {SHARDS} ranks sharing the card (the config-5 phase): "
+            f"{SHARDED_KMEANS['secs']:.3f} s, inertia {SHARDED_KMEANS['inertia']!r} (it seeds k rows drawn at "
+            f"random; cluster_vectors seeds k-means++)")
     for kk in seed_ks:
         sub = x[: max(64 * kk, 4096)]
         torch.cuda.synchronize()
@@ -953,6 +992,414 @@ def ivf_ids_phase(state, xq, n_ids: int = 1 << 16) -> None:
             f"peak {peak / 2**30:.3f} GiB (model {model / 2**30:.3f} GiB); ids in the allowed set "
             f"{set(got.flatten().tolist()) <= set(ids)} [{GPU}]")
         assert set(got.flatten().tolist()) <= set(ids), "an ids search returned an id outside ids"
+
+
+# ---------------------------------------------------------------------------
+# Config 5's lifecycle on SHARDS ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+SHARDS = 4  # ranks of the config-5 phase, all on this card under gloo
+CONFIG5_DIR = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_config5")
+# Sizes the ranks run at: config 4's search settings over its shards, the
+# reference's window-regime store (as in the window-regime phase) and
+# config 3's k-means shape, 250,000 rows a rank in blocks of 15,625 so a
+# rank's blocks are the one-process step's blocks.
+CONFIG5 = dict(device="cuda", nprobe=NPROBE, rescore=RESCORE, query_chunk=QUERY_CHUNK, store_n=200_000,
+               store_nlist=512, store_nprobe=32, d=768, km_n=1_000_000, km_k=1024, km_iters=10, km_block=15_625)
+RANK_TIMEOUT = 600  # seconds the ranks may take together before they are killed
+SHARDED_KMEANS: dict = {}  # the ranks' k-means figures, printed beside config 3's cluster_vectors
+
+
+def write_config5_shards(state, xq, gt, io: str = CONFIG5_DIR) -> None:
+    """Config 5's first half on config 4's store, still on the card:
+    ``save_ivf_shards`` writes SHARDS shards (planned one at a time on the
+    card) beside the ``ivf_centroids``,
+    ``ivf_list_size`` and ``meta.json`` that ``load_sharded_ivf_state``
+    reads, with the queries and the exact f32 oracle the ranks use."""
+    import numpy as np
+
+    from lotus_tpu_torch.ops import io as index_io
+    from lotus_tpu_torch.parallel import save_ivf_shards
+
+    shutil.rmtree(io, ignore_errors=True)
+    os.makedirs(io)
+    by_shape = sum(t.nbytes for k, t in state.items()
+                   if k in ("ivf_vectors", "ivf_row_ids", "ivf_row_scales"))
+    say(f"  free disk {shutil.disk_usage(io).free / 2**30:.1f} GiB at {os.path.relpath(io, REPO)}; the shards "
+        f"take about {by_shape / 2**30:.1f} GiB by shape")
+    t0 = time.perf_counter()
+    save_ivf_shards(io, state, SHARDS)
+    index_io.write_array(io, "ivf_centroids", state["centroids"].cpu().numpy())
+    index_io.write_array(io, "ivf_list_size", state["ivf_list_size"].cpu().numpy())
+    index_io.write_meta(io, {"kind": "ivf", **state["meta"]})
+    np.save(os.path.join(io, "queries.npy"), xq.cpu().numpy())
+    np.save(os.path.join(io, "gt.npy"), gt)
+    written = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(io) for f in fs)
+    say(f"  save_ivf_shards: {SHARDS} shards, {written / 1e9:.3f} GB written in {time.perf_counter() - t0:.2f} s "
+        f"[{GPU}]")
+
+
+def emulate_config5(state, xq, io: str = CONFIG5_DIR) -> dict:
+    """What the SHARDS ranks must return, computed in this process: each
+    shard of config 4's store built on the card in turn
+    (``shard_ivf_state``), its local top-k (``local_grouped_probe``) and the
+    merge; saved for the ranks' results to be held to.  Beside it, the
+    single-device grouped probe without the int4 refinement, whose rescore
+    rebuilds rows as the shards' does.
+    These launches are comparisons, not a main path."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe
+    from lotus_tpu_torch.parallel import ShardMesh, shard_ivf_state
+    from lotus_tpu_torch.parallel.ivf import local_grouped_probe
+
+    kw = dict(nprobe=NPROBE, metric="ip", int8_queries=True, rescore=RESCORE)
+    cand_s, cand_i = [], []
+    for slot in range(SHARDS):
+        sharded = shard_ivf_state(state, ShardMesh(None, list(range(SHARDS)), slot, xq.device))
+        parts = [local_grouped_probe(sharded, xq[lo : lo + QUERY_CHUNK], K, **kw)
+                 for lo in range(0, xq.shape[0], QUERY_CHUNK)]
+        cand_s.append(torch.cat([p[0] for p in parts]))
+        cand_i.append(torch.cat([p[1] for p in parts]))
+        del sharded, parts
+    top_s, pos = torch.topk(torch.cat(cand_s, 1), K, dim=1)
+    top_i = torch.gather(torch.cat(cand_i, 1), 1, pos)
+    np.save(os.path.join(io, "emulated_ids.npy"), top_i.cpu().numpy())
+    np.save(os.path.join(io, "emulated_scores.npy"), top_s.cpu().numpy())
+    plain = {k: v for k, v in state.items() if k not in ("ivf_refine", "ivf_refine_scales")}
+    _, ids = ivf_search_grouped_probe(plain, xq, K, query_chunk=QUERY_CHUNK, **kw)
+    return dict(emulated=top_i.cpu().numpy(), no_refine_ids=ids.cpu().numpy())
+
+
+def launch_ranks(io: str, world: int) -> list[dict]:
+    """Start ``world`` ranks of this script as ``torchrun`` would (a free
+    ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), wait for them
+    and return their reports.  A rank that fails stops the others; every
+    rank is gone when this returns."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+               LOCAL_WORLD_SIZE=str(world))
+    logs = [open(os.path.join(io, f"rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", io],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for r in range(world):
+            with open(os.path.join(io, f"rank{r}.log")) as f:
+                say(f"  rank {r} exited {codes[r]}; the end of its log:\n" + f.read()[-3000:])
+        raise AssertionError(f"config 5: ranks exited {codes}")
+    reports = []
+    for r in range(world):
+        with open(os.path.join(io, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def config5_phase(single: dict, io: str = CONFIG5_DIR, cfg: dict = CONFIG5) -> int:
+    """Config 5's lifecycle on SHARDS ranks sharing this card under gloo:
+    each loads only its shard and serves config 4's search, then a
+    ``TorchVS(mesh=...)`` store and sharded k-means (``rank_main``).  Checks
+    their reports (each rank's config-4 result against ``emulate_config5``'s,
+    written in ``io``) and returns K1's launches on the sharded main path,
+    over all ranks.  ``single``: phase 5's recall and the single device's
+    without the int4 refinement."""
+    import numpy as np
+
+    from lotus_tpu_torch.ops import _kernels
+
+    if cfg["device"] == "cuda":
+        _kernels.lib()  # built: the ranks load the library by its hash and never run nvcc
+    with open(os.path.join(io, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    t0 = time.perf_counter()
+    reports = launch_ranks(io, SHARDS)
+    say(f"  {SHARDS} ranks ran in {time.perf_counter() - t0:.2f} s: " + "; ".join(
+        f"rank {r['rank']} on {r['device']} ({r['backend']})" for r in reports))
+    label = f"{SHARDS} ranks sharing one card, not a multi-card figure"
+    for r in reports:
+        a = r["a"]
+        say(f"  rank {r['rank']}: loaded its shard in {a['load_s']:.2f} s; resident {a['resident'] / 2**30:.3f} GiB, "
+            f"the plan's {a['plan'] / 2**30:.3f} GiB; K1 launches {a['launches']}; local candidates "
+            f"{a['live_local']:,}, all in owned lists {a['owned_ok']}; peak {a['peak'] / 2**30:.2f} GiB [{GPU}]")
+    a = reports[0]["a"]
+    want = np.load(os.path.join(io, "emulated_ids.npy"))
+    want_s = np.load(os.path.join(io, "emulated_scores.npy"))
+    differ = [sets_differ(np.load(os.path.join(io, f"ids_rank{r['rank']}.npy")).tolist(), want.tolist(),
+                          np.load(os.path.join(io, f"scores_rank{r['rank']}.npy")).tolist(), want_s.tolist())
+              for r in reports]
+    say(f"  sharded config 4 (sharded_ivf_search_pallas, nprobe {cfg['nprobe']}, rescore {cfg['rescore']}, int8 "
+        f"queries, query_chunk {cfg['query_chunk']}): recall@{K} vs exact f32 {a['recall']!r} (the shards "
+        f"rescore with no int4 refinement, as the reference's); single device: {single['recall']!r} (phase 5, "
+        f"with the refinement), {single['no_refine']!r} without it; ids from two ranks' local top-{K}: "
+        f"{sum(r['a']['dup'] for r in reports)}; finite {a['finite']}; queries whose sets differ from the "
+        f"one-process run of the same {SHARDS} shards, past a near-tie, by rank: {differ}")
+    say(f"  chained QPS {a['qps']:,.1f} ({a['ms']:.2f} ms per {B}-query batch; slowest rank "
+        f"{max(r['a']['ms'] for r in reports):.2f} ms) -- {label}; the merge's all-gathers take "
+        f"{a['gather_s'] * 1e3:.3f} ms per batch, one of 8 x {K} scores {a['small_gather_s'] * 1e3:.3f} ms "
+        f"(gloo) [{GPU}]")
+    b = reports[0]["b"]
+    for bb, run in b["runs"].items():
+        say(f"  TorchVS(mesh) window-regime store, B={bb}: {run['route'].replace('_', ' ')}; recall@{K} "
+            f"{run['recall']!r} over {WINDOW_NQ} queries (single-device store {run['solo_recall']!r}, sets differing "
+            f"past a near-tie {run['mismatched']}); {run['ms']:.3f} ms per call warm (host clock) -- {label} [{GPU}]")
+    say(f"  TorchVS(mesh): state shard-only {b['shard_only']}; ids search through _disk_subset_search: only "
+        f"allowed ids {b['sub_allowed']}, equal to exact f32 over the allowed rows {b['sub_exact']}; Flat store "
+        f"with a mesh: recall@{K} {b['flat_recall']!r} without ids, with ids only allowed {b['flat_sub_allowed']} and "
+        f"exact {b['flat_sub_exact']}; K1 launches {b['k1']}")
+    c = reports[0]["c"]
+    SHARDED_KMEANS.update(c)
+    say(f"  sharded_kmeans_fit: {cfg['km_n']:,} x {cfg['d']}, k {cfg['km_k']}, {cfg['km_iters']} iterations on "
+        f"{SHARDS} ranks: {c['secs']:.3f} s; inertia {c['inertia']!r}; {c['used']} clusters used -- {label} [{GPU}]")
+    say(f"  one Lloyd step from the same centroids against one process on the card: counts equal "
+        f"{c['counts_equal']}; sums within 1e-4*(1+|x|) {c['sums_ok']} (max abs err {c['max_err']!r}); "
+        f"score rel err {c['score_rel']!r}")
+    launches = sum(r["a"]["launches"] for r in reports)
+    for r in reports:
+        assert r["device"].startswith(cfg["device"]), f"rank {r['rank']} ran on {r['device']}"
+        assert r["a"]["resident"] == r["a"]["plan"], f"rank {r['rank']}: resident bytes differ from the plan's"
+        assert r["a"]["owned_ok"], f"rank {r['rank']}: a local candidate lies in a list it does not own"
+        assert cfg["device"] != "cuda" or r["a"]["launches"] > 0, f"rank {r['rank']} did not launch K1"
+    assert a["finite"], "sharded search output is not finite or has the wrong shape"
+    assert not any(differ), "a rank's sharded search differs from the one-process run of the same shards"
+    # The reference's own sharded gate (tests/test_parallel.py:508): its
+    # shards rescore without the int4 refinement, so BASELINE's 0.99 is the
+    # single device's bar, not theirs.
+    assert a["recall"] >= 0.95, f"sharded recall@10 {a['recall']} below 0.95"
+    assert sum(r["a"]["dup"] for r in reports) == 0, "an id came back from two ranks on an unspilled store"
+    for bb, run in b["runs"].items():
+        assert run["served"], f"TorchVS(mesh) B={bb} took another route"
+        assert run["mismatched"] == 0, f"TorchVS(mesh) B={bb} differs from the single-device store"
+    assert b["shard_only"] and b["sub_allowed"] and b["sub_exact"], "the ids path on the shard-only state"
+    assert b["flat_recall"] >= 0.999 and b["flat_sub_allowed"] and b["flat_sub_exact"], "the Flat store with a mesh"
+    assert b["k1"] == 0, "the unaligned store launched K1"
+    assert c["counts_equal"] and c["sums_ok"], "the sharded Lloyd step differs from the one-process step"
+    return launches
+
+
+# ---- the rank side (``chip_smoke.py --rank <dir>``) ------------------------
+
+
+def sets_differ(a, b, da, db, tol: float = 1e-5) -> int:
+    """Queries whose top-k sets differ, except where the two sets' lowest
+    scores agree within ``tol`` (a near-tie at the k-th place)."""
+    return sum(set(x) != set(y) and abs(min(u) - min(v)) > tol for x, y, u, v in zip(a, b, da, db))
+
+
+def rank_config4_search(io: str, mesh, cfg: dict) -> dict:
+    """This rank's shard of config 4: load it alone, run the sharded grouped
+    probe over config 4's queries (K1's launches counted over that run),
+    check its local top-k, and time the chained search and the all-gathers."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.ops.io import read_array, read_meta
+    from lotus_tpu_torch.ops.ivf_probe import probe_fold
+    from lotus_tpu_torch.parallel import load_sharded_ivf_state, sharded_ivf_search_pallas
+    from lotus_tpu_torch.parallel.distributed import load_index_shard
+    from lotus_tpu_torch.parallel.ivf import local_grouped_probe
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+    sharded = load_sharded_ivf_state(io, read_meta(io), mesh)
+    sync(dev)
+    load_s = time.perf_counter() - t0
+    resident = sum(t.nbytes for t in sharded.values() if isinstance(t, torch.Tensor))
+    plan = sum(a.nbytes for a in load_index_shard(io, mesh.slot).values()) + sum(
+        read_array(io, name).nbytes for name in ("ivf_centroids", "ivf_list_size"))
+    xq = torch.from_numpy(np.load(os.path.join(io, "queries.npy"))).to(dev)
+    gt = np.load(os.path.join(io, "gt.npy"))
+    kw = dict(nprobe=cfg["nprobe"], metric="ip", int8_queries=True, rescore=cfg["rescore"])
+
+    def search(q):
+        return sharded_ivf_search_pallas(sharded, q, K, query_chunk=cfg["query_chunk"], **kw)
+
+    probe_fold.launches = 0  # the sharded main path's launches
+    dists, ids = search(xq)
+    sync(dev)
+    launches = probe_fold.launches
+    recall = recall_at(ids.cpu().numpy(), gt)
+    finite = bool(torch.isfinite(dists).all()) and tuple(ids.shape) == (xq.shape[0], K)
+    owned_ok, dup, live_local = True, 0, 0
+    for lo in range(0, xq.shape[0], cfg["query_chunk"]):
+        q = xq[lo : lo + cfg["query_chunk"]]
+        _, local, rows = local_grouped_probe(sharded, q, K, **kw)
+        live = local >= 0
+        live_local += int(live.sum())
+        owned_ok &= bool(sharded["owned"][sharded["row_list"][rows[live].long()].long()].all())
+        every = torch.sort(mesh.all_gather(local).permute(1, 0, 2).reshape(q.shape[0], -1), dim=1).values
+        dup += int(((every[:, 1:] == every[:, :-1]) & (every[:, 1:] >= 0)).sum())
+    np.save(os.path.join(io, f"ids_rank{mesh.slot}.npy"), ids.cpu().numpy())
+    np.save(os.path.join(io, f"scores_rank{mesh.slot}.npy"), dists.cpu().numpy())
+    mesh.barrier()
+    qps, ms = chained_qps(lambda: search(xq), xq.shape[0], dev)
+    # The merge's collectives alone (the all-gathers of a slice's
+    # (query_chunk, K) f32 scores and int32 ids), and one of 8 x K scores:
+    # gloo's latency.
+    times = {}
+    slices = xq.shape[0] // cfg["query_chunk"]
+    for name, parts, per_batch in (
+        ("merge", [torch.zeros((cfg["query_chunk"], K), device=dev),
+                   torch.zeros((cfg["query_chunk"], K), dtype=torch.int32, device=dev)], slices),
+        ("small", [torch.zeros((8, K), device=dev)], 1),
+    ):
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(5 * per_batch):
+            for t in parts:
+                mesh.all_gather(t)
+        sync(dev)
+        times[name] = (time.perf_counter() - t0) / 5
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    del sharded
+    return dict(load_s=load_s, resident=resident, plan=plan, launches=launches, recall=recall,
+                finite=finite, owned_ok=owned_ok, dup=dup, live_local=live_local, qps=qps, ms=ms,
+                gather_s=times["merge"], small_gather_s=times["small"], peak=peak)
+
+
+def rank_store(io: str, mesh, cfg: dict) -> dict:
+    """``TorchVS(mesh=...)`` end to end on the reference's window-regime
+    store (as the window-regime phase builds it): ``index()`` on every rank
+    (rank 0 writes the vectors, the IVF lists and the shards), a fresh store
+    loads, B 1 and 8 through the sharded window probe and B 64 through the
+    route ``TpuVS`` takes (the sharded scan), each beside a single-device
+    store over the same files; an ids search on the shard-only state; a
+    Flat store with a mesh, with ids and without."""
+    import torch
+
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk
+    from lotus_tpu_torch.ops.ivf_probe import probe_fold
+
+    dev, n, d = mesh.device, cfg["store_n"], cfg["d"]
+    emb_t = gen_chunk(13, 0, corpus_centers(13, 4096, d, dev), n, 2.5)
+    g = torch.Generator(device=dev).manual_seed(13)
+    qs = emb_t[torch.randint(0, n, (WINDOW_NQ,), generator=g, device=dev)]
+    qs = qs + 0.05 * torch.randn((WINDOW_NQ, d), generator=g, device=dev)
+    qs = qs / torch.linalg.vector_norm(qs, dim=1, keepdim=True)
+    gt = torch.topk(qs @ emb_t.T, K, dim=1).indices.cpu().numpy()
+    emb, qs_np = emb_t.cpu().numpy(), qs.cpu().numpy()
+    k1_before = probe_fold.launches
+    store_dir = os.path.join(io, "store")
+    kw = dict(index_type="ivf", nlist=cfg["store_nlist"], nprobe=cfg["store_nprobe"])
+    TorchVS(mesh=mesh, **kw).index([], emb, store_dir)
+    vs = TorchVS(mesh=mesh, **kw)
+    vs.load_index(store_dir)
+    solo = TorchVS(device=dev, **kw)
+    solo.load_index(store_dir)
+    runs = {}
+    for b, route in ((1, "window_probe"), (8, "window_probe"), (64, "scan")):
+        before = dict(vs.stats["routes"])
+        outs = [vs(qs_np[lo : lo + b], K) for lo in range(0, WINDOW_NQ, b)]
+        served = {r: vs.stats["routes"][r] - before[r] for r in before}
+        solos = [solo(qs_np[lo : lo + b], K) for lo in range(0, WINDOW_NQ, b)]
+        ids = [row for o in outs for row in o.indices]
+        solo_ids = [row for o in solos for row in o.indices]
+        runs[b] = dict(route=route, served=served == {**dict.fromkeys(before, 0), route: WINDOW_NQ // b},
+                       recall=recall_at(ids, gt), solo_recall=recall_at(solo_ids, gt),
+                       mismatched=sets_differ(ids, solo_ids, [r for o in outs for r in o.distances],
+                                              [r for o in solos for r in o.distances]),
+                       ms=host_ms(lambda b=b: vs(qs_np[:b], K)))
+    shard_only = "ivf_sharded" in vs._state and "ivf_vectors" not in vs._state
+    allowed = sorted(torch.randperm(n, generator=torch.Generator().manual_seed(3))[:1000].tolist())
+    allowed_t = torch.tensor(allowed, device=dev)
+    want = allowed_t[torch.topk(qs[:4] @ emb_t[allowed_t].T, K, dim=1).indices].tolist()
+    want_d = torch.topk(qs[:4] @ emb_t[allowed_t].T, K, dim=1).values.tolist()
+    sub = vs(qs_np[:4], K, ids=allowed)
+    flat = TorchVS(index_type="flat", mesh=mesh)
+    flat.index([], emb, os.path.join(io, "flat"))
+    flat_out = flat(qs_np, K)
+    flat_sub = flat(qs_np[:4], K, ids=allowed)
+    allowed_set = set(allowed)
+    return dict(
+        runs=runs, shard_only=shard_only,
+        sub_allowed=all(i in allowed_set for row in sub.indices for i in row),
+        sub_exact=sets_differ(sub.indices, want, sub.distances, want_d) == 0,
+        flat_recall=recall_at(flat_out.indices, gt),
+        flat_sub_allowed=all(i in allowed_set for row in flat_sub.indices for i in row),
+        flat_sub_exact=sets_differ(flat_sub.indices, want, flat_sub.distances, want_d) == 0,
+        k1=probe_fold.launches - k1_before,
+    )
+
+
+def rank_kmeans(io: str, mesh, cfg: dict) -> dict:
+    """Sharded k-means at config 3's shape: each rank makes the seeded
+    corpus of config 3's phase and keeps its rows; ``sharded_kmeans_fit``
+    (seconds, inertia); then one Lloyd step from the same centroids on the
+    ranks, held by rank 0 against one process's step over all rows."""
+    import torch
+
+    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk
+    from lotus_tpu_torch.parallel import shard_rows, sharded_kmeans_fit
+    from lotus_tpu_torch.parallel.kmeans import _local_stats, lloyd_step
+
+    dev, n, k, br = mesh.device, cfg["km_n"], cfg["km_k"], cfg["km_block"]
+    x = gen_chunk(23, 0, corpus_centers(23, max(8, int(n ** 0.5 / 4)), cfg["d"], dev), n, 2.5)
+    x_local = shard_rows(x, mesh)[0].clone()
+    if mesh.slot != 0:
+        del x
+    n_local = min(max(n - mesh.slot * x_local.shape[0], 0), x_local.shape[0])
+    mesh.barrier()
+    sync(dev)
+    t0 = time.perf_counter()
+    res = sharded_kmeans_fit(x_local, k, n_rows=n, mesh=mesh, iters=cfg["km_iters"], seed=0, block_rows=br)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    c0 = sharded_kmeans_fit(x_local, k, n_rows=n, mesh=mesh, iters=0, seed=0, block_rows=br).centroids
+    (sums, counts, score), _ = lloyd_step(x_local, c0, n_local=n_local, k=k, metric="l2", mesh=mesh, block_rows=br)
+    out = dict(secs=secs, inertia=float(res.inertia), used=int(torch.unique(res.assignments).numel()))
+    if mesh.slot == 0:
+        s1, c1, sc1 = _local_stats(x, c0, n, k, "l2", br)
+        out.update(counts_equal=bool(torch.equal(counts, c1)),
+                   sums_ok=bool(((sums - s1).abs() <= 1e-4 * (1 + s1.abs())).all()),
+                   max_err=float((sums - s1).abs().max()), score_rel=float(abs(score - sc1) / abs(sc1)))
+    return out
+
+
+def rank_main(io: str) -> int:
+    """One rank of the config-5 phase, started by ``launch_ranks``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    with open(os.path.join(io, "config.json")) as f:
+        cfg = json.load(f)
+    if cfg["device"] == "cuda" and not torch.cuda.is_available():
+        print("rank: no CUDA device", file=sys.stderr)
+        return 2
+    import torch.distributed as dist
+
+    from lotus_tpu_torch.parallel import init_runtime, serving_mesh
+
+    assert init_runtime(), "rank: no torchrun environment"
+    mesh = serving_mesh(device=None if cfg["device"] == "cuda" else cfg["device"])
+    report = {"rank": mesh.slot, "device": str(mesh.device), "backend": dist.get_backend()}
+    report["a"] = rank_config4_search(io, mesh, cfg)
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    report["b"] = rank_store(io, mesh, cfg)
+    report["c"] = rank_kmeans(io, mesh, cfg)
+    with open(os.path.join(io, f"rank{mesh.slot}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
 
 
 def config4_paths(dev) -> dict:
@@ -1168,7 +1615,15 @@ def config4_paths(dev) -> dict:
 
     with Phase("stage breakdown"):
         stage_breakdown(state, xq)
-    return dict(k1=(main_err, main_ms, main_plain_ms, main_bound, main_by), k1_launches=launches,
+
+    with Phase("config 5's shards of config 4's store (save_ivf_shards), the same shards in one process"):
+        write_config5_shards(state, xq, gt)
+        emulated = emulate_config5(state, xq)
+        config5 = dict(recall=unspilled["recall"], no_refine=recall_at(emulated["no_refine_ids"], gt))
+        say(f"  one process over the same {SHARDS} shards: recall@{K} {recall_at(emulated['emulated'], gt)!r}; the "
+            f"single device without the int4 refinement {config5['no_refine']!r} (with it {unspilled['recall']!r}) "
+            f"[{GPU}]")
+    return dict(config5=config5, k1=(main_err, main_ms, main_plain_ms, main_bound, main_by), k1_launches=launches,
                 k2_launches=resid_launches, new_variants=new_variants, unspilled=unspilled)
 
 
@@ -1207,6 +1662,11 @@ def main() -> int:
         kernel_report()
 
     c4 = config4_paths(dev)
+    torch.cuda.empty_cache()
+
+    with Phase(f"config 5 on {SHARDS} gloo ranks sharing the card (config 4's shards, TorchVS(mesh), k-means)"):
+        c5_launches = config5_phase(c4["config5"])
+        shutil.rmtree(CONFIG5_DIR, ignore_errors=True)  # about 15 GB of shards; a failed phase keeps them
     torch.cuda.empty_cache()
 
     with Phase("config 4 with spill_frac 0.05 (the unspilled store freed)"):
@@ -1369,7 +1829,7 @@ def main() -> int:
             "route": "cuda",
             "source": "lotus_tpu_torch/csrc/ivf_probe.cu",
             "replaces": "lotus_tpu/ops/pallas_ivf.py:235",
-            "launches": c4["k1_launches"] + spill_launches + f16_ivf + d770_ivf,
+            "launches": c4["k1_launches"] + c5_launches + spill_launches + f16_ivf + d770_ivf,
             "max_abs_err": main_err,
             "ms": main_ms,
             "plain_ms": main_plain_ms,
@@ -1404,4 +1864,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2]))
     sys.exit(main())

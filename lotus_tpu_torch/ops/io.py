@@ -53,3 +53,11 @@ def read_array(index_dir: str, name: str, mmap: bool = True) -> np.ndarray:
     path = os.path.join(index_dir, f"{name}.npy")
     return np.load(path, mmap_mode="r" if mmap else None)
 
+
+def has_shard_manifest(index_dir: str) -> bool:
+    """True when the index was also persisted as per-host shards
+    (``parallel/distributed.py``'s ``shards.json`` lives beside meta.json)."""
+    from lotus_tpu_torch.parallel.distributed import SHARD_MANIFEST
+
+    return os.path.exists(os.path.join(index_dir, SHARD_MANIFEST))
+

@@ -420,10 +420,16 @@ def _ivf_probe(
     row_scales: torch.Tensor | None = None,
     norms_sq: torch.Tensor | None = None,
     residual: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    owned: torch.Tensor | None = None,
+    return_rows: bool = False,
+):
     """The window probe (``ivf.py:386-473``): per query, gather a window of
     rows from each of its ``nprobe`` nearest lists, mask the tail of each list,
     score, top-k and keep each id's best copy.
+
+    A shard (``parallel/ivf.py::sharded_ivf_search``) passes ``owned``, its
+    (nlist,) bool list mask: rows of lists it does not own are masked too.
+    ``return_rows`` adds the storage rows of the top-k as a third output.
 
     int8 and bf16 stores compute with bf16 operands and f32 sums (bf16
     products are exact in f32, so f32 products of the rounded operands are
@@ -441,7 +447,9 @@ def _ivf_probe(
         xq = xq.to(torch.bfloat16).float()
     offsets = torch.arange(window, dtype=torch.int32, device=dev)
     kc = min(2 * k, nprobe * window)
-    out_s, out_i = [], []
+    if owned is not None:
+        list_size = torch.where(owned, list_size, torch.zeros_like(list_size))
+    out_s, out_i, out_r = [], [], []
     for lo in range(0, b, query_chunk):
         q = xq[lo : lo + query_chunk]
         qc = q.shape[0]
@@ -478,9 +486,12 @@ def _ivf_probe(
         # through two probed lists) keeping each id's best-scored copy.
         top_ids = row_ids[top_r.long()]
         top_ids = torch.where(top_s <= MASK_SCORE / 2, torch.full_like(top_ids, NO_HIT), top_ids)
-        s, i = dedup_topk(top_s, top_ids, k)
+        s, i, r = dedup_topk(top_s, top_ids, k, aux=top_r)
         out_s.append(s)
         out_i.append(i)
+        out_r.append(r)
+    if return_rows:
+        return torch.cat(out_s), torch.cat(out_i), torch.cat(out_r)
     return torch.cat(out_s), torch.cat(out_i)
 
 

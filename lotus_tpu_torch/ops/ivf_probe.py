@@ -319,19 +319,23 @@ def _grouped_probe(
     max_blocks: int,
     metric: str,
     int8_queries: bool,
+    owned: torch.Tensor | None = None,
     probe_lists: torch.Tensor | None = None,
     probe_bias: torch.Tensor | None = None,
+    return_rows: bool = False,
     packed_ok: bool = False,
     bl: int = 512,
     spilled: bool = True,
     fold=probe_fold,
 ):
-    """Port of ``_grouped_probe_pallas`` (``pallas_ivf.py:313-645``) without
-    its ``owned`` and ``return_rows`` inputs, which serve only the sharded
-    caller (not ported yet).
+    """Port of ``_grouped_probe_pallas`` (``pallas_ivf.py:313-645``).
 
-    ``fold`` runs K1; a check on the card passes ``probe_fold_reference``
-    to run the same path through the plain version.
+    ``owned`` (nlist,) bool: the lists a shard owns; the sizes of the others
+    are zeroed before ``probe_layout``, so their pairs get no blocks and read
+    masked rows (the sharded caller, ``parallel/ivf.py``).  ``return_rows``
+    adds the storage rows of the top-k as a third output, for the shard-local
+    exact rescore.  ``fold`` runs K1; a check on the card passes
+    ``probe_fold_reference`` to run the same path through the plain version.
     """
     b = xq.shape[0]
     dev = xq.device
@@ -344,6 +348,8 @@ def _grouped_probe(
     if probe_lists is None:
         _, probe_lists = flat_search(centroids, xq, nprobe, metric=metric)
     probe_lists = probe_lists.to(torch.int32)
+    if owned is not None:
+        list_size = torch.where(owned, list_size, torch.zeros_like(list_size))
 
     q_scales = None
     if int8_dot:
@@ -400,18 +406,23 @@ def _grouped_probe(
     # dedup.  Unspilled pools hold each id once, so the top-k is final.
     k_out = min(2 * k if spilled else k, nprobe * kc)
     top_s, pos = torch.topk(cand_s, k_out, dim=1)
-    top_i = row_ids[torch.gather(cand_i, 1, pos).long()]
+    top_rows = torch.gather(cand_i, 1, pos)
+    top_i = row_ids[top_rows.long()]
     top_i = torch.where(top_s <= MASK_SCORE / 2, torch.full_like(top_i, NO_HIT), top_i)
 
     if spilled:
-        top_s, top_i = dedup_topk(top_s, top_i, k)
+        # Storage rows ride along for the shard-local exact rescore.
+        top_s, top_i, top_rows = dedup_topk(top_s, top_i, k, aux=top_rows)
     elif k_out < k:  # pool smaller than k: pad, keeping the sorted head
         pad = k - k_out
         top_s = torch.cat([top_s, torch.full((b, pad), MASK_SCORE, dtype=top_s.dtype, device=dev)], 1)
         top_i = torch.cat([top_i, torch.full((b, pad), NO_HIT, dtype=top_i.dtype, device=dev)], 1)
+        top_rows = torch.cat([top_rows, torch.zeros((b, pad), dtype=top_rows.dtype, device=dev)], 1)
     if q_scales is not None and probe_bias is None:
         # Per-query dequantization constant; rank-neutral, so applied last.
         top_s = torch.where(top_i == NO_HIT, top_s, top_s * q_scales[:, None])
+    if return_rows:
+        return top_s, top_i, top_rows
     return top_s, top_i
 
 

@@ -20,8 +20,15 @@ memory; the planner (``tpu_vs.py:699-817``) routes
 With ``recall_target`` an IVF store calibrates ``nprobe`` on first use
 (``calibrate_nprobe``, ``ops/autotune.py``) or adopts a calibration persisted
 in ``meta.json`` by either package.  ``stats["routes"]`` counts the searches
-each route served.  Sharded stores (``mesh``, ROADMAP M11) raise
-``NotImplementedError``.
+each route served.
+
+With a ``mesh`` of several ranks (``lotus_tpu_torch.parallel``) the store is
+sharded as ``TpuVS``'s is (``tpu_vs.py:200-256``): ``index()`` also persists
+one IVF shard per rank, each rank loads only its own, and searches run the
+sharded grouped probe, the sharded window probe or the sharded Flat scan,
+whose candidates every rank all-gathers and merges.  Every rank makes the
+same calls with the same queries.  An ids search on a shard-only state scans
+the allowed rows of the on-disk f32 ``vectors`` exactly.
 """
 
 from __future__ import annotations
@@ -52,11 +59,14 @@ _DTYPE_NAMES = {
 
 
 class TorchVS(VS):
-    """Flat / IVF-Flat vector store on one torch device.
+    """Flat / IVF-Flat vector store on one torch device, or sharded over the
+    ranks of a ``mesh``.
 
     Takes ``TpuVS``'s constructor arguments plus ``device`` (default: the
-    GPU when there is one).  ``mesh`` (ROADMAP M11) is not ported yet and
-    raises ``NotImplementedError``.  ``approx`` routes bf16 Flat searches of
+    GPU when there is one).  ``mesh`` is a ``lotus_tpu_torch.parallel``
+    ``ShardMesh``; the store then lives on the mesh's device and each rank
+    holds its shard (``TorchVS.distributed()`` builds one over every rank).
+    ``approx`` routes bf16 Flat searches of
     B >= 256 to K2 under ``scan="auto"``; ``flat_search`` itself serves it
     exactly (see ``ops/flat.py``).  ``recall_target``: see
     ``calibrate_nprobe``.
@@ -89,8 +99,7 @@ class TorchVS(VS):
             raise ValueError(f"int8_encoding must be 'residual' or 'plain', got {int8_encoding!r}")
         if scan not in ("auto", "xla", "pallas"):
             raise ValueError(f"scan must be 'auto', 'xla' or 'pallas', got {scan!r}")
-        if mesh is not None:
-            raise NotImplementedError("TorchVS: sharded stores (mesh) are ROADMAP item M11")
+        self.mesh = mesh
         self.index_type = index_type
         self.metric = metric
         self.device_dtype = device_dtype
@@ -112,7 +121,10 @@ class TorchVS(VS):
         self.int8_queries = int8_queries
         self.query_chunk = query_chunk
         self.recall_target = recall_target
-        self.device = torch.device(device) if device is not None else default_device()
+        if mesh is not None:
+            self.device = mesh.device
+        else:
+            self.device = torch.device(device) if device is not None else default_device()
         self.index_dir: str | None = None
         self._state: dict[str, Any] | None = None
         self.stats: dict[str, Any] = {
@@ -126,11 +138,34 @@ class TorchVS(VS):
             "routes": {"grouped_probe": 0, "window_probe": 0, "scan": 0},
         }
 
+    def _mesh_devices(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
+
+    @classmethod
+    def distributed(cls, **kwargs: Any) -> "TorchVS":
+        """A store sharded over every rank (``tpu_vs.py:142-155``): starts the
+        process group when the environment declares one (``init_runtime``),
+        builds the host-ordered serving mesh, and returns a TorchVS over it."""
+        from lotus_tpu_torch.parallel import init_runtime, serving_mesh
+
+        init_runtime()
+        return cls(mesh=serving_mesh(device=kwargs.pop("device", None)), **kwargs)
+
     # ------------------------------------------------------------------ build
     def index(self, docs: list[str], embeddings: NDArray[np.float64], index_dir: str, **kwargs: Any) -> None:
         emb = np.ascontiguousarray(np.asarray(embeddings, dtype=np.float32))
         if emb.ndim != 2:
             raise ValueError(f"embeddings must be 2-D, got shape {emb.shape}")
+        # Under a mesh the reference writes the index from every process;
+        # here rank 0 writes it with its shards, and every rank waits for it.
+        if self.mesh is None or self.mesh.slot == 0:
+            self._write_index(emb, index_dir)
+        if self._mesh_devices() > 1:
+            self.mesh.barrier()
+        self.index_dir = index_dir
+        self._state = None  # lazily materialized on first search
+
+    def _write_index(self, emb: np.ndarray, index_dir: str) -> None:
         index_io.write_array(index_dir, "vectors", emb)
         meta: dict[str, Any] = {
             "kind": self.index_type,
@@ -159,8 +194,15 @@ class TorchVS(VS):
             if self.device_dtype == "int8" and self.int8_encoding == "residual" and self.metric != "l2":
                 meta["encoding"] = "residual_int8"
         index_io.write_meta(index_dir, meta)
-        self.index_dir = index_dir
-        self._state = None  # lazily materialized on first search
+        if meta["kind"] == "ivf" and self._mesh_devices() > 1:
+            # The config-5 lifecycle: one shard per mesh slot, so that at
+            # serve time each rank reads only its own (and never quantizes).
+            from lotus_tpu_torch.ops.ivf import load_ivf_state
+            from lotus_tpu_torch.parallel import save_ivf_shards
+
+            full = load_ivf_state(index_dir, meta, _DTYPE_NAMES[self.device_dtype], refine_int4=False, device="cpu")
+            full["meta"] = full.get("meta", meta)
+            save_ivf_shards(index_dir, full, self._mesh_devices())
 
     def load_index(self, index_dir: str) -> None:
         index_io.read_meta(index_dir)  # validate manifest
@@ -180,9 +222,27 @@ class TorchVS(VS):
         if meta["kind"] == "ivf":
             from lotus_tpu_torch.ops.ivf import load_ivf_state
 
-            state.update(
-                load_ivf_state(self.index_dir, meta, dtype, refine_int4=self.int8_refine, device=self.device)
-            )
+            if self._mesh_devices() > 1 and index_io.has_shard_manifest(self.index_dir):
+                # Shard-persisted index: each rank loads only its own shard;
+                # the monolithic arrays never reach the card.
+                from lotus_tpu_torch.parallel import load_sharded_ivf_state
+
+                sharded = load_sharded_ivf_state(self.index_dir, meta, self.mesh)
+                state["meta"] = sharded["meta"]
+                state["ivf_sharded"] = sharded
+            else:
+                state.update(
+                    load_ivf_state(self.index_dir, meta, dtype, refine_int4=self.int8_refine, device=self.device)
+                )
+                if self._mesh_devices() > 1:
+                    from lotus_tpu_torch.parallel import shard_ivf_state
+
+                    # Keep the load's encoding decision (residual coding falls
+                    # back to plain int8 when residuals are no smaller), or
+                    # the shards would add a centroid bias to plain rows.
+                    ivf_full = dict(state)
+                    ivf_full["meta"] = state.get("meta") or meta
+                    state["ivf_sharded"] = shard_ivf_state(ivf_full, self.mesh)
         else:
             self._ensure_flat_arrays(state)
         self._state = state
@@ -207,6 +267,12 @@ class TorchVS(VS):
             state["xb_scales"] = None
             rows = state["xb"].float()
         state["xb_norms_sq"] = torch.sum(rows * rows, dim=-1) if meta["metric"] == "l2" else None
+        if self._mesh_devices() > 1:
+            from lotus_tpu_torch.parallel import shard_rows
+
+            state["xb_sharded"], _ = shard_rows(state["xb"], self.mesh, block_rows=self.block_rows)
+            if state["xb_scales"] is not None:
+                state["xb_scales_sharded"], _ = shard_rows(state["xb_scales"], self.mesh, block_rows=self.block_rows)
 
     # ------------------------------------------------------- ids-subset (IVF)
     def _ivf_subset_search(
@@ -243,6 +309,24 @@ class TorchVS(VS):
         hit_ids = torch.where(pos >= 0, ids_t[torch.clamp(pos, min=0).long()], -1)
         return dists, hit_ids
 
+    def _disk_subset_search(
+        self, state: dict[str, Any], xq: torch.Tensor, k: int, ids: list[int]
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Exact search restricted to ``ids`` on a shard-only state (the
+        config-5 reload): the allowed rows are gathered from the on-disk f32
+        ``vectors`` (O(|ids| x d), at full f32 fidelity) and scanned exactly
+        on the store's device."""
+        vecs = index_io.read_array(self.index_dir, "vectors")
+        ids_np = np.asarray(ids, dtype=np.int64)
+        m = ids_np.shape[0]
+        sub = torch.from_numpy(np.ascontiguousarray(vecs[ids_np], dtype=np.float32)).to(self.device)
+        dists, pos = flat_search(
+            sub, xq, min(k, m), metric=state["meta"]["metric"], n_rows=m, block_rows=self.block_rows,
+        )
+        ids_t = torch.from_numpy(ids_np).to(self.device)
+        hit_ids = torch.where(pos >= 0, ids_t[torch.clamp(pos, min=0).long()], -1)
+        return dists, hit_ids
+
     # ----------------------------------------------------------------- search
     def __call__(
         self, query_vectors: NDArray[np.float64], K: int, ids: list[int] | None = None, **kwargs: Any
@@ -261,7 +345,11 @@ class TorchVS(VS):
         k_eff = int(min(K, max(n, 1)))
 
         if meta["kind"] == "ivf" and ids is not None:
-            dists, idx = self._ivf_subset_search(state, xq_t, k_eff, ids)
+            # Shard-only states (the config-5 reload) gather from disk.
+            if "ivf_vectors" in state:
+                dists, idx = self._ivf_subset_search(state, xq_t, k_eff, ids)
+            else:
+                dists, idx = self._disk_subset_search(state, xq_t, k_eff, ids)
             return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
 
         route = "scan"
@@ -290,6 +378,9 @@ class TorchVS(VS):
             return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
 
         self._ensure_flat_arrays(state)
+        if "xb_sharded" in state:
+            dists, idx = self._sharded_scan(state, xq_t, k_eff, ids)
+            return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
         xb = state["xb"]
         valid = None
         if ids is not None:
@@ -331,6 +422,25 @@ class TorchVS(VS):
             dists, idx = dists[:, :k_eff], idx[:, :k_eff]
         return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
 
+    def _sharded_scan(
+        self, state: dict[str, Any], xq_t: torch.Tensor, k_eff: int, ids: list[int] | None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The exhaustive scan of a row-sharded store (``tpu_vs.py:747-763``):
+        ``sharded_flat_search`` with the ids as a row mask sharded like the
+        rows.  As in the reference, it neither rescores nor takes K2."""
+        from lotus_tpu_torch.parallel import shard_rows, sharded_flat_search
+
+        valid = None
+        if ids is not None:
+            mask = np.zeros(state["xb_sharded"].shape[0] * self.mesh.size, dtype=bool)
+            mask[np.asarray(ids, dtype=np.int64)] = True
+            valid, _ = shard_rows(torch.from_numpy(mask), self.mesh, block_rows=self.block_rows)
+        return sharded_flat_search(
+            state["xb_sharded"], xq_t, k_eff, n_rows=state["n_rows"], metric=state["meta"]["metric"],
+            mesh=self.mesh, valid=valid, block_rows=self.block_rows, approx=self.approx,
+            xb_scales=state.get("xb_scales_sharded"),
+        )
+
     def _probe_ivf(
         self,
         state: dict[str, Any],
@@ -344,8 +454,21 @@ class TorchVS(VS):
         query_chunk: Optional[int],
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One IVF probe on the serving path: the grouped probe (K1), with the
-        int8-queries default of ``tpu_vs.py:434-440``, or the window probe."""
+        int8-queries default of ``tpu_vs.py:420-440``, or the window probe;
+        sharded when the state holds a shard."""
         metric = state["meta"]["metric"]
+        sharded = state.get("ivf_sharded")
+        if sharded is not None:
+            from lotus_tpu_torch.parallel import sharded_ivf_search, sharded_ivf_search_pallas
+
+            if not use_pallas:
+                return sharded_ivf_search(sharded, xq_t, k_eff, nprobe=nprobe, metric=metric, rescore=rescore)
+            if int8_queries is None:  # auto: int8 shards + rescoring active
+                int8_queries = bool(sharded["vecs"].dtype == torch.int8 and rescore)
+            return sharded_ivf_search_pallas(
+                sharded, xq_t, k_eff, nprobe=nprobe, metric=metric, rescore=rescore,
+                int8_queries=int8_queries, query_chunk=query_chunk,
+            )
         if use_pallas:
             from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe
 
@@ -497,9 +620,13 @@ class TorchVS(VS):
         if persist and self.index_dir is not None:
             # Persist onto the on-disk manifest (not the runtime meta, which
             # load_ivf_state may have annotated), so reloads skip the run.
-            disk_meta = index_io.read_meta(self.index_dir)
-            disk_meta["calibration"] = {**(disk_meta.get("calibration") or {}), key: result}
-            index_io.write_meta(self.index_dir, disk_meta)
+            # Every rank calibrates alike; rank 0 writes.
+            if self.mesh is None or self.mesh.slot == 0:
+                disk_meta = index_io.read_meta(self.index_dir)
+                disk_meta["calibration"] = {**(disk_meta.get("calibration") or {}), key: result}
+                index_io.write_meta(self.index_dir, disk_meta)
+            if self._mesh_devices() > 1:
+                self.mesh.barrier()
         self._adopt_calibration(result)
         return result
 

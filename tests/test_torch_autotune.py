@@ -1,6 +1,7 @@
 """Recall-target calibration in the port: ``lotus_tpu_torch.ops.autotune``
 and ``TorchVS.calibrate_nprobe``, mirroring every case of
-``tests/test_autotune.py`` except the sharded store (ROADMAP M11), plus
+``tests/test_autotune.py`` except the sharded store (in
+``test_torch_parallel.py``, on four gloo ranks), plus
 calibrations that one package persists and the other adopts.
 
 Tolerance: the pure functions return exactly the reference's dicts; the

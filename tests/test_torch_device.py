@@ -65,10 +65,15 @@ def test_torch_vs_defaults_to_the_gpu(no_gpu, index_type):
 
 
 def test_unported_options_raise_before_the_device(no_gpu):
-    """mesh names its ROADMAP item whatever the device; recall_target is
-    ported, so it meets the device check like any other store."""
-    with pytest.raises(NotImplementedError, match="M11"):
-        TorchVS(mesh=object())
+    """No option is left unported: mesh (ROADMAP M11) carries its rank's
+    device, and the mesh builders meet the device check like any other
+    entry point; recall_target meets it like any other store."""
+    from lotus_tpu_torch.parallel import ShardMesh, default_mesh, serving_mesh
+
+    for build in (default_mesh, serving_mesh):
+        with pytest.raises(RuntimeError, match=_NO_GPU):
+            build()
+    assert TorchVS(mesh=ShardMesh(None, [0], 0, "cpu")).device.type == "cpu"
     with pytest.raises(RuntimeError, match=_NO_GPU):
         TorchVS(index_type="ivf", recall_target=0.9)
     assert TorchVS(index_type="ivf", recall_target=0.9, device="cpu").recall_target == 0.9

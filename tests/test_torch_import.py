@@ -21,6 +21,7 @@ def test_port_runs_without_jax_pandas_or_lotus_tpu(tmp_path):
         from lotus_tpu_torch import TorchVS
         from lotus_tpu_torch import utils  # noqa: F401
         from lotus_tpu_torch.ops import autotune, bench_data, capacity, flat, flat_scan, ivf, ivf_probe, kmeans  # noqa: F401
+        from lotus_tpu_torch import parallel  # noqa: F401
 
         rng = np.random.default_rng(0)
         emb = rng.standard_normal((2048, 16)).astype(np.float32)
@@ -44,3 +45,16 @@ def test_port_runs_without_jax_pandas_or_lotus_tpu(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, env=env,
                           cwd=str(tmp_path), timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+
+
+def test_parallel_imports_and_searches_on_two_ranks(tmp_path):
+    """``lotus_tpu_torch.parallel`` imports with jax blocked and one search
+    runs on two gloo ranks started from the ``torchrun`` environment through
+    ``init_runtime()`` (``tests/torch_ranks.py``, case ``import``)."""
+    import numpy as np
+    import torch_ranks
+
+    torch_ranks.launch(str(tmp_path), ["import"], world=2, timeout=120)
+    outs = [np.load(tmp_path / f"import.rank{r}.npz") for r in range(2)]
+    assert all(int(o["world"]) == 2 for o in outs)
+    np.testing.assert_array_equal(outs[0]["ids"], outs[1]["ids"])

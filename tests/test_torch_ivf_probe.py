@@ -65,7 +65,7 @@ def _probe_lists(rng, b, nlist, nprobe):
 
 
 def _run_both(js, ts, xq, probe_lists, *, metric="ip", int8_queries=False, packed_ok=True,
-              bias=None, k=None):
+              bias=None, k=None, owned=None, return_rows=False):
     meta = js["meta"]
     bl = int(meta["block_align"])
     nprobe = probe_lists.shape[1]
@@ -77,23 +77,25 @@ def _run_both(js, ts, xq, probe_lists, *, metric="ip", int8_queries=False, packe
         js["ivf_norms_sq"] = jnp.sum(jnp.square(js["ivf_vectors"].astype(jnp.float32)), axis=-1)
         vf = ts["ivf_vectors"].float()
         ts["ivf_norms_sq"] = torch.sum(vf * vf, dim=-1)
-    j_s, j_i = pivf._grouped_probe_pallas(
+    j_out = pivf._grouped_probe_pallas(
         js["centroids"], js["ivf_vectors"], js["ivf_row_ids"], js["ivf_list_start"],
         js["ivf_list_size"], jnp.asarray(xq), js.get("ivf_row_scales"),
         js.get("ivf_norms_sq") if l2 else None, k, nprobe, max_blocks, metric, True, int8_queries,
+        owned=None if owned is None else jnp.asarray(owned),
         probe_lists=jnp.asarray(probe_lists),
         probe_bias=None if bias is None else jnp.asarray(bias),
-        packed_ok=packed_ok, bl=bl, spilled=spilled,
+        return_rows=return_rows, packed_ok=packed_ok, bl=bl, spilled=spilled,
     )
-    t_s, t_i = tprobe._grouped_probe(
+    t_out = tprobe._grouped_probe(
         ts["centroids"], ts["ivf_vectors"], ts["ivf_row_ids"], ts["ivf_list_start"],
         ts["ivf_list_size"], torch.from_numpy(xq), ts.get("ivf_row_scales"),
         ts.get("ivf_norms_sq") if l2 else None, k, nprobe, max_blocks, metric, int8_queries,
+        owned=None if owned is None else torch.from_numpy(owned),
         probe_lists=torch.from_numpy(probe_lists),
         probe_bias=None if bias is None else torch.from_numpy(bias),
-        packed_ok=packed_ok, bl=bl, spilled=spilled,
+        return_rows=return_rows, packed_ok=packed_ok, bl=bl, spilled=spilled,
     )
-    return (np.asarray(j_s), np.asarray(j_i)), (t_s.numpy(), t_i.numpy())
+    return tuple(np.asarray(a) for a in j_out), tuple(t.numpy() for t in t_out)
 
 
 def _assert_pool_bitwise(ref, got):
@@ -105,7 +107,7 @@ def _assert_pool_bitwise(ref, got):
     row of its list; the port keeps the id.  Zero-score entries are
     therefore held to equal counts, not equal ids.
     """
-    (rs, ri), (gs, gi) = ref, got
+    (rs, ri), (gs, gi) = ref[:2], got[:2]
     np.testing.assert_array_equal(rs.view(np.int32), gs.view(np.int32))
     for q in range(rs.shape[0]):
         nz_r, nz_g = rs[q] != 0, gs[q] != 0
@@ -115,7 +117,7 @@ def _assert_pool_bitwise(ref, got):
 
 
 def _assert_pool_close(ref, got, tol, k=10):
-    (rs, ri), (gs, gi) = ref, got
+    (rs, ri), (gs, gi) = ref[:2], got[:2]
     live = rs > -1e38
     np.testing.assert_array_equal(live, gs > -1e38)
     np.testing.assert_allclose(gs[live], rs[live], rtol=tol, atol=tol)
@@ -376,3 +378,61 @@ def test_top1_fold_is_the_top2_folds_best(packed):
     torch.testing.assert_close(s1.view(torch.int32), s2[:, :, : tprobe.NBK].view(torch.int32), rtol=0, atol=0)
     if not packed:
         torch.testing.assert_close(i1, i2[:, :, : tprobe.NBK], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("spill_frac", [0.0, 0.2])
+@pytest.mark.parametrize("packed_ok", [True, False])
+def test_owned_lists_and_return_rows(tmp_path, spill_frac, packed_ok):
+    """The sharded caller's inputs: candidates come only from the owned
+    lists, bit for bit as the reference's (int8 dot), and the returned
+    storage rows hold the returned ids, as the reference's rows do."""
+    rng = np.random.default_rng(11)
+    emb = _corpus(rng, 8192, 32)
+    js, ts = _stores(tmp_path, emb, nlist=8, spill_frac=spill_frac)
+    xq = _exact_scale(emb[:12] + 0.02 * rng.standard_normal((12, 32)).astype(np.float32))
+    pl = _probe_lists(rng, 12, 8, 6)
+    owned = np.zeros(8, bool)
+    owned[[1, 2, 5]] = True
+    ref, got = _run_both(js, ts, xq, pl, int8_queries=True, packed_ok=packed_ok, owned=owned, return_rows=True)
+    _assert_pool_bitwise(ref, got)
+    row_ids = ts["ivf_row_ids"].numpy()
+    lists_of_rows = np.searchsorted(ts["ivf_list_start"].numpy(), np.arange(len(row_ids)), side="right") - 1
+    for (s, i, r) in (ref, got):
+        live = s > -1e38
+        assert live.any() and (~live).any()
+        assert owned[lists_of_rows[r[live]]].all()
+        nz = live & (s != 0)  # a zero score loses its id in the reference (see _assert_pool_bitwise)
+        np.testing.assert_array_equal(row_ids[r[nz]], i[nz])
+    for q in range(12):
+        live = ref[0][q] > -1e38
+        assert sorted(ref[2][q][live].tolist()) == sorted(got[2][q][live].tolist()), q
+
+
+@pytest.mark.parametrize("packed_ok", [True, False])
+def test_shard_owning_none_of_the_probed_lists(tmp_path, packed_ok):
+    """A shard that owns none of a batch's probed lists still runs K1 and
+    gets only masked candidates, as the reference's probe does."""
+    rng = np.random.default_rng(12)
+    emb = _corpus(rng, 8192, 32)
+    js, ts = _stores(tmp_path, emb, nlist=8)
+    xq = _exact_scale(emb[:6])
+    pl = np.argsort(rng.random((6, 4)), axis=1)[:, :3].astype(np.int32)  # lists 0-3 only
+    owned = np.arange(8) >= 4
+    launches = []
+
+    def fold(*args, **kw):
+        launches.append(1)
+        return tprobe.probe_fold(*args, **kw)
+
+    bl = int(ts["meta"]["block_align"])
+    out = tprobe._grouped_probe(
+        ts["centroids"], ts["ivf_vectors"], ts["ivf_row_ids"], ts["ivf_list_start"], ts["ivf_list_size"],
+        torch.from_numpy(xq), ts["ivf_row_scales"], None, 10, 3, int(ts["meta"]["probe_window"]) // bl, "ip",
+        True, owned=torch.from_numpy(owned), probe_lists=torch.from_numpy(pl), return_rows=True,
+        packed_ok=packed_ok, bl=bl, spilled=False, fold=fold,
+    )
+    ref, got = _run_both(js, ts, xq, pl, int8_queries=True, packed_ok=packed_ok, owned=owned, return_rows=True,
+                         k=10)
+    assert launches == [1]
+    for s, i, _ in (ref, got, tuple(t.numpy() for t in out)):
+        assert (s <= -1e38).all() and (i == -1).all()

@@ -73,11 +73,14 @@ def test_flat_store_matches_reference(tmp_path, dtype):
 
 
 def test_paths_not_ported_raise(tmp_path):
-    """Only sharded stores (mesh, ROADMAP M11) are left unported: an
-    unaligned IVF store serves B 1 through the window probe, and
-    ``recall_target`` is accepted."""
-    with pytest.raises(NotImplementedError, match="M11"):
-        TorchVS(mesh=object())
+    """No path is left unported: a mesh (ROADMAP M11) is accepted, and a
+    mesh of one rank serves on its device as one store does (the sharded
+    cases are in ``test_torch_parallel.py``); an unaligned IVF store serves
+    B 1 through the window probe, and ``recall_target`` is accepted."""
+    from lotus_tpu_torch.parallel import ShardMesh
+
+    one = TorchVS(mesh=ShardMesh(None, [0], 0, "cpu"))
+    assert str(one.device) == "cpu" and one._mesh_devices() == 1
     assert TorchVS(index_type="ivf", recall_target=0.9, device="cpu").recall_target == 0.9
     emb, q, _ = _emb(2, n=600, d=16)
     idx = str(tmp_path / "small")

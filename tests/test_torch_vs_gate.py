@@ -10,9 +10,9 @@ store.  Each keeps its original checks and gives the same rows as
 - operator scenarios: each package's store runs the same pandas operators
   behind ``lotus_tpu.settings`` and the frames they return must be equal.
 
-Left out: the sharded cases (ROADMAP M11) and
-``test_external_stores_gate_on_missing_clients``, which has no counterpart
-in the port.  With the port's store configured, ``sem_cluster_by`` and
+Left out: the sharded cases, which ``test_torch_parallel.py`` holds on four
+gloo ranks, and ``test_external_stores_gate_on_missing_clients``, which has
+no counterpart in the port.  With the port's store configured, ``sem_cluster_by`` and
 ``sem_partition_by`` run the port's ``cluster`` (``lotus_tpu_torch.utils``,
 selected by assigning ``bind_cluster(vs)`` to ``lotus_tpu.utils.cluster``)
 with JAX's k-means blocked; the two packages seed k-means with different
