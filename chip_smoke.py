@@ -126,19 +126,46 @@ Phases (each prints its seconds and the card's name and power limit):
    4096-query search through K2 as bf16 with ``approx`` and as int8 with
    ``scan="pallas"`` (rescore 32); a search with ids does not launch K2 and
    returns only allowed ids;
-22. stage breakdown of one bf16 flat batch (CUDA events per stage).
+22. stage breakdown of one bf16 flat batch (CUDA events per stage);
+23. the models at their published widths with seeded weights (a seeded
+   30,522-entry WordPiece vocabulary; all-MiniLM-L6-v2, e5-base-v2 and
+   cross-encoder/ms-marco-MiniLM-L-6-v2 as ``model.safetensors`` directories
+   under ``build/lotus_tpu_torch/smoke_models``), each through its entry
+   point on the card and held to the port's own CPU run on 64 docs of mixed
+   length in f32 (embeddings within 1e-4, scores within 1e-4 * (1 + |s|)),
+   and bf16 on the card to f32 on the card (smallest cosine >= 0.99);
+24. BASELINE config 1 from text: 10,000 synthetic passages of 150-300 words
+   through ``TorchSentenceEncoderRM`` at MiniLM widths in f32 and bf16 (docs/s,
+   tokens/s real and padded, the tokenizer's host seconds, the encoder's
+   device ms and share of its bound), a ``TorchVS`` Flat store, 256 queries
+   through ``convert_query_to_query_vector``: with ids = every row, one query
+   a call (recall@10 must be 1.0 against exact f32) and without ids under
+   ``scan="pallas"`` (K2; recall@10 >= 0.98); the cross-encoder over the
+   top 100 of 64 queries (pairs/s);
+25. BASELINE config 2's encoder: 100,000 + 100,000 docs of 8-48 words at
+   e5-base-v2 widths in bf16, the right side in ``TorchVS(index_type="ivf",
+   nlist=128, device_dtype="int8")`` (block-aligned, so K1): 1,000 left
+   queries without ids (recall@5 >= 0.95 against exact f32), then the whole
+   left side with ids = every right row at k 5 (pair recall printed);
+26. profiling: ``profiling.trace`` in a child process (``chip_smoke.py
+   --profile <dir>``) around one encode batch and one config-1 store call
+   through K2, each in ``annotate``; the Chrome trace must hold
+   ``scan_kernel`` and both regions with device times, ``timed``'s sink both
+   regions.  The models' and indexes' files are deleted once the phases pass.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after: K1 over phases 5-8 (calibration included), in each
 rank over phase 12's sharded search, over phase 13 and over each K1 store of
-phase 15; K2 over phase 10, over phases 20-21 and over phase 15's Flat
-store; each must have launched its kernel, and each phase prints its count.
+phase 15 and over phase 25's store; K2 over phase 10, over phases 20-21,
+over phase 15's Flat store and over phase 24's; each must have launched its
+kernel, and each phase prints its count.
 The last three lines are the kernel table (K1, whose launches add the
 ranks', and K2, then the variants the sixth slice added, each with its own
 path's launches), the card, and ``{"ok": true, "device": {...}}``.  Without a
 GPU, or without the repository beside this file, it exits non-zero and
-prints no result.  ``chip_smoke.py --rank <dir>`` is one rank of phase 12,
-started by the script itself.
+prints no result.  ``chip_smoke.py --rank <dir>`` is one rank of phase 12 and
+``chip_smoke.py --profile <dir>`` phase 26's child, both started by the script
+itself.
 """
 
 from __future__ import annotations
@@ -254,12 +281,32 @@ def compare(name, args, *, bl, int8_dot, l2, packed, exact, tol=0.0, reps=0, top
     return err, ms, plain_ms
 
 
-def k2_compare(name, args, *, exact, blk=1024, reps=0):
+def k2_row_scores(args, blk, qs, rows):
+    """K2's score of query ``qs[j]`` against storage row ``rows[j]``, each
+    pair by the plain formula on ``scan_fold``'s arguments ``args`` (rows
+    rounded to bf16, times the row scale, plus the block's bias; -inf where
+    the row mask drops the row)."""
+    import torch
+
+    xq, xb, _, scales, bias, row_mask = (*args, None, None, None)[:6]
+    s = (xq[qs].double() * xb[rows].to(torch.bfloat16).double()).sum(1)
+    if scales is not None:
+        s = s * scales[rows].double()
+    if bias is not None:
+        s = s + bias[rows // blk, qs].double()
+    if row_mask is not None:
+        s = torch.where(row_mask[rows] == 0, float("-inf"), s)
+    return s
+
+
+def k2_compare(name, args, *, exact, blk=1024, reps=0, k=K):
     """Run K2 and its plain version on the same card tensors and hold them
     together: bit for bit, or each pool score within K2_TOL * (1 + |s|), the
     best id equal in every lane whose best and second scores lie further
-    apart than that, and the final top-K sets equal except where the plain
-    version's K-th and (K+1)-th scores lie within that tolerance.  Returns
+    apart than that, and every id of K2's top ``k`` that the plain
+    version's top ``k`` lacks a tie: a live row whose own score, rescored by
+    ``k2_row_scores``, lies within that tolerance of the score K2 gives it
+    (its lane slot's score already matches the plain version's).  Returns
     (max_abs_err, kernel ms, plain ms)."""
     import torch
 
@@ -281,17 +328,28 @@ def k2_compare(name, args, *, exact, blk=1024, reps=0):
         close = bool((diff <= tol).all())
         clear = (rs[:, :NL] - rs[:, NL:]).double() > tol[:, :NL]
         same_best = torch.equal(gi[:, :NL][clear], ri[:, :NL][clear])
-        (_, ti), (us, ui) = (_pool_topk(p, None, K + 1) for p in (got, ref))
-        near = ((us[:, K - 1] - us[:, K]).double() <= K2_TOL * (1.0 + us[:, K - 1].double().abs())).tolist()
-        ok = close and same_best and all(n or set(a[:K]) == set(b[:K])
-                                         for n, a, b in zip(near, ti.tolist(), ui.tolist()))
-        ids = f"; best ids {'equal' if same_best else 'DIFFER'} in {int(clear.sum())} clear lanes"
+        (ts, ti), (_, ui) = (_pool_topk(p, None, k) for p in (got, ref))
+        pairs = []  # (query, rank) of K2's top-k ids outside the plain version's
+        for q, (a, b) in enumerate(zip(ti.tolist(), ui.tolist())):
+            theirs = set(b)
+            pairs += [(q, j) for j, i in enumerate(a) if i not in theirs]
+        ties = True
+        if pairs:
+            qs, js = (torch.tensor(v, device=gs.device) for v in zip(*pairs))
+            rows, claimed = ti[qs, js].long(), ts[qs, js].double()
+            own = k2_row_scores(args, blk, qs, rows.clamp(0, args[1].shape[0] - 1))
+            live_rows = bool(((rows >= 0) & (rows < min(int(args[2]), args[1].shape[0]))).all())
+            ties = live_rows and bool(((claimed - own).abs() <= K2_TOL * (1.0 + claimed.abs())).all())
+        ok = close and same_best and ties
+        ids = (f"; best ids {'equal' if same_best else 'DIFFER'} in {int(clear.sum())} clear lanes; "
+               f"{len(pairs)} top-{k} ids outside the plain version's, "
+               f"{'each a tie' if ties else 'NOT all ties'}")
     live = int((rs > -1e38).sum())
     ms = plain_ms = None
     if reps:
         ms = cuda_ms(lambda: scan_fold(*args, blk=blk), reps)
         plain_ms = cuda_ms(lambda: scan_fold_reference(*args, blk=blk), 1)
-    say(f"  {name}: {'bitwise equal' if exact else f'tol {K2_TOL:g}*(1+|s|), top-{K} sets'} -> "
+    say(f"  {name}: {'bitwise equal' if exact else f'tol {K2_TOL:g}*(1+|s|), top-{k} sets up to ties'} -> "
         f"{'OK' if ok else 'MISMATCH'}; max_abs_err={err!r}; live candidates={live}{ids}"
         + ("" if ms is None else f"; K2 {ms:.3f} ms vs plain {plain_ms:.3f} ms [{GPU}]"))
     say(f"    loader {plan['loader']}; query tile {plan['query']}; "
@@ -1402,6 +1460,582 @@ def rank_main(io: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The models (M9) at published widths, configs 1 and 2 from text, profiling
+# ---------------------------------------------------------------------------
+
+MODELS_DIR = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_models")
+TEXT_INDEX_DIR = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_text_index")
+VOCAB_SIZE = 30_522  # bert-base-uncased's vocabulary size, which all three models share
+# Each model's published widths (its config.json; max_seq_length from its
+# sentence-transformers config, or flax_rm.py:48), with seeded weights.
+MODELS = {
+    "all-MiniLM-L6-v2": dict(num_hidden_layers=6, hidden_size=384, num_attention_heads=12,
+                             intermediate_size=1536, max_seq_length=256),
+    "e5-base-v2": dict(num_hidden_layers=12, hidden_size=768, num_attention_heads=12,
+                       intermediate_size=3072, max_seq_length=512),
+    "ms-marco-MiniLM-L-6-v2": dict(num_hidden_layers=6, hidden_size=384, num_attention_heads=12,
+                                   intermediate_size=1536, max_seq_length=512, num_labels=1),
+}
+# The synthetic corpus's topic structure.  The seeded weights put every text
+# near one common direction (for text without topics a mean pairwise cosine
+# of 0.99 and k-th to (k+1)-th score gaps of 2e-5, under bf16's rounding), and
+# they order texts by length before content, so k-means over config 2's
+# embeddings made lists of one length: with texts of a topic at random
+# lengths, a query's nearest texts lay in unprobed lists (recall@5 0.808
+# through the coarse ranking alone at nprobe 32 of 128; 0.981 with the
+# topic's texts at one length, on an H100).  So each topic has exactly k
+# texts at about one length, which draw ON_TOPIC of their words from the
+# topic's TOPIC_WORDS: a query's k nearest texts are its topic's, with a
+# median gap of 2e-2 below them.
+TOPIC_WORDS, ON_TOPIC = 4, 0.9
+# max_batch_size of config 2's encoder: the documented setting's
+# (docs/api/configurations.md:43, flax_rm.py's default).  Its docs of 8-48
+# words are short, so the right side is encoded once more at CONFIG2_WIDE_BATCH
+# a batch, four times the work a forward for the same launches, and both
+# figures are printed.
+CONFIG2_BATCH, CONFIG2_WIDE_BATCH = 64, 256
+
+
+def recording(plain):
+    """A stand-in for a kernel's wrapper that records the arguments of each
+    call and answers through ``plain``, the kernel's plain version, so it
+    launches nothing.  Returns (the stand-in, its list of (args, kwargs))."""
+    calls = []
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return plain(*args, **kw)
+
+    return record, calls
+
+
+def smoke_vocab(seed: int = 0) -> list[str]:
+    """A seeded 30,522-entry WordPiece vocabulary in bert-base-uncased's
+    layout: ``[PAD]``, ``[unused*]``, ``[UNK]`` ``[CLS]`` ``[SEP]``
+    ``[MASK]`` at 100-103, single characters and their ``##`` forms, then
+    seeded whole words (3-10 letters) and ``##`` pieces (2-4 letters)."""
+    import string
+
+    import numpy as np
+
+    vocab = ["[PAD]", *(f"[unused{i}]" for i in range(99)), "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    chars = string.punctuation + string.digits + string.ascii_lowercase
+    vocab += list(chars) + ["##" + c for c in string.digits + string.ascii_lowercase]
+    rng = np.random.default_rng(seed)
+    letters = np.array(list(string.ascii_lowercase))
+    seen = set(vocab)
+    while len(vocab) < VOCAB_SIZE:
+        piece = rng.random() < 0.15
+        tok = ("##" if piece else "") + "".join(rng.choice(letters, rng.integers(2, 5) if piece else rng.integers(3, 11)))
+        if tok not in seen:
+            seen.add(tok)
+            vocab.append(tok)
+    return vocab
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """f32 tensors as a ``.safetensors`` file (header padded to 8 bytes)."""
+    import struct
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        nbytes = t.numel() * 4
+        header[name] = {"dtype": "F32", "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.detach().float().contiguous().cpu().numpy().tobytes())
+
+
+def write_models(vocab: list[str], dev, seed: int = 0) -> dict[str, str]:
+    """One checkpoint directory per model under MODELS_DIR: ``config.json``,
+    ``vocab.txt``, ``tokenizer_config.json`` and ``model.safetensors`` with
+    weights drawn as BERT's initialiser draws them (N(0, 0.02), biases 0,
+    LayerNorm 1 / 0), made on ``dev``.  Returns the directories."""
+    import torch
+
+    from lotus_tpu_torch.models import BertConfig, BertForSequenceClassification, BertModel
+
+    dirs = {}
+    for i, (name, shape) in enumerate(MODELS.items()):
+        d = os.path.join(MODELS_DIR, name)
+        os.makedirs(d, exist_ok=True)
+        widths = {k: v for k, v in shape.items() if k not in ("max_seq_length", "num_labels")}
+        config = dict(model_type="bert", vocab_size=len(vocab), max_position_embeddings=512, type_vocab_size=2,
+                      hidden_act="gelu", layer_norm_eps=1e-12, **widths)
+        if "num_labels" in shape:
+            config["id2label"] = {str(j): f"LABEL_{j}" for j in range(shape["num_labels"])}
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(config, f)
+        with open(os.path.join(d, "vocab.txt"), "w") as f:
+            f.write("\n".join(vocab) + "\n")
+        with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+            json.dump({"do_lower_case": True, "tokenizer_class": "BertTokenizer"}, f)
+        cfg = BertConfig.from_dict(config)
+        with torch.device(dev):
+            module = BertForSequenceClassification(cfg) if "num_labels" in shape else BertModel(cfg)
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        with torch.no_grad():
+            for pname, p in module.named_parameters():
+                if "LayerNorm" in pname:
+                    p.fill_(1.0 if pname.endswith("weight") else 0.0)
+                elif pname.endswith("bias"):
+                    p.zero_()
+                else:
+                    p.copy_(0.02 * torch.randn(p.shape, generator=g, device=dev))
+        write_safetensors(os.path.join(d, "model.safetensors"), module.state_dict())
+        dirs[name] = d
+        del module
+    return dirs
+
+
+def synth_texts(vocab: list[str], n: int, lo: int, hi: int, seed: int, per_topic: int = 10) -> list[str]:
+    """``n`` seeded texts of ``lo``-``hi`` words on ``n // per_topic`` topics,
+    ``per_topic`` texts each (a seeded shuffle; the same topics for the same
+    ``n``, ``per_topic`` and lengths).  A topic has one length, its texts
+    within two words of it, and a text draws each word with probability
+    ON_TOPIC from its topic's TOPIC_WORDS, else from the whole vocabulary;
+    one word in 20 is two words run together, which WordPiece splits into
+    ``##`` pieces."""
+    import numpy as np
+
+    words = np.array([w for w in vocab if w.isalpha() and len(w) > 2 and not w.startswith("[")], dtype=object)
+    topics = max(1, n // per_topic)
+    topic_rng = np.random.default_rng(12345)
+    topic_words = topic_rng.integers(0, len(words), (topics, TOPIC_WORDS))
+    topic_len = topic_rng.integers(lo + 2, hi - 1, topics)
+    rng = np.random.default_rng(seed)
+    doc_topic = rng.permutation(n) % topics
+    lengths = topic_len[doc_topic] + rng.integers(-2, 3, n)
+    total = int(lengths.sum())
+    topic = np.repeat(doc_topic, lengths)
+    idx = np.where(rng.random(total) < ON_TOPIC, topic_words[topic, rng.integers(0, TOPIC_WORDS, total)],
+                   rng.integers(0, len(words), total))
+    flat = words[idx]
+    joined = rng.random(total) < 0.05
+    flat[joined] = flat[joined] + words[rng.integers(0, len(words), int(joined.sum()))]
+    cuts = np.cumsum(lengths)[:-1]
+    return [" ".join(ws).capitalize() + "." for ws in np.split(flat, cuts)]
+
+
+def encode_split(rm, texts: list[str]):
+    """``rm(texts)``, what ``sem_index`` calls, and its time split: host
+    seconds in the tokenizer, device ms of the encoder's forwards (CUDA
+    events around each, by module hooks), wall seconds; real and padded
+    tokens; the forwards' operations (2 x the non-embedding parameters a
+    token, plus attention's 4 * L * s * h) over the padded tokens, and over
+    the real ones alone (s each text's own length).  Returns (embeddings,
+    figures)."""
+    import torch
+
+    enc, cfg = rm.encoder, rm.encoder.config
+    weights = sum(p.numel() for name, p in enc.named_parameters() if not name.startswith("embeddings."))
+    fig = dict(tokenize_s=0.0, padded=0, flops=0.0)
+    events, real, real_flops = [], [], []
+    encode = rm.tokenizer.encode
+
+    def counted_encode(*args, **kw):
+        t0 = time.perf_counter()
+        out = encode(*args, **kw)
+        fig["tokenize_s"] += time.perf_counter() - t0
+        return out
+
+    def before(_, args):
+        ids, mask = args[:2]
+        b, s = ids.shape
+        fig["padded"] += b * s
+        fig["flops"] += 2.0 * weights * b * s + 4.0 * cfg.num_hidden_layers * s * cfg.hidden_size * b * s
+        lens = mask.sum(1).double()
+        real.append(mask.sum())
+        real_flops.append(2.0 * weights * lens.sum()
+                          + 4.0 * cfg.num_hidden_layers * cfg.hidden_size * (lens * lens).sum())
+        events.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+        events[-1][0].record()
+
+    def after(*_):
+        events[-1][1].record()
+
+    hooks = [enc.register_forward_pre_hook(before), enc.register_forward_hook(after)]
+    rm.tokenizer.encode = counted_encode  # the instance's own, shadowing the method for this call
+    try:
+        sync(rm.device)
+        t0 = time.perf_counter()
+        emb = rm(texts)
+        fig["wall_s"] = time.perf_counter() - t0
+    finally:
+        del rm.tokenizer.encode
+        for h in hooks:
+            h.remove()
+    sync(rm.device)
+    fig["device_ms"] = sum(a.elapsed_time(b) for a, b in events)
+    fig["real"] = int(sum(int(r) for r in real))
+    fig["real_flops"] = float(sum(float(f) for f in real_flops))
+    return emb, fig
+
+
+def print_split(label: str, n: int, fig: dict, rate: float, rate_name: str) -> None:
+    """One ingest's figures: docs/s, tokens/s real and padded, the tokenizer's
+    host seconds, the encoder's device ms and its share of its bound over
+    the padded tokens (the work it is given) and over the real tokens (the
+    ingest's own work)."""
+    bound_ms, real_ms = (1e3 * fig[f] / rate for f in ("flops", "real_flops"))
+    wall = fig["wall_s"]
+    say(f"  {label}: {n:,} docs in {wall:.3f} s wall = {n / wall:,.1f} docs/s; tokens/s {fig['real'] / wall:,.0f} "
+        f"real ({fig['real']:,}), {fig['padded'] / wall:,.0f} padded ({fig['padded']:,}); tokenizing "
+        f"{fig['tokenize_s']:.3f} s on the host ({100 * fig['tokenize_s'] / wall:.1f}% of the wall); encoder "
+        f"{fig['device_ms']:.3f} ms on the device (CUDA events) = {100 * fig['device_ms'] / (1e3 * wall):.1f}% of "
+        f"the wall; bound over padded tokens {bound_ms:.3f} ms ({fig['flops']:.4e} operations at {rate_name}), "
+        f"the encoder at {100 * bound_ms / fig['device_ms']:.1f}% of it; over real tokens {real_ms:.3f} ms "
+        f"({fig['real_flops']:.4e} operations), the encoder at {100 * real_ms / fig['device_ms']:.1f}% of it [{GPU}]")
+
+
+def models_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 64) -> None:
+    """Phase 23: each model through its entry point on the card, held to the
+    port's own CPU run in the same process on ``n_docs`` docs of mixed length
+    (four 16-doc batches in four sequence buckets), in f32: embeddings within
+    1e-4, reranker scores within 1e-4 * (1 + |s|); bf16 on the card against
+    f32 on the card: the smallest cosine must reach 0.99."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
+    from lotus_tpu_torch.models.torch_rm import bucketed_batches
+
+    quarter = n_docs // 4
+    docs = [t for i, (lo, hi) in enumerate(((3, 10), (11, 24), (25, 50), (51, 100)))
+            for t in synth_texts(vocab, quarter, lo, hi, 40 + i)]
+    for name, d in dirs.items():
+        seq = MODELS[name]["max_seq_length"]
+        kw = dict(model=d, max_batch_size=16, max_seq_length=seq)
+        if "num_labels" in MODELS[name]:
+            queries = synth_texts(vocab, 4, 3, 9, 44)
+            card_rr, cpu_rr = TorchCrossEncoderReranker(device=dev, **kw), TorchCrossEncoderReranker(device="cpu", **kw)
+            got, want = (np.concatenate([rr.score_pairs(q, docs[i * quarter : (i + 1) * quarter])
+                                         for i, q in enumerate(queries)]) for rr in (card_rr, cpu_rr))
+            err = float(np.abs(got - want).max())
+            ok = bool((np.abs(got - want) <= 1e-4 * (1 + np.abs(want))).all())
+            say(f"  {name} (TorchCrossEncoderReranker, f32): {len(got)} pair scores on the card vs the CPU: max abs "
+                f"err {err!r} (tol 1e-4*(1+|s|)) -> {'OK' if ok else 'MISMATCH'}; scores {float(want.min())!r}.."
+                f"{float(want.max())!r} [{GPU}]")
+            assert ok, f"{name}: the card's scores differ from the CPU's"
+            continue
+        card_rm = TorchSentenceEncoderRM(device=dev, **kw)
+        got = card_rm(docs)
+        want = TorchSentenceEncoderRM(device="cpu", **kw)(docs)
+        bf16 = TorchSentenceEncoderRM(device=dev, dtype=torch.bfloat16, **kw)(docs)
+        err = float(np.abs(got - want).max())
+        cos = float(np.sum(bf16 * got, axis=1).min())
+        buckets = sorted({a.shape[1] for _, a, _ in bucketed_batches(card_rm.tokenizer, docs, None, 16, seq, "cpu")})
+        say(f"  {name} (TorchSentenceEncoderRM, f32, buckets {buckets}): {got.shape} embeddings on the card vs the "
+            f"CPU: max abs err {err!r} (tol 1e-4) -> {'OK' if err <= 1e-4 else 'MISMATCH'}; bf16 on the card vs "
+            f"f32 on the card: smallest cosine {cos!r} (must reach 0.99) [{GPU}]")
+        assert got.shape == (n_docs, MODELS[name]["hidden_size"]) and bool(np.isfinite(got).all())
+        assert err <= 1e-4, f"{name}: the card's embeddings differ from the CPU's"
+        assert cos >= 0.99, f"{name}: bf16 embeddings drift from f32 (cosine {cos})"
+        del card_rm
+
+
+def mean_cosine(emb, n: int = 2000) -> float:
+    """Mean pairwise cosine of the first ``n`` (unit) rows, the diagonal
+    left out: how close together the seeded weights put the texts."""
+    import numpy as np
+
+    e = emb[:n]
+    g = e @ e.T
+    return float((g.sum() - np.trace(g)) / (len(e) * (len(e) - 1)))
+
+
+def config1_text_phase(dev, vocab: list[str], dirs: dict, n: int = 10_000, nq: int = 256, n_rerank_q: int = 64,
+                       top: int = 100) -> int:
+    """Phase 24, BASELINE config 1 from text: ``n`` passages of 150-300 words
+    through ``TorchSentenceEncoderRM.__call__`` at MiniLM widths in f32 and
+    bf16; a Flat store over the f32 embeddings; ``nq`` queries embedded
+    through ``convert_query_to_query_vector``; the store called with ids =
+    every row, one query a call (``sem_search.py:35``: recall@10 must be 1.0
+    against exact f32 on the same embeddings) and without ids under
+    ``scan="pallas"`` (K2; recall@10 at least 0.98), and K2 held to its
+    plain version on the arguments that call gives it (``k2_compare`` at k
+    ``top``); then the reranker over the top ``top`` of ``n_rerank_q``
+    queries.  Returns K2's launches."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
+    from lotus_tpu_torch.ops import flat_scan
+    from lotus_tpu_torch.ops.flat_scan import scan_fold
+
+    rm_dir = dirs["all-MiniLM-L6-v2"]
+    seq = MODELS["all-MiniLM-L6-v2"]["max_seq_length"]
+    t0 = time.perf_counter()
+    passages = synth_texts(vocab, n, 150, 300, 50, per_topic=K)
+    queries = [" ".join(np.random.default_rng(51 + i).choice(passages[j].split(), 12))
+               for i, j in enumerate(np.random.default_rng(52).integers(0, n, nq))]
+    say(f"  {n:,} passages of 150-300 words, {nq} queries of 12 words drawn from a passage; made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rm = TorchSentenceEncoderRM(model=rm_dir, max_seq_length=seq, device=dev)
+    emb, fig = encode_split(rm, passages)
+    print_split("all-MiniLM-L6-v2 f32, max_batch_size 64", n, fig, F32_OPS_PER_S, "67 TFLOP/s f32")
+    rm16 = TorchSentenceEncoderRM(model=rm_dir, max_seq_length=seq, dtype=torch.bfloat16, device=dev)
+    emb16, fig16 = encode_split(rm16, passages)
+    print_split("all-MiniLM-L6-v2 bf16, max_batch_size 64", n, fig16, BF16_OPS_PER_S, "989 TFLOP/s bf16")
+    say(f"    bf16 against f32 embeddings: smallest cosine {float(np.sum(emb * emb16, axis=1).min())!r}; mean "
+        f"pairwise cosine of f32 rows {mean_cosine(emb)!r}")
+    del rm16
+
+    shutil.rmtree(TEXT_INDEX_DIR, ignore_errors=True)
+    vs = TorchVS(index_type="flat", device=dev)
+    t0 = time.perf_counter()
+    vs.index(passages, emb, TEXT_INDEX_DIR)
+    index_s = time.perf_counter() - t0
+    qv = rm.convert_query_to_query_vector(queries)
+    emb_t, qv_t = torch.from_numpy(emb).to(dev), torch.from_numpy(qv).to(dev)
+    gt = exact_topk(qv_t, emb_t, K).tolist()
+    every = list(range(n))
+    vs(qv[:1], K, ids=every)  # loads the store
+    t0 = time.perf_counter()
+    got = [vs(qv[i : i + 1], K, ids=every).indices[0] for i in range(nq)]
+    ids_ms = 1e3 * (time.perf_counter() - t0) / nq
+    ids_recall = recall_at(got, gt)
+    k2 = TorchVS(index_type="flat", scan="pallas", device=dev)
+    k2.load_index(TEXT_INDEX_DIR)
+    k2(qv[:8], K)  # loads the store
+    scan_fold.launches = 0  # this path's launches
+    t0 = time.perf_counter()
+    out = k2(qv, top)
+    k2_ms = 1e3 * (time.perf_counter() - t0)
+    launches = scan_fold.launches
+    k2_recall = recall_at([row[:K] for row in out.indices], gt)
+    say(f"  TorchVS(index_type='flat') over {n:,} x {emb.shape[1]}: index() {index_s:.3f} s; with ids = every row, "
+        f"one query a call: recall@{K} {ids_recall!r} vs exact f32, {ids_ms:.3f} ms a call (host clock); without "
+        f"ids, scan='pallas' (K2), {nq} queries at k {top}: recall@{K} {k2_recall!r}, {k2_ms:.3f} ms (host clock, "
+        f"results on the host); K2 launches {launches} [{GPU}]")
+    if ids_recall < 1.0 or k2_recall < 0.98:
+        say(f"    mean pairwise cosine of the passages {mean_cosine(emb)!r}")
+    assert bool(np.isfinite(emb).all()) and emb.shape == (n, 384), "config 1 embeddings"
+    assert ids_recall == 1.0, f"config 1 with ids: recall@10 {ids_recall} is not 1.0"
+    assert launches > 0, "the scan='pallas' store did not launch K2"
+    assert k2_recall >= 0.98, f"config 1 through K2: recall@10 {k2_recall} below 0.98"
+    # K2 against its plain version on the inputs this store gives it: the
+    # same call once more, with the wrapper recording them.
+    record, calls = recording(flat_scan.scan_fold_reference)
+    flat_scan.scan_fold = record
+    try:
+        k2(qv, top)
+    finally:
+        flat_scan.scan_fold = scan_fold
+    for args, kw in calls:
+        k2_compare(f"config 1 from text: the Flat store's {args[1].dtype} rows ({n:,} x {emb.shape[1]}), "
+                   f"{args[0].shape[0]} {args[0].dtype} queries, top {top}", args, exact=args[0].dtype == torch.int8,
+                   k=top, reps=5, **kw)
+    assert calls, "the scan='pallas' store did not call K2's wrapper"
+
+    rr_dir = dirs["ms-marco-MiniLM-L-6-v2"]
+    rr = TorchCrossEncoderReranker(model=rr_dir, device=dev)
+    rr(queries[0], [passages[i] for i in out.indices[0]], K)  # warm
+    sync(dev)
+    t0 = time.perf_counter()
+    orders = [rr(queries[q], [passages[i] for i in out.indices[q]], K).indices for q in range(n_rerank_q)]
+    rr_s = time.perf_counter() - t0
+    pairs = n_rerank_q * top
+    say(f"  TorchCrossEncoderReranker (f32, max_batch_size 64) over the top {top} of {n_rerank_q} queries "
+        f"(sem_search(n_rerank=...)'s shape): {pairs:,} pairs in {rr_s:.3f} s = {pairs / rr_s:,.1f} pairs/s (host "
+        f"clock) [{GPU}]")
+    assert all(len(o) == K and len(set(o)) == K for o in orders), "the reranker's orders"
+    return launches
+
+
+def config2_text_phase(dev, vocab: list[str], dirs: dict, n: int = 100_000, nq: int = 1000,
+                       nlist: int = 128) -> int:
+    """Phase 25, BASELINE config 2's encoder: ``n`` + ``n`` seeded docs of
+    8-48 words at e5-base-v2 widths in bf16, CONFIG2_BATCH a batch (the
+    right side again at CONFIG2_WIDE_BATCH), the right side indexed in
+    ``TorchVS(index_type="ivf", nlist=128, device_dtype="int8")``
+    (block-aligned at 512, so a call without ids goes to K1); ``nq`` left
+    queries without ids (recall@5 at least 0.95 against exact f32), and K1
+    held to its plain version on the arguments that call gives it (bit for
+    bit where the dot is int8); the whole left side with ids = every right
+    row at k 5 (``sem_sim_join.py:97``), whose pair recall is printed.
+    Returns K1's launches."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+    from lotus_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from lotus_tpu_torch.ops import ivf_probe
+    from lotus_tpu_torch.ops.io import read_meta
+    from lotus_tpu_torch.ops.ivf_probe import probe_fold, probe_fold_reference
+
+    k = 5
+    t0 = time.perf_counter()
+    left, right = synth_texts(vocab, n, 8, 48, 60, per_topic=k), synth_texts(vocab, n, 8, 48, 61, per_topic=k)
+    say(f"  {n:,} + {n:,} docs of 8-48 words made in {time.perf_counter() - t0:.2f} s")
+    rm = TorchSentenceEncoderRM(model=dirs["e5-base-v2"], max_batch_size=CONFIG2_BATCH, dtype=torch.bfloat16,
+                                device=dev)
+    right_emb, fig = encode_split(rm, right)
+    print_split(f"e5-base-v2 bf16, max_batch_size {CONFIG2_BATCH}, right side", n, fig, BF16_OPS_PER_S,
+                "989 TFLOP/s bf16")
+    left_emb, fig_l = encode_split(rm, left)
+    print_split(f"e5-base-v2 bf16, max_batch_size {CONFIG2_BATCH}, left side", n, fig_l, BF16_OPS_PER_S,
+                "989 TFLOP/s bf16")
+    rm.max_batch_size = CONFIG2_WIDE_BATCH
+    rm.tokenizer = WordPieceTokenizer.from_dir(dirs["e5-base-v2"])  # its word memo cold, as the first pass's was
+    wide_emb, fig_w = encode_split(rm, right)
+    print_split(f"e5-base-v2 bf16, max_batch_size {CONFIG2_WIDE_BATCH}, right side again", n, fig_w, BF16_OPS_PER_S,
+                "989 TFLOP/s bf16")
+    say(f"    max_batch_size {CONFIG2_WIDE_BATCH} against {CONFIG2_BATCH}: smallest cosine "
+        f"{float(np.sum(wide_emb * right_emb, axis=1).min())!r}")
+    del wide_emb
+    index_dir = os.path.join(TEXT_INDEX_DIR, "config2")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    vs = TorchVS(index_type="ivf", nlist=nlist, device_dtype="int8", device=dev)
+    t0 = time.perf_counter()
+    vs.index([], right_emb, index_dir)
+    index_s = time.perf_counter() - t0
+    bl = read_meta(index_dir)["block_align"]
+    right_t, left_t = torch.from_numpy(right_emb).to(dev), torch.from_numpy(left_emb).to(dev)
+    gt = exact_topk(left_t[:nq], right_t, k).tolist()
+    vs(left_emb[:8], k)  # loads the store
+    probe_fold.launches = 0  # this path's launches
+    t0 = time.perf_counter()
+    out = vs(left_emb[:nq], k)
+    probe_ms = 1e3 * (time.perf_counter() - t0)
+    launches = probe_fold.launches
+    recall = float(sum(len(set(a) & set(b)) for a, b in zip(out.indices, gt)) / (k * nq))
+    say(f"  TorchVS(index_type='ivf', nlist {nlist}, int8) over the right side: index() {index_s:.3f} s; "
+        f"block_align {bl}; {nq:,} left queries without ids (nprobe {vs.nprobe}): recall@{k} {recall!r} vs exact "
+        f"f32, {probe_ms:.3f} ms (host clock); K1 launches {launches}; routes {vs.stats['routes']} [{GPU}]")
+    if recall < 0.95:
+        say(f"    mean pairwise cosine of the right side {mean_cosine(right_emb)!r}")
+    assert int(bl) > 0 and launches > 0, "config 2's store did not take K1"
+    assert recall >= 0.95, f"config 2 through K1: recall@5 {recall} below 0.95"
+    # K1 against its plain version on the inputs this store gives it: the
+    # same call once more, the grouped probe folding through a recorder.
+    record, calls = recording(probe_fold_reference)
+    grouped = ivf_probe.ivf_search_grouped_probe
+    ivf_probe.ivf_search_grouped_probe = lambda *a, **kw: grouped(*a, **kw, fold=record)
+    try:
+        vs(left_emb[:nq], k)
+    finally:
+        ivf_probe.ivf_search_grouped_probe = grouped
+    for args, kw in calls:
+        compare(f"config 2 from text: the IVF store's {args[1].dtype} rows (bl {kw['bl']}, {args[1].shape[0]:,} "
+                f"storage rows), {nq:,} {args[0].dtype} queries, {'int8' if kw['int8_dot'] else 'float'} dot, "
+                f"{'packed' if kw['packed'] else 'unpacked'}", args, exact=kw["int8_dot"],
+                tol=2e-3 if kw["packed"] else 1e-4, reps=5, **kw)
+    assert calls, "config 2's store did not call K1's wrapper"
+    every = list(range(n))
+    t0 = time.perf_counter()
+    joined = vs(left_emb, k, ids=every)
+    join_s = time.perf_counter() - t0
+    full_gt = exact_topk(left_t, right_t, k).tolist()
+    pair_recall = float(sum(len(set(a) & set(b)) for a, b in zip(joined.indices, full_gt)) / (k * n))
+    say(f"  the whole left side with ids = every right row, k {k} (sem_sim_join's call): {join_s:.3f} s (host "
+        f"clock); pair recall against the full exact f32 oracle {pair_recall!r} ({n * k:,} pairs) [{GPU}]")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    return launches
+
+
+def profile_main(out_dir: str) -> int:
+    """The profiling phase's child (``chip_smoke.py --profile <dir>``): one
+    encode batch of phase 24's model and one config-1 store call through K2
+    under ``profiling.trace``, each inside ``annotate`` and ``timed``; the
+    sink is written to ``<dir>/sink.json``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    if not torch.cuda.is_available():
+        print("profile: no CUDA device", file=sys.stderr)
+        return 2
+    from lotus_tpu_torch import TorchVS, profiling
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+
+    with open(os.path.join(MODELS_DIR, "all-MiniLM-L6-v2", "vocab.txt")) as f:
+        vocab = f.read().split("\n")[:-1]
+    rm = TorchSentenceEncoderRM(model=os.path.join(MODELS_DIR, "all-MiniLM-L6-v2"), max_seq_length=256)
+    vs = TorchVS(index_type="flat", scan="pallas")
+    vs.load_index(TEXT_INDEX_DIR)
+    docs = synth_texts(vocab, 64, 150, 300, 70)
+    qv = rm(docs[:8])
+    vs(qv, K)  # loads the store
+    sink: dict = {}
+    with profiling.trace(os.path.join(out_dir, "trace")):
+        with profiling.annotate("encode batch"), profiling.timed("encode batch", sink):
+            rm(docs)
+        with profiling.annotate("store call (K2)"), profiling.timed("store call (K2)", sink):
+            vs(qv, K)
+    with open(os.path.join(out_dir, "sink.json"), "w") as f:
+        json.dump(sink, f)
+    return 0
+
+
+def profiling_phase(out_dir: str = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_profile")) -> None:
+    """Phase 26: ``profiling.trace`` in a child process (``profile_main``);
+    the child must exit 0, its Chrome trace must hold K2's ``scan_kernel``
+    and both ``annotate`` regions with device times, and ``timed``'s sink
+    both regions."""
+    import glob
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile", out_dir], capture_output=True,
+                          text=True, timeout=300)
+    say(f"  child exited {proc.returncode} after {time.perf_counter() - t0:.2f} s")
+    if proc.returncode != 0:
+        say("  the end of its output:\n" + (proc.stdout + proc.stderr)[-3000:])
+        raise AssertionError(f"the profiling child exited {proc.returncode}")
+    (path,) = glob.glob(os.path.join(out_dir, "trace", "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    with open(os.path.join(out_dir, "sink.json")) as f:
+        sink = json.load(f)
+    regions = ("encode batch", "store call (K2)")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    scan = [e for e in kernels if "scan_kernel" in e.get("name", "")]
+    on_device = {r: sum(e["dur"] for e in events if e.get("cat") == "gpu_user_annotation" and e.get("name") == r)
+                 for r in regions}
+    on_host = {r: sum(e["dur"] for e in events if e.get("cat") == "user_annotation" and e.get("name") == r)
+               for r in regions}
+    say(f"  trace {os.path.relpath(path, REPO)}: {os.path.getsize(path) / 1e6:.2f} MB, {len(events):,} events, "
+        f"{len(kernels):,} kernels on the device ({sum(e['dur'] for e in kernels) / 1e3:.3f} ms); scan_kernel x "
+        f"{len(scan)} ({sum(e['dur'] for e in scan) / 1e3:.3f} ms); regions on the host (us) {on_host}, on the device "
+        f"(us) {on_device}; timed's sink (s) {sink} [{GPU}]")
+    assert scan and all(e["dur"] > 0 for e in scan), "the trace holds no scan_kernel with a device time"
+    assert all(on_host[r] > 0 and on_device[r] > 0 for r in regions), "an annotate region lacks its times"
+    assert set(sink) == set(regions), "timed's sink lacks a region"
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def text_phases(dev) -> tuple[int, int]:
+    """Phases 23-26 (the models, configs 1-2 from text, profiling).  Returns
+    K1's and K2's launches on their main paths."""
+    with Phase("models at published widths (seeded weights): card against CPU, bf16 against f32"):
+        t0 = time.perf_counter()
+        vocab = smoke_vocab()
+        shutil.rmtree(MODELS_DIR, ignore_errors=True)
+        dirs = write_models(vocab, dev)
+        size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(MODELS_DIR) for f in fs)
+        say(f"  {len(vocab):,}-entry vocabulary and {len(dirs)} checkpoints ({size / 1e9:.3f} GB of "
+            f"model.safetensors and vocab.txt) written in {time.perf_counter() - t0:.2f} s under "
+            f"{os.path.relpath(MODELS_DIR, REPO)}")
+        models_phase(dev, vocab, dirs)
+    with Phase("BASELINE config 1 from text (MiniLM 384-d, Flat, K2, rerank)"):
+        k2 = config1_text_phase(dev, vocab, dirs)
+    with Phase("BASELINE config 2's encoder (e5-base-v2 768-d bf16, IVF int8, K1)"):
+        k1 = config2_text_phase(dev, vocab, dirs)
+    with Phase("profiling (profiling.trace in a child process)"):
+        profiling_phase()
+    shutil.rmtree(MODELS_DIR, ignore_errors=True)
+    shutil.rmtree(TEXT_INDEX_DIR, ignore_errors=True)
+    return k1, k2
+
+
 def config4_paths(dev) -> dict:
     """Phases 3-10 and the ids path over config 4's store.  The store lives
     only in this function's frame, so it is freed when the function returns
@@ -1811,6 +2445,10 @@ def main() -> int:
 
     with Phase("flat stage breakdown"):
         flat_stage_breakdown(xb16, fq)
+    del corpus, xb16, x8, s8, q8, fq, qb, vs
+    torch.cuda.empty_cache()
+
+    text_k1, text_k2 = text_phases(dev)
 
     peak_all = max(PEAK_SEEN, torch.cuda.max_memory_allocated())
     say(f"total {time.perf_counter() - t_all:.1f} s; peak {peak_all / 2**30:.2f} GiB [{GPU}]")
@@ -1829,7 +2467,7 @@ def main() -> int:
             "route": "cuda",
             "source": "lotus_tpu_torch/csrc/ivf_probe.cu",
             "replaces": "lotus_tpu/ops/pallas_ivf.py:235",
-            "launches": c4["k1_launches"] + c5_launches + spill_launches + f16_ivf + d770_ivf,
+            "launches": c4["k1_launches"] + c5_launches + spill_launches + f16_ivf + d770_ivf + text_k1,
             "max_abs_err": main_err,
             "ms": main_ms,
             "plain_ms": main_plain_ms,
@@ -1842,7 +2480,7 @@ def main() -> int:
             "route": "cuda",
             "source": "lotus_tpu_torch/csrc/flat_scan.cu",
             "replaces": "lotus_tpu/ops/pallas_flat.py:42",
-            "launches": c4["k2_launches"] + flat_launches + f16_flat,
+            "launches": c4["k2_launches"] + flat_launches + f16_flat + text_k2,
             "max_abs_err": k2_main[0],
             "ms": k2_main[1],
             "plain_ms": k2_main[2],
@@ -1866,4 +2504,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--profile"]:
+        sys.exit(profile_main(sys.argv[2]))
     sys.exit(main())

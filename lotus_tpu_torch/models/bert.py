@@ -1,0 +1,191 @@
+"""BERT as ``nn.Module``s: the encoder, its pooler and the sequence
+classifier, under Hugging Face's parameter names.
+
+The forward is Flax BERT's (``transformers/models/bert/modeling_flax_bert.py``),
+which ``JaxSentenceEncoderRM`` and ``JaxCrossEncoderReranker`` run as XLA:
+word + token-type + position embeddings and LayerNorm; per layer q/k/v, the
+query scaled by 1/sqrt(head size) before the product, an additive mask bias
+of ``finfo(dtype).min`` where the mask is 0, softmax, the output dense plus
+the residual plus LayerNorm, the intermediate dense with the exact erf GELU,
+the output dense plus the residual plus LayerNorm; the pooler's dense and
+tanh on ``[CLS]``; the classifier on the pooled row.  Plain ``nn.Linear``,
+``torch.matmul`` and ``softmax``: no fused attention.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclass(frozen=True)
+class BertConfig:
+    """The fields of a BERT ``config.json`` the forward reads."""
+
+    vocab_size: int
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    num_labels: int = 2
+
+    @classmethod
+    def from_dict(cls, cfg: dict) -> "BertConfig":
+        """Read a ``config.json``; any model type but ``"bert"``, and any
+        activation but the exact GELU, raises ``NotImplementedError``."""
+        model_type = cfg.get("model_type", "bert")
+        if model_type != "bert":
+            raise NotImplementedError(f"model_type {model_type!r}: the port runs BERT checkpoints only")
+        for key, want in (("hidden_act", "gelu"), ("position_embedding_type", "absolute")):
+            if cfg.get(key, want) != want:
+                raise NotImplementedError(f"{key} {cfg[key]!r}: the port runs {want!r} only")
+        num_labels = len(cfg["id2label"]) if "id2label" in cfg else cfg.get("num_labels", 2)
+        fields = {k: cfg[k] for k in cls.__dataclass_fields__ if k in cfg and k != "num_labels"}
+        return cls(**fields, num_labels=int(num_labels))
+
+    @classmethod
+    def from_dir(cls, path: str) -> "BertConfig":
+        with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+            return cls.from_dict(json.load(f))
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
+        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor) -> torch.Tensor:
+        positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+        x = self.word_embeddings(input_ids) + self.token_type_embeddings(token_type_ids)
+        return self.LayerNorm(x + self.position_embeddings(positions))
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.heads = cfg.num_attention_heads
+        self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        b, s, h = x.shape
+
+        def split(t):  # (b, s, h) -> (b, heads, s, head size)
+            return t.view(b, s, self.heads, h // self.heads).transpose(1, 2)
+
+        q = split(self.query(x)) / math.sqrt(h // self.heads)
+        scores = torch.matmul(q, split(self.key(x)).transpose(-1, -2)) + bias
+        ctx = torch.matmul(torch.softmax(scores, dim=-1), split(self.value(x)))
+        return ctx.transpose(1, 2).reshape(b, s, h)
+
+
+class BertSelfOutput(nn.Module):
+    def __init__(self, cfg: BertConfig, width: int):
+        super().__init__()
+        self.dense = nn.Linear(width, cfg.hidden_size)
+        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(self.dense(x) + residual)
+
+
+class BertAttention(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.self = BertSelfAttention(cfg)
+        self.output = BertSelfOutput(cfg, cfg.hidden_size)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        return self.output(self.self(x, bias), x)
+
+
+class BertIntermediate(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(self.dense(x))  # hidden_act "gelu": the exact erf form
+
+
+class BertLayer(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.attention = BertAttention(cfg)
+        self.intermediate = BertIntermediate(cfg)
+        self.output = BertSelfOutput(cfg, cfg.intermediate_size)  # HF's BertOutput: the same shape of block
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        x = self.attention(x, bias)
+        return self.output(self.intermediate(x), x)
+
+
+class BertEncoder(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.layer = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_hidden_layers))
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        for layer in self.layer:
+            x = layer(x, bias)
+        return x
+
+
+class BertPooler(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.dense(hidden[:, 0]))
+
+
+class BertModel(nn.Module):
+    """The encoder: ``forward`` gives the last hidden state (b, s, hidden).
+    ``add_pooling_layer=False`` leaves out the pooler (an embedding model
+    does not read it, and some checkpoints do not carry it)."""
+
+    def __init__(self, cfg: BertConfig, add_pooling_layer: bool = True):
+        super().__init__()
+        self.config = cfg
+        self.embeddings = BertEmbeddings(cfg)
+        self.encoder = BertEncoder(cfg)
+        self.pooler = BertPooler(cfg) if add_pooling_layer else None
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                token_type_ids: torch.Tensor | None = None) -> torch.Tensor:
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = self.embeddings(input_ids, token_type_ids)
+        # Flax's additive bias: 0 where the mask is set, finfo(dtype).min elsewhere.
+        bias = torch.zeros(attention_mask.shape, dtype=x.dtype, device=x.device)
+        bias = bias.masked_fill(attention_mask == 0, torch.finfo(x.dtype).min)[:, None, None, :]
+        return self.encoder(x, bias)
+
+
+class BertForSequenceClassification(nn.Module):
+    """The encoder, its pooler and ``classifier``: ``forward`` gives the
+    logits (b, num_labels)."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.config = cfg
+        self.bert = BertModel(cfg)
+        self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                token_type_ids: torch.Tensor | None = None) -> torch.Tensor:
+        return self.classifier(self.bert.pooler(self.bert(input_ids, attention_mask, token_type_ids)))

@@ -1,4 +1,4 @@
-"""Result types of the port (``lotus_tpu/types.py:195``)."""
+"""Result types of the port (``lotus_tpu/types.py:195-208``)."""
 
 from __future__ import annotations
 
@@ -15,3 +15,11 @@ class RMOutput:
 
     distances: list[list[float]]
     indices: list[list[int]]
+
+
+@dataclass
+class RerankerOutput:
+    """A reranker's order: indices into the docs it was given, best first
+    (``lotus_tpu.types.RerankerOutput``)."""
+
+    indices: list[int]

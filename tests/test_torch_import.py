@@ -58,3 +58,44 @@ def test_parallel_imports_and_searches_on_two_ranks(tmp_path):
     outs = [np.load(tmp_path / f"import.rank{r}.npz") for r in range(2)]
     assert all(int(o["world"]) == 2 for o in outs)
     np.testing.assert_array_equal(outs[0]["ids"], outs[1]["ids"])
+
+
+def test_models_and_profiling_run_without_transformers(tmp_path):
+    """``lotus_tpu_torch.models`` and ``lotus_tpu_torch.profiling`` import,
+    embed one batch and rerank on the CPU from a ``model.safetensors``
+    checkpoint with jax, pandas, lotus_tpu, transformers, tokenizers,
+    safetensors and sentence_transformers blocked."""
+    import pytest
+
+    pytest.importorskip("transformers")
+    from test_torch_checkpoints import write_bert
+
+    write_bert(str(tmp_path / "rm"))
+    write_bert(str(tmp_path / "rr"), num_labels=1)
+    script = textwrap.dedent(
+        f"""
+        import sys
+        blocked = ("jax", "jaxlib", "pandas", "pydantic", "lotus_tpu", "transformers", "tokenizers",
+                   "safetensors", "sentence_transformers")
+        for name in blocked:
+            sys.modules[name] = None
+        sys.path.insert(0, {REPO!r})
+        from lotus_tpu_torch import profiling
+        from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
+
+        rm = TorchSentenceEncoderRM(model={str(tmp_path / "rm")!r}, max_batch_size=4, device="cpu")
+        sink = {{}}
+        with profiling.timed("embed", sink):
+            emb = rm(["the cat sat on the mat", "hello world", "dogs"])
+        assert emb.shape == (3, 32) and abs(float((emb ** 2).sum()) - 3.0) < 1e-4 and "embed" in sink
+        rr = TorchCrossEncoderReranker(model={str(tmp_path / "rr")!r}, device="cpu")
+        assert sorted(rr("cat", ["the cat", "a dog"], 2).indices) == [0, 1]
+        bad = [m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m] is not None]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, env=env,
+                          cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
