@@ -151,18 +151,40 @@ Phases (each prints its seconds and the card's name and power limit):
    --profile <dir>``) around one encode batch and one config-1 store call
    through K2, each in ``annotate``; the Chrome trace must hold
    ``scan_kernel`` and both regions with device times, ``timed``'s sink both
-   regions.  The models' and indexes' files are deleted once the phases pass.
+   regions.  The models' and indexes' files are deleted once the phases pass;
+27. the encoder families past BERT at published widths with seeded weights,
+   each written under ``build/lotus_tpu_torch/smoke_families`` as
+   ``model.safetensors``, ``config.json`` and a ``tokenizer.json`` the script
+   generates (a seeded 250,002-piece Unigram with a charsmap, seeded
+   byte-level BPE merges, phase 23's WordPiece): multilingual-e5-base and
+   bge-reranker-base (XLM-R), all-roberta-large-v1 (RoBERTa, 24 x 1024),
+   msmarco-distilbert-base-v4 (DistilBERT) and ms-marco-electra-base
+   (ELECTRA, 1 label).  Each through its entry point on the card against the
+   CPU in f32 (64 docs, 16 for RoBERTa-large; multilingual text for XLM-R;
+   within 1e-4, scores within 1e-4 * (1 + |s|)), bf16 against f32 for the
+   RMs (smallest cosine >= 0.99); XLM-R over 65,536 of config 2's docs in
+   bf16 into an int8 IVF store (nlist 128, block-aligned: K1), recall@5 >=
+   0.95 against exact f32 over 1,000 queries, K1 held to its plain version
+   on the call's inputs, the XLM-R reranker over 16 x 100 pairs in bf16;
+   RoBERTa-large over config 1's 10,000 passages in bf16 into a Flat store:
+   recall@10 1.0 through ids (an id outside the oracle's top 10 only as a
+   tie within sqrt(d) * 2**-24 * sum|q_i x_i|, ``summation_ties``), >= 0.98
+   through K2 at d 1024, K2 held to its
+   plain version on the call's inputs and timed beside its bound.  Each
+   ingest prints docs/s, tokens/s, the tokenizer's share and cost a word,
+   and the encoder's share of its bound.  The files are deleted after.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after: K1 over phases 5-8 (calibration included), in each
 rank over phase 12's sharded search, over phase 13 and over each K1 store of
-phase 15 and over phase 25's store; K2 over phase 10, over phases 20-21,
-over phase 15's Flat store and over phase 24's; each must have launched its
-kernel, and each phase prints its count.
+phase 15 and over phase 25's and 27's stores; K2 over phase 10, over phases
+20-21, over phase 15's Flat store and over phase 24's and 27's; each must
+have launched its kernel, and each phase prints its count.
 The last three lines are the kernel table (K1, whose launches add the
-ranks', and K2, then the variants the sixth slice added, each with its own
-path's launches), the card, and ``{"ok": true, "device": {...}}``.  Without a
-GPU, or without the repository beside this file, it exits non-zero and
+ranks', and K2, then the variants later slices added, each with its own
+path's launches: K2 at d 1024 is phase 27's), the card, and
+``{"ok": true, "device": {...}}``.  Without a GPU, or without the
+repository beside this file, it exits non-zero and
 prints no result.  ``chip_smoke.py --rank <dir>`` is one rank of phase 12 and
 ``chip_smoke.py --profile <dir>`` phase 26's child, both started by the script
 itself.
@@ -1548,7 +1570,7 @@ def write_safetensors(path: str, tensors: dict) -> None:
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(raw)) + raw)
         for t in tensors.values():
-            f.write(t.detach().float().contiguous().cpu().numpy().tobytes())
+            f.write(t.detach().float().contiguous().cpu().numpy().data)
 
 
 def write_models(vocab: list[str], dev, seed: int = 0) -> dict[str, str]:
@@ -1766,7 +1788,6 @@ def config1_text_phase(dev, vocab: list[str], dirs: dict, n: int = 10_000, nq: i
 
     from lotus_tpu_torch import TorchVS
     from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
-    from lotus_tpu_torch.ops import flat_scan
     from lotus_tpu_torch.ops.flat_scan import scan_fold
 
     rm_dir = dirs["all-MiniLM-L6-v2"]
@@ -1820,19 +1841,7 @@ def config1_text_phase(dev, vocab: list[str], dirs: dict, n: int = 10_000, nq: i
     assert ids_recall == 1.0, f"config 1 with ids: recall@10 {ids_recall} is not 1.0"
     assert launches > 0, "the scan='pallas' store did not launch K2"
     assert k2_recall >= 0.98, f"config 1 through K2: recall@10 {k2_recall} below 0.98"
-    # K2 against its plain version on the inputs this store gives it: the
-    # same call once more, with the wrapper recording them.
-    record, calls = recording(flat_scan.scan_fold_reference)
-    flat_scan.scan_fold = record
-    try:
-        k2(qv, top)
-    finally:
-        flat_scan.scan_fold = scan_fold
-    for args, kw in calls:
-        k2_compare(f"config 1 from text: the Flat store's {args[1].dtype} rows ({n:,} x {emb.shape[1]}), "
-                   f"{args[0].shape[0]} {args[0].dtype} queries, top {top}", args, exact=args[0].dtype == torch.int8,
-                   k=top, reps=5, **kw)
-    assert calls, "the scan='pallas' store did not call K2's wrapper"
+    k2_store_compare("config 1 from text", k2, qv, top)
 
     rr_dir = dirs["ms-marco-MiniLM-L-6-v2"]
     rr = TorchCrossEncoderReranker(model=rr_dir, device=dev)
@@ -1847,6 +1856,49 @@ def config1_text_phase(dev, vocab: list[str], dirs: dict, n: int = 10_000, nq: i
         f"clock) [{GPU}]")
     assert all(len(o) == K and len(set(o)) == K for o in orders), "the reranker's orders"
     return launches
+
+
+def k2_store_compare(label: str, store, qv, top: int) -> list:
+    """K2 against its plain version on the inputs a ``scan="pallas"`` Flat
+    store's call gives it: the same call once more, with the wrapper
+    recording them (``k2_compare`` at k ``top``, timed).  Returns
+    ``k2_compare``'s figures and the arguments of each call."""
+    import torch
+
+    from lotus_tpu_torch.ops import flat_scan
+
+    scan_fold = flat_scan.scan_fold
+    record, calls = recording(flat_scan.scan_fold_reference)
+    flat_scan.scan_fold = record
+    try:
+        store(qv, top)
+    finally:
+        flat_scan.scan_fold = scan_fold
+    assert calls, "the scan='pallas' store did not call K2's wrapper"
+    return [(k2_compare(f"{label}: the Flat store's {args[1].dtype} rows ({args[1].shape[0]:,} x {args[1].shape[1]}), "
+                        f"{args[0].shape[0]} {args[0].dtype} queries, top {top}", args,
+                        exact=args[0].dtype == torch.int8, k=top, reps=5, **kw), args) for args, kw in calls]
+
+
+def k1_store_compare(label: str, store, queries, k: int) -> None:
+    """K1 against its plain version on the inputs an IVF store's call gives
+    it: the same call once more, the grouped probe folding through a
+    recorder (bit for bit where the dot is int8)."""
+    from lotus_tpu_torch.ops import ivf_probe
+
+    record, calls = recording(ivf_probe.probe_fold_reference)
+    grouped = ivf_probe.ivf_search_grouped_probe
+    ivf_probe.ivf_search_grouped_probe = lambda *a, **kw: grouped(*a, **kw, fold=record)
+    try:
+        store(queries, k)
+    finally:
+        ivf_probe.ivf_search_grouped_probe = grouped
+    assert calls, f"{label}: the store did not call K1's wrapper"
+    for args, kw in calls:
+        compare(f"{label}: the IVF store's {args[1].dtype} rows (bl {kw['bl']}, {args[1].shape[0]:,} storage rows), "
+                f"{len(queries):,} {args[0].dtype} queries, {'int8' if kw['int8_dot'] else 'float'} dot, "
+                f"{'packed' if kw['packed'] else 'unpacked'}", args, exact=kw["int8_dot"],
+                tol=2e-3 if kw["packed"] else 1e-4, reps=5, **kw)
 
 
 def config2_text_phase(dev, vocab: list[str], dirs: dict, n: int = 100_000, nq: int = 1000,
@@ -1867,9 +1919,8 @@ def config2_text_phase(dev, vocab: list[str], dirs: dict, n: int = 100_000, nq: 
     from lotus_tpu_torch import TorchVS
     from lotus_tpu_torch.models import TorchSentenceEncoderRM
     from lotus_tpu_torch.models.wordpiece import WordPieceTokenizer
-    from lotus_tpu_torch.ops import ivf_probe
     from lotus_tpu_torch.ops.io import read_meta
-    from lotus_tpu_torch.ops.ivf_probe import probe_fold, probe_fold_reference
+    from lotus_tpu_torch.ops.ivf_probe import probe_fold
 
     k = 5
     t0 = time.perf_counter()
@@ -1914,21 +1965,7 @@ def config2_text_phase(dev, vocab: list[str], dirs: dict, n: int = 100_000, nq: 
         say(f"    mean pairwise cosine of the right side {mean_cosine(right_emb)!r}")
     assert int(bl) > 0 and launches > 0, "config 2's store did not take K1"
     assert recall >= 0.95, f"config 2 through K1: recall@5 {recall} below 0.95"
-    # K1 against its plain version on the inputs this store gives it: the
-    # same call once more, the grouped probe folding through a recorder.
-    record, calls = recording(probe_fold_reference)
-    grouped = ivf_probe.ivf_search_grouped_probe
-    ivf_probe.ivf_search_grouped_probe = lambda *a, **kw: grouped(*a, **kw, fold=record)
-    try:
-        vs(left_emb[:nq], k)
-    finally:
-        ivf_probe.ivf_search_grouped_probe = grouped
-    for args, kw in calls:
-        compare(f"config 2 from text: the IVF store's {args[1].dtype} rows (bl {kw['bl']}, {args[1].shape[0]:,} "
-                f"storage rows), {nq:,} {args[0].dtype} queries, {'int8' if kw['int8_dot'] else 'float'} dot, "
-                f"{'packed' if kw['packed'] else 'unpacked'}", args, exact=kw["int8_dot"],
-                tol=2e-3 if kw["packed"] else 1e-4, reps=5, **kw)
-    assert calls, "config 2's store did not call K1's wrapper"
+    k1_store_compare("config 2 from text", vs, left_emb[:nq], k)
     every = list(range(n))
     t0 = time.perf_counter()
     joined = vs(left_emb, k, ids=every)
@@ -2012,9 +2049,481 @@ def profiling_phase(out_dir: str = os.path.join(REPO, "build", "lotus_tpu_torch"
     shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def text_phases(dev) -> tuple[int, int]:
-    """Phases 23-26 (the models, configs 1-2 from text, profiling).  Returns
-    K1's and K2's launches on their main paths."""
+# ---------------------------------------------------------------------------
+# Phase 27: the encoder families past BERT (M13) at published widths, from text
+# ---------------------------------------------------------------------------
+
+FAMILY_DIR = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_families")
+_XLMR = dict(model_type="xlm-roberta", num_hidden_layers=12, hidden_size=768, num_attention_heads=12,
+             intermediate_size=3072, vocab_size=250_002, max_position_embeddings=514, type_vocab_size=1,
+             layer_norm_eps=1e-5, pad_token_id=1, tokenizer="unigram")
+# Each model's published config.json widths, with seeded weights;
+# max_seq_length is the reference's default (flax_rm.py:48), but 128 for
+# all-roberta-large-v1, its model card's truncation length.
+FAMILY_MODELS = {
+    "multilingual-e5-base": dict(_XLMR, max_seq_length=512),
+    "bge-reranker-base": dict(_XLMR, num_labels=1, max_seq_length=512),
+    "all-roberta-large-v1": dict(model_type="roberta", num_hidden_layers=24, hidden_size=1024, num_attention_heads=16,
+                                 intermediate_size=4096, vocab_size=50_265, max_position_embeddings=514,
+                                 type_vocab_size=1, layer_norm_eps=1e-5, pad_token_id=1, tokenizer="bpe",
+                                 max_seq_length=128),
+    "msmarco-distilbert-base-v4": dict(model_type="distilbert", n_layers=6, dim=768, n_heads=12, hidden_dim=3072,
+                                       vocab_size=VOCAB_SIZE, max_position_embeddings=512, tokenizer="wordpiece",
+                                       max_seq_length=512),
+    "ms-marco-electra-base": dict(model_type="electra", num_hidden_layers=12, hidden_size=768, num_attention_heads=12,
+                                  intermediate_size=3072, embedding_size=768, vocab_size=VOCAB_SIZE,
+                                  max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12,
+                                  tokenizer="wordpiece", num_labels=1, max_seq_length=512),
+}
+# The seeded XLM-R tokenizer's charsmap: full-width letters, circled digits,
+# the ideographic space, a multi-character replacement and key.
+SMOKE_CHARSMAP = {
+    **{chr(0xFF21 + i): chr(0x41 + i) for i in range(26)}, **{chr(0xFF41 + i): chr(0x61 + i) for i in range(26)},
+    **{chr(0x2460 + i): str(i + 1) for i in range(9)}, "\u3000": " ", "\u337f": "\u682a\u5f0f\u4f1a\u793e",
+    "e\u0301": "\u00e9",
+}
+# Words the XLM-R docs mix in: accents, full-width letters and circled
+# digits (the charsmap), CJK, a combining mark, an emoji (unknown to the vocab).
+NON_ASCII = ["café", "naïve", "Ｆｕｌｌ", "①②", "日本語", "Über", "straße", "\U0001F600", "e\u0301t", "\u337f",
+             "ｗｉｄｅ", "中文"]
+
+
+def _added(tokens: list[tuple[str, int]], lstrip: str = "") -> list[dict]:
+    return [{"id": i, "content": t, "single_word": False, "lstrip": t == lstrip, "rstrip": False,
+             "normalized": False, "special": True} for t, i in tokens]
+
+
+def _template(cls_tok: str, cls_id: int, sep_tok: str, sep_id: int, double_sep: bool) -> dict:
+    def tok(t, type_id=0):
+        return {"SpecialToken": {"id": t, "type_id": type_id}}
+
+    def seq(name, type_id=0):
+        return {"Sequence": {"id": name, "type_id": type_id}}
+
+    second = 0 if double_sep else 1
+    pair = [tok(cls_tok), seq("A"), tok(sep_tok), *([tok(sep_tok)] if double_sep else []), seq("B", second),
+            tok(sep_tok, second)]
+    return {"type": "TemplateProcessing", "single": [tok(cls_tok), seq("A"), tok(sep_tok)], "pair": pair,
+            "special_tokens": {t: {"id": t, "ids": [i], "tokens": [t]}
+                               for t, i in ((cls_tok, cls_id), (sep_tok, sep_id))}}
+
+
+def unigram_spec(words: list[str], size: int, seed: int) -> dict:
+    """XLM-R's ``tokenizer.json`` (``XLMRobertaConverter``'s pipeline) over a
+    seeded Unigram vocabulary of ``size`` pieces: ``<s> <pad> </s> <unk>``,
+    ``▁`` + every whole word, the ``##`` pieces bare, single characters,
+    seeded fillers, ``<mask>`` last; scores seeded so that whole words win."""
+    import base64
+    import string
+
+    import numpy as np
+
+    from lotus_tpu_torch.models.charsmap import build_charsmap
+
+    rng = np.random.default_rng(seed)
+    pieces: dict[str, float] = {}
+    for w in words:
+        pieces.setdefault(w[2:] if w.startswith("##") else "▁" + w, -float(rng.uniform(8, 12)))
+    chars = string.ascii_letters + string.digits + string.punctuation + "▁éïüßÜ日本語中文株式会社"
+    for c in chars:
+        pieces.setdefault(c, -float(rng.uniform(12, 16)))
+    letters = np.array(list(string.ascii_lowercase))
+    while len(pieces) < size - 5:
+        lengths = rng.integers(2, 8, size - 5 - len(pieces))
+        for n in lengths:
+            pieces.setdefault(("▁" if rng.random() < 0.5 else "") + "".join(rng.choice(letters, n)),
+                              -float(rng.uniform(10, 15)))
+    specials = [("<s>", 0), ("<pad>", 1), ("</s>", 2), ("<unk>", 3), ("<mask>", size - 1)]
+    vocab = [[t, 0.0] for t, _ in specials[:4]] + [[p, sc] for p, sc in pieces.items()] + [["<mask>", 0.0]]
+    assert len(vocab) == size
+    return {
+        "version": "1.0", "added_tokens": _added(specials, lstrip="<mask>"),
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Replace", "pattern": {"String": "``"}, "content": '"'},
+            {"type": "Replace", "pattern": {"String": "''"}, "content": '"'},
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(build_charsmap(SMOKE_CHARSMAP)).decode()},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True},
+        "post_processor": _template("<s>", 0, "</s>", 2, double_sep=True),
+        "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab, "byte_fallback": False},
+    }
+
+
+def bpe_spec(words: list[str], size: int) -> dict:
+    """RoBERTa's ``tokenizer.json`` (byte-level BPE) with ``size`` tokens:
+    ``<s> <pad> </s> <unk>``, the 256 byte characters, then the merges that
+    build each word left to right (``Ġ`` + word, for every word in the
+    seeded order, then the bare words) until the vocabulary is full, each
+    merge's result in the vocabulary, and ``<mask>`` last."""
+    from lotus_tpu_torch.models.bpe import bytes_to_unicode
+
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for c in bytes_to_unicode().values():
+        vocab.setdefault(c, len(vocab))
+    merges = []
+    forms = ["Ġ" + w for w in words] + list(words)
+    for form in forms:
+        for k in range(1, len(form)):
+            if len(vocab) >= size - 1:
+                break
+            if form[: k + 1] not in vocab:
+                merges.append([form[:k], form[k]])
+                vocab[form[: k + 1]] = len(vocab)
+    vocab["<mask>"] = len(vocab)
+    assert len(vocab) == size
+    specials = [(t, vocab[t]) for t in ("<s>", "<pad>", "</s>", "<unk>", "<mask>")]
+    return {
+        "version": "1.0", "added_tokens": _added(specials, lstrip="<mask>"), "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": True},
+        "post_processor": {"type": "RobertaProcessing", "sep": ["</s>", 2], "cls": ["<s>", 0], "trim_offsets": True,
+                           "add_prefix_space": False},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "", "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+def wordpiece_spec(vocab: list[str]) -> dict:
+    """BERT's ``tokenizer.json`` (what ``DistilBertTokenizerFast`` and
+    ``ElectraTokenizerFast`` save) over phase 23's vocabulary."""
+    ids = {t: i for i, t in enumerate(vocab)}
+    specials = [(t, ids[t]) for t in ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")]
+    return {
+        "version": "1.0", "added_tokens": _added(specials),
+        "normalizer": {"type": "BertNormalizer", "clean_text": True, "handle_chinese_chars": True,
+                       "strip_accents": None, "lowercase": True},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": _template("[CLS]", ids["[CLS]"], "[SEP]", ids["[SEP]"], double_sep=False),
+        "model": {"type": "WordPiece", "unk_token": "[UNK]", "continuing_subword_prefix": "##",
+                  "max_input_chars_per_word": 100, "vocab": ids},
+    }
+
+
+def write_family_models(vocab: list[str], dev, seed: int = 10) -> dict[str, str]:
+    """One checkpoint directory per FAMILY_MODELS entry under FAMILY_DIR:
+    ``config.json`` (the family's keys), ``tokenizer.json`` (generated here:
+    seeded Unigram, seeded BPE merges or phase 23's WordPiece vocabulary),
+    ``tokenizer_config.json`` and ``model.safetensors`` with weights drawn as
+    the initialiser draws them (N(0, 0.02), biases 0, LayerNorm 1 / 0), made
+    on ``dev``.  Returns the directories."""
+    import torch
+
+    from lotus_tpu_torch.models.checkpoint import encoder_config, new_module
+
+    words = [w for w in vocab if not w.startswith("[")]
+    specs = {}
+    dirs = {}
+    for i, (name, shape) in enumerate(FAMILY_MODELS.items()):
+        d = os.path.join(FAMILY_DIR, name)
+        os.makedirs(d, exist_ok=True)
+        config = {k: v for k, v in shape.items() if k not in ("tokenizer", "max_seq_length", "num_labels")}
+        if shape["model_type"] != "distilbert":
+            config.update(hidden_act="gelu", position_embedding_type="absolute")
+        else:
+            config.update(activation="gelu", sinusoidal_pos_embds=False)
+        if "num_labels" in shape:
+            config["id2label"] = {str(j): f"LABEL_{j}" for j in range(shape["num_labels"])}
+        kind = shape["tokenizer"]
+        if kind not in specs:
+            specs[kind] = {"unigram": lambda: unigram_spec(words, shape["vocab_size"], seed),
+                           "bpe": lambda: bpe_spec([w for w in words if w.isalpha()], shape["vocab_size"]),
+                           "wordpiece": lambda: wordpiece_spec(vocab)}[kind]()
+        tok_config = {"pad_token": "[PAD]", "do_lower_case": True} if kind == "wordpiece" else {"pad_token": "<pad>"}
+        for fname, obj in (("config.json", config), ("tokenizer.json", specs[kind]),
+                           ("tokenizer_config.json", tok_config)):
+            with open(os.path.join(d, fname), "w", encoding="utf-8") as f:
+                json.dump(obj, f)
+        with torch.device(dev):
+            module = new_module(encoder_config(config), classifier="num_labels" in shape)
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        with torch.no_grad():
+            for pname, p in module.named_parameters():
+                if "LayerNorm" in pname or "layer_norm" in pname:
+                    p.fill_(1.0 if pname.endswith("weight") else 0.0)
+                elif pname.endswith("bias"):
+                    p.zero_()
+                else:
+                    p.copy_(0.02 * torch.randn(p.shape, generator=g, device=dev))
+        write_safetensors(os.path.join(d, "model.safetensors"), module.state_dict())
+        dirs[name] = d
+        del module
+    return dirs
+
+
+def multilingual(texts: list[str], seed: int, share: float = 0.15) -> list[str]:
+    """``texts`` with a seeded ``share`` of their words swapped for NON_ASCII
+    ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in texts:
+        ws = t.split()
+        out.append(" ".join(NON_ASCII[rng.integers(len(NON_ASCII))] if rng.random() < share else w for w in ws))
+    return out
+
+
+def families_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 64, n_large: int = 16) -> None:
+    """Phase 27a: each family model through its entry point on the card and
+    on the CPU in f32 (``n_docs`` docs of mixed length in four sequence
+    buckets, ``n_large`` for RoBERTa-large; multilingual text for XLM-R):
+    embeddings within 1e-4, reranker scores within 1e-4 * (1 + |s|); bf16
+    against f32 on the card for the RMs: smallest cosine at least 0.99."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
+    from lotus_tpu_torch.models.torch_rm import bucketed_batches
+
+    for name, d in dirs.items():
+        shape = FAMILY_MODELS[name]
+        n = n_large if name == "all-roberta-large-v1" else n_docs
+        quarter = n // 4
+        docs = [t for i, (lo, hi) in enumerate(((3, 10), (11, 24), (25, 50), (51, 100)))
+                for t in synth_texts(vocab, quarter, lo, hi, 80 + i)]
+        if shape["model_type"] == "xlm-roberta":
+            docs = multilingual(docs, 85)
+        seq = shape["max_seq_length"]
+        kw = dict(model=d, max_batch_size=16, max_seq_length=seq)
+        t0 = time.perf_counter()
+        if "num_labels" in shape:
+            queries = synth_texts(vocab, 4, 3, 9, 86)
+            card_rr, cpu_rr = TorchCrossEncoderReranker(device=dev, **kw), TorchCrossEncoderReranker(device="cpu", **kw)
+            got, want = (np.concatenate([rr.score_pairs(q, docs[i * quarter : (i + 1) * quarter])
+                                         for i, q in enumerate(queries)]) for rr in (card_rr, cpu_rr))
+            err = float(np.abs(got - want).max())
+            ok = bool((np.abs(got - want) <= 1e-4 * (1 + np.abs(want))).all())
+            say(f"  {name} ({shape['model_type']}, TorchCrossEncoderReranker, f32): {len(got)} pair scores on the "
+                f"card vs the CPU: max abs err {err!r} (tol 1e-4*(1+|s|)) -> {'OK' if ok else 'MISMATCH'}; scores "
+                f"{float(want.min())!r}..{float(want.max())!r}; {time.perf_counter() - t0:.2f} s [{GPU}]")
+            assert ok and bool(np.isfinite(got).all()), f"{name}: the card's scores differ from the CPU's"
+            del card_rr, cpu_rr
+            continue
+        card_rm = TorchSentenceEncoderRM(device=dev, **kw)
+        got = card_rm(docs)
+        want = TorchSentenceEncoderRM(device="cpu", **kw)(docs)
+        bf16 = TorchSentenceEncoderRM(device=dev, dtype=torch.bfloat16, **kw)(docs)
+        err = float(np.abs(got - want).max())
+        cos = float(np.sum(bf16 * got, axis=1).min())
+        buckets = sorted({a.shape[1] for _, a, _ in bucketed_batches(card_rm.tokenizer, docs, None, 16, seq, "cpu")})
+        width = shape.get("hidden_size", shape.get("dim"))
+        say(f"  {name} ({shape['model_type']}, TorchSentenceEncoderRM, f32, buckets {buckets}): {got.shape} "
+            f"embeddings on the card vs the CPU: max abs err {err!r} (tol 1e-4) -> {'OK' if err <= 1e-4 else 'MISMATCH'}"
+            f"; bf16 on the card vs f32 on the card: smallest cosine {cos!r} (must reach 0.99); "
+            f"{time.perf_counter() - t0:.2f} s [{GPU}]")
+        assert got.shape == (n, width) and bool(np.isfinite(got).all())
+        assert err <= 1e-4, f"{name}: the card's embeddings differ from the CPU's"
+        assert cos >= 0.99, f"{name}: bf16 embeddings drift from f32 (cosine {cos})"
+        del card_rm
+
+
+def print_tokenizer(label: str, texts: list[str], fig: dict) -> None:
+    """How the tokenizer's host time scales: words, tokens a word, and host
+    microseconds a word and a token."""
+    words = sum(len(t.split()) for t in texts)
+    say(f"    {label} tokenizer: {words:,} words -> {fig['real']:,} tokens ({fig['real'] / words:.3f} a word, "
+        f"truncation included); {1e6 * fig['tokenize_s'] / words:.3f} us a word, "
+        f"{1e6 * fig['tokenize_s'] / fig['real']:.3f} us a token on the host")
+
+
+def xlmr_phase(dev, vocab: list[str], dirs: dict, n: int = 65_536, nq: int = 1000, nlist: int = 128,
+               n_rerank_q: int = 16, top: int = 100) -> int:
+    """Phase 27b, XLM-R at multilingual-e5-base widths: ``n`` of config 2's
+    docs (8-48 words, a share of them multilingual) through
+    ``TorchSentenceEncoderRM`` in bf16 at max_batch_size 64, a
+    ``TorchVS(index_type="ivf", nlist=128, device_dtype="int8")`` store
+    (``n`` >= 512 * nlist, so it is block-aligned and K1 serves it); ``nq``
+    left-side queries: recall@5 at least 0.95 against exact f32, K1 held to
+    its plain version on the call's own inputs; then the bge-reranker-base
+    widths in bf16 over the top ``top`` of ``n_rerank_q`` queries.  Returns
+    K1's launches."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
+    from lotus_tpu_torch.ops.io import read_meta
+    from lotus_tpu_torch.ops.ivf_probe import probe_fold
+
+    k = 5
+    t0 = time.perf_counter()
+    right = multilingual(synth_texts(vocab, n, 8, 48, 61, per_topic=k), 62, share=0.05)
+    left = multilingual(synth_texts(vocab, n, 8, 48, 60, per_topic=k)[:nq], 63, share=0.05)
+    say(f"  {n:,} docs + {nq:,} queries of 8-48 words (5% of words non-ASCII) made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rm = TorchSentenceEncoderRM(model=dirs["multilingual-e5-base"], max_batch_size=CONFIG2_BATCH,
+                                dtype=torch.bfloat16, device=dev)
+    right_emb, fig = encode_split(rm, right)
+    print_split(f"multilingual-e5-base (XLM-R) bf16, max_batch_size {CONFIG2_BATCH}", n, fig, BF16_OPS_PER_S,
+                "989 TFLOP/s bf16")
+    print_tokenizer("Unigram + charsmap", right, fig)
+    left_emb = rm(left)
+    index_dir = os.path.join(TEXT_INDEX_DIR, "xlmr")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    vs = TorchVS(index_type="ivf", nlist=nlist, device_dtype="int8", device=dev)
+    t0 = time.perf_counter()
+    vs.index(right, right_emb, index_dir)
+    index_s = time.perf_counter() - t0
+    bl = read_meta(index_dir)["block_align"]
+    right_t, left_t = torch.from_numpy(right_emb).to(dev), torch.from_numpy(left_emb).to(dev)
+    gt = exact_topk(left_t, right_t, k).tolist()
+    vs(left_emb[:8], k)  # loads the store
+    probe_fold.launches = 0  # this path's launches
+    t0 = time.perf_counter()
+    out = vs(left_emb, k)
+    probe_ms = 1e3 * (time.perf_counter() - t0)
+    launches = probe_fold.launches
+    recall = float(sum(len(set(a) & set(b)) for a, b in zip(out.indices, gt)) / (k * nq))
+    say(f"  TorchVS(index_type='ivf', nlist {nlist}, int8) over {n:,} x {right_emb.shape[1]}: index() {index_s:.3f} s; "
+        f"block_align {bl}; {nq:,} queries (nprobe {vs.nprobe}): recall@{k} {recall!r} vs exact f32, "
+        f"{probe_ms:.3f} ms (host clock); K1 launches {launches}; routes {vs.stats['routes']}; mean pairwise cosine "
+        f"{mean_cosine(right_emb)!r} [{GPU}]")
+    width = FAMILY_MODELS["multilingual-e5-base"]["hidden_size"]
+    assert bool(np.isfinite(right_emb).all()) and right_emb.shape == (n, width), "XLM-R embeddings"
+    assert int(bl) > 0 and launches > 0, "the XLM-R store did not take K1"
+    assert recall >= 0.95, f"XLM-R through K1: recall@5 {recall} below 0.95"
+    k1_store_compare("XLM-R from text", vs, left_emb, k)
+    del rm
+
+    rr = TorchCrossEncoderReranker(model=dirs["bge-reranker-base"], dtype=torch.bfloat16, device=dev)
+    cands = vs(left_emb[:n_rerank_q], top).indices
+    rr(left[0], [right[i] for i in cands[0]], K)  # warm
+    sync(dev)
+    t0 = time.perf_counter()
+    orders = [rr(left[q], [right[i] for i in cands[q]], K).indices for q in range(n_rerank_q)]
+    rr_s = time.perf_counter() - t0
+    pairs = n_rerank_q * top
+    say(f"  bge-reranker-base (XLM-R, 1 label) bf16, max_batch_size 64, over the top {top} of {n_rerank_q} queries: "
+        f"{pairs:,} pairs in {rr_s:.3f} s = {pairs / rr_s:,.1f} pairs/s (host clock) [{GPU}]")
+    assert all(len(o) == K and len(set(o)) == K for o in orders), "the XLM-R reranker's orders"
+    shutil.rmtree(index_dir, ignore_errors=True)
+    return launches
+
+
+def summation_ties(q, rows, got, gt) -> tuple[list[tuple[int, int, float]], int]:
+    """The ids of ``got`` (each query's top k from an exact f32 search)
+    outside ``gt`` (the f32 oracle's), as (query, id, gap as a share of its
+    bound), and how many of them are not a tie.  A tie is an id whose f64
+    score lies within sqrt(d) * 2**-24 * sum(|q_i x_i|) of the oracle's k-th
+    (f64 too): the rounding error of an f32 dot product of d terms, summed
+    in an order its kernel picks (a GEMV one query a call against the
+    oracle's GEMM), grows as sqrt(d) times the unit roundoff times that
+    sum, so two such sums cannot order scores closer than that."""
+    exempt = []
+    d = rows.shape[1]
+    for i, (a, b) in enumerate(zip(got, gt)):
+        extra = [j for j in a if j not in set(b)]
+        if not extra:
+            continue
+        qd = q[i].double()
+        kth = float(rows[b[-1]].double() @ qd)
+        for j in extra:
+            x = rows[j].double()
+            bound = d**0.5 * 2.0**-24 * float((qd * x).abs().sum())
+            exempt.append((i, j, abs(kth - float(x @ qd)) / bound))
+    return exempt, sum(share > 1.0 for _, _, share in exempt)
+
+
+def roberta_large_phase(dev, vocab: list[str], dirs: dict, n: int = 10_000, nq: int = 256,
+                        top: int = 100) -> tuple[int, tuple]:
+    """Phase 27c, RoBERTa at all-roberta-large-v1 widths: config 1's ``n``
+    passages (150-300 words) through ``TorchSentenceEncoderRM`` in bf16, a
+    Flat store over the 1024-d embeddings; ``nq`` queries with ids = every
+    row, one a call (recall@10 1.0 against exact f32: an id outside the
+    oracle's top 10 must be a summation tie, ``summation_ties``) and without ids
+    under ``scan="pallas"`` (K2 at d 1024: recall@10 at least 0.98), K2 held
+    to its plain version on the call's own inputs and timed beside its bound.
+    Returns K2's launches and its (max_abs_err, ms, plain ms, bound ms,
+    bound_by) at d 1024."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+    from lotus_tpu_torch.ops.flat_scan import scan_fold
+
+    t0 = time.perf_counter()
+    passages = synth_texts(vocab, n, 150, 300, 50, per_topic=K)
+    queries = [" ".join(np.random.default_rng(51 + i).choice(passages[j].split()[:40], 12))
+               for i, j in enumerate(np.random.default_rng(52).integers(0, n, nq))]
+    say(f"  {n:,} passages of 150-300 words, {nq} queries of 12 words from a passage's first 40; made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    seq = FAMILY_MODELS["all-roberta-large-v1"]["max_seq_length"]
+    rm = TorchSentenceEncoderRM(model=dirs["all-roberta-large-v1"], max_seq_length=seq, dtype=torch.bfloat16,
+                                device=dev)
+    emb, fig = encode_split(rm, passages)
+    print_split(f"all-roberta-large-v1 (RoBERTa) bf16, max_batch_size 64, max_seq_length {seq}", n, fig,
+                BF16_OPS_PER_S, "989 TFLOP/s bf16")
+    print_tokenizer("byte-level BPE", passages, fig)
+    index_dir = os.path.join(TEXT_INDEX_DIR, "roberta")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    vs = TorchVS(index_type="flat", device=dev)
+    vs.index(passages, emb, index_dir)
+    qv = rm.convert_query_to_query_vector(queries)
+    emb_t, qv_t = torch.from_numpy(emb).to(dev), torch.from_numpy(qv).to(dev)
+    gt = exact_topk(qv_t, emb_t, K).tolist()
+    every = list(range(n))
+    vs(qv[:1], K, ids=every)  # loads the store
+    got = [vs(qv[i : i + 1], K, ids=every).indices[0] for i in range(nq)]
+    ids_recall = recall_at(got, gt)
+    outside, untied = summation_ties(qv_t, emb_t, got, gt)
+    k2 = TorchVS(index_type="flat", scan="pallas", device=dev)
+    k2.load_index(index_dir)
+    k2(qv[:8], K)  # loads the store
+    scan_fold.launches = 0  # this path's launches
+    out = k2(qv, top)
+    launches = scan_fold.launches
+    k2_recall = recall_at([row[:K] for row in out.indices], gt)
+    say(f"  TorchVS(index_type='flat') over {n:,} x {emb.shape[1]}: with ids = every row, one query a call: "
+        f"recall@{K} {ids_recall!r} vs exact f32 ({len(outside)} ids outside the oracle's top {K}, as (query, id, "
+        f"gap over its sqrt(d) bound): {outside!r}; {untied} of them not a summation tie); without ids, "
+        f"scan='pallas' (K2 at d {emb.shape[1]}), "
+        f"{nq} queries "
+        f"at k {top}: recall@{K} {k2_recall!r}; K2 launches {launches}; mean pairwise cosine {mean_cosine(emb)!r} "
+        f"[{GPU}]")
+    width = FAMILY_MODELS["all-roberta-large-v1"]["hidden_size"]
+    assert bool(np.isfinite(emb).all()) and emb.shape == (n, width), "RoBERTa-large embeddings"
+    assert untied == 0, f"RoBERTa-large with ids: recall@10 {ids_recall}, {untied} ids outside the exact top 10 untied"
+    assert launches > 0, "the scan='pallas' store did not launch K2"
+    assert k2_recall >= 0.98, f"RoBERTa-large through K2: recall@10 {k2_recall} below 0.98"
+    (err, ms, plain_ms), args = k2_store_compare("RoBERTa-large from text", k2, qv, top)[0]
+    xq, xb = args[0], args[1]
+    b_, n_, d_ = xq.shape[0], int(args[2]), xb.shape[1]
+    need = n_ * d_ * xb.element_size() + b_ * d_ * xq.element_size() + b_ * 256 * 8
+    t_bytes, t_ops = need / HBM_BYTES_PER_S, 2.0 * b_ * n_ * d_ / BF16_OPS_PER_S
+    bound = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    say(f"  K2 at d {d_} ({b_} x {n_:,} x {d_}, {xb.dtype} rows): {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
+        f"{bound[0]:.4f} ms ({bound[1]}), K2 at {100 * bound[0] / ms:.1f}% of it [{GPU}]")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    return launches, (err, ms, plain_ms, *bound)
+
+
+def families_phases(dev, vocab: list[str]) -> tuple[int, int, tuple]:
+    """Phase 27: the checkpoints written, card against CPU, XLM-R through
+    K1, RoBERTa-large through K2; the files deleted.  Returns K1's and K2's
+    launches and K2's figures at d 1024."""
+    with Phase("the encoder families at published widths (seeded weights): card against CPU, bf16 against f32"):
+        t_phase = time.perf_counter()
+        t0 = time.perf_counter()
+        shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+        dirs = write_family_models(vocab, dev)
+        size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(FAMILY_DIR) for f in fs)
+        say(f"  {len(dirs)} checkpoints ({size / 1e9:.3f} GB: model.safetensors, config.json, tokenizer.json) written "
+            f"in {time.perf_counter() - t0:.2f} s under {os.path.relpath(FAMILY_DIR, REPO)}")
+        families_phase(dev, vocab, dirs)
+    with Phase("XLM-R (multilingual-e5-base widths) from text: IVF int8, K1; bge-reranker-base widths"):
+        k1 = xlmr_phase(dev, vocab, dirs)
+    with Phase("RoBERTa (all-roberta-large-v1 widths) from text: Flat, K2 at d 1024"):
+        k2, k2_d1024 = roberta_large_phase(dev, vocab, dirs)
+    shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+    say(f"  phase 27: {time.perf_counter() - t_phase:.1f} s wall [{GPU}]")
+    return k1, k2, k2_d1024
+
+
+def text_phases(dev) -> tuple[int, int, int, tuple]:
+    """Phases 23-27 (the models, configs 1-2 from text, profiling, the
+    families past BERT).  Returns K1's and K2's launches on their main
+    paths, phase 27's K2 launches and K2's figures at d 1024."""
     with Phase("models at published widths (seeded weights): card against CPU, bf16 against f32"):
         t0 = time.perf_counter()
         vocab = smoke_vocab()
@@ -2032,8 +2541,9 @@ def text_phases(dev) -> tuple[int, int]:
     with Phase("profiling (profiling.trace in a child process)"):
         profiling_phase()
     shutil.rmtree(MODELS_DIR, ignore_errors=True)
+    fam_k1, fam_k2, k2_d1024 = families_phases(dev, vocab)
     shutil.rmtree(TEXT_INDEX_DIR, ignore_errors=True)
-    return k1, k2
+    return k1 + fam_k1, k2 + fam_k2, fam_k2, k2_d1024
 
 
 def config4_paths(dev) -> dict:
@@ -2448,17 +2958,19 @@ def main() -> int:
     del corpus, xb16, x8, s8, q8, fq, qb, vs
     torch.cuda.empty_cache()
 
-    text_k1, text_k2 = text_phases(dev)
+    text_k1, text_k2, d1024_k2, k2_d1024 = text_phases(dev)
 
     peak_all = max(PEAK_SEEN, torch.cuda.max_memory_allocated())
     say(f"total {time.perf_counter() - t_all:.1f} s; peak {peak_all / 2**30:.2f} GiB [{GPU}]")
     f16_ivf, d770_ivf, f16_flat = q3.values()
-    variants = [  # the variants this slice added, each timed at its phase-4 or phase-13 shape
+    variants = [  # the variants later slices added, each timed at its phase-4, -13 or -27 shape
         ("ivf_probe (K1), f16 rows under f32 queries", "ivf_probe.cu", "pallas_ivf.py:235", f16_ivf,
          c4["new_variants"]["K1 f16"]),
         ("ivf_probe (K1), int8 dot at d 770", "ivf_probe.cu", "pallas_ivf.py:235", d770_ivf,
          c4["new_variants"]["K1 int8 d770"]),
         ("flat_scan (K2), f16 rows", "flat_scan.cu", "pallas_flat.py:42", f16_flat, (*k2_f16, *k2_bounds["f16"])),
+        ("flat_scan (K2), f32 rows at d 1024 (RoBERTa-large store, phase 27)", "flat_scan.cu", "pallas_flat.py:42",
+         d1024_k2, k2_d1024),
     ]
     main_err, main_ms, main_plain_ms, main_bound, main_by = c4["k1"]
     print(json.dumps({"kernels": [

@@ -10,6 +10,10 @@ the residual plus LayerNorm, the intermediate dense with the exact erf GELU,
 the output dense plus the residual plus LayerNorm; the pooler's dense and
 tanh on ``[CLS]``; the classifier on the pooled row.  Plain ``nn.Linear``,
 ``torch.matmul`` and ``softmax``: no fused attention.
+
+``EncoderConfig`` reads a ``config.json`` for every family; RoBERTa
+(``roberta.py``) and ELECTRA (``electra.py``) run these layers under their
+own embeddings and heads.
 """
 
 from __future__ import annotations
@@ -18,15 +22,47 @@ import json
 import math
 import os
 from dataclasses import dataclass
+from typing import ClassVar
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
+class EncoderConfig:
+    """What every family's config shares: it is read from ``config.json``,
+    whose ``model_type`` must be one of ``model_types`` and whose activation
+    (under ``activation_key``) the exact GELU; the dataclass fields are read
+    under their own names, and ``num_labels`` from ``id2label``."""
+
+    model_types: ClassVar[tuple[str, ...]] = ()
+    activation_key: ClassVar[str] = "hidden_act"
+
+    @classmethod
+    def from_dict(cls, cfg: dict):
+        """Read a ``config.json``; another model type, or any activation but
+        the exact GELU, raises ``NotImplementedError``."""
+        model_type = cfg.get("model_type", cls.model_types[0])
+        if model_type not in cls.model_types:
+            raise NotImplementedError(f"model_type {model_type!r}: {cls.__name__} reads {', '.join(cls.model_types)}")
+        for key, want in ((cls.activation_key, "gelu"), ("position_embedding_type", "absolute")):
+            if cfg.get(key, want) != want:
+                raise NotImplementedError(f"{key} {cfg[key]!r}: the port runs {want!r} only")
+        num_labels = len(cfg["id2label"]) if "id2label" in cfg else cfg.get("num_labels", 2)
+        fields = {k: cfg[k] for k in cls.__dataclass_fields__ if k in cfg and k != "num_labels"}
+        return cls(**fields, num_labels=int(num_labels))
+
+    @classmethod
+    def from_dir(cls, path: str):
+        with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+            return cls.from_dict(json.load(f))
+
+
 @dataclass(frozen=True)
-class BertConfig:
+class BertConfig(EncoderConfig):
     """The fields of a BERT ``config.json`` the forward reads."""
+
+    model_types: ClassVar[tuple[str, ...]] = ("bert",)
 
     vocab_size: int
     hidden_size: int = 768
@@ -38,36 +74,31 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     num_labels: int = 2
 
-    @classmethod
-    def from_dict(cls, cfg: dict) -> "BertConfig":
-        """Read a ``config.json``; any model type but ``"bert"``, and any
-        activation but the exact GELU, raises ``NotImplementedError``."""
-        model_type = cfg.get("model_type", "bert")
-        if model_type != "bert":
-            raise NotImplementedError(f"model_type {model_type!r}: the port runs BERT checkpoints only")
-        for key, want in (("hidden_act", "gelu"), ("position_embedding_type", "absolute")):
-            if cfg.get(key, want) != want:
-                raise NotImplementedError(f"{key} {cfg[key]!r}: the port runs {want!r} only")
-        num_labels = len(cfg["id2label"]) if "id2label" in cfg else cfg.get("num_labels", 2)
-        fields = {k: cfg[k] for k in cls.__dataclass_fields__ if k in cfg and k != "num_labels"}
-        return cls(**fields, num_labels=int(num_labels))
 
-    @classmethod
-    def from_dir(cls, path: str) -> "BertConfig":
-        with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
-            return cls.from_dict(json.load(f))
+def mask_bias(attention_mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Flax BERT's additive bias, (b, 1, 1, s): 0 where the mask is set,
+    ``finfo(dtype).min`` elsewhere."""
+    bias = torch.zeros(attention_mask.shape, dtype=dtype, device=attention_mask.device)
+    return bias.masked_fill(attention_mask == 0, torch.finfo(dtype).min)[:, None, None, :]
 
 
 class BertEmbeddings(nn.Module):
-    def __init__(self, cfg: BertConfig):
-        super().__init__()
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+    """Word + token-type + position embeddings and LayerNorm, ``width``
+    wide (the hidden size, or ELECTRA's ``embedding_size``)."""
 
-    def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor) -> torch.Tensor:
-        positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+    def __init__(self, cfg: BertConfig, width: int | None = None):
+        super().__init__()
+        width = width or cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, width)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, width)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, width)
+        self.LayerNorm = nn.LayerNorm(width, eps=cfg.layer_norm_eps)
+
+    def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
+                positions: torch.Tensor | None = None) -> torch.Tensor:
+        """``positions`` (b, s) default to 0, 1, ... in every row."""
+        if positions is None:
+            positions = torch.arange(input_ids.shape[1], device=input_ids.device)
         x = self.word_embeddings(input_ids) + self.token_type_embeddings(token_type_ids)
         return self.LayerNorm(x + self.position_embeddings(positions))
 
@@ -158,27 +189,33 @@ class BertModel(nn.Module):
     ``add_pooling_layer=False`` leaves out the pooler (an embedding model
     does not read it, and some checkpoints do not carry it)."""
 
+    base_model_prefix = "bert"
+    embeddings_cls = BertEmbeddings
+    absent_token_type = 0  # the segment Flax gives every token when the caller passes no token_type_ids
+
     def __init__(self, cfg: BertConfig, add_pooling_layer: bool = True):
         super().__init__()
         self.config = cfg
-        self.embeddings = BertEmbeddings(cfg)
+        self.embeddings = self.embeddings_cls(cfg)
         self.encoder = BertEncoder(cfg)
         self.pooler = BertPooler(cfg) if add_pooling_layer else None
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: torch.Tensor | None = None) -> torch.Tensor:
         if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
-        x = self.embeddings(input_ids, token_type_ids)
-        # Flax's additive bias: 0 where the mask is set, finfo(dtype).min elsewhere.
-        bias = torch.zeros(attention_mask.shape, dtype=x.dtype, device=x.device)
-        bias = bias.masked_fill(attention_mask == 0, torch.finfo(x.dtype).min)[:, None, None, :]
-        return self.encoder(x, bias)
+            token_type_ids = torch.full_like(input_ids, self.absent_token_type)
+        x = self.embed(input_ids, token_type_ids)
+        return self.encoder(x, mask_bias(attention_mask, x.dtype))
+
+    def embed(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor) -> torch.Tensor:
+        return self.embeddings(input_ids, token_type_ids)
 
 
 class BertForSequenceClassification(nn.Module):
     """The encoder, its pooler and ``classifier``: ``forward`` gives the
     logits (b, num_labels)."""
+
+    base_model_prefix = "bert"
 
     def __init__(self, cfg: BertConfig):
         super().__init__()

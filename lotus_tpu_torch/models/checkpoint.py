@@ -1,11 +1,16 @@
-"""BERT checkpoint directories without ``transformers`` or ``safetensors``.
+"""Checkpoint directories of the encoder families without ``transformers``,
+``safetensors`` or ``msgpack``.
 
 A directory holds ``config.json`` and its weights in ``model.safetensors``
 (read here: an 8-byte little-endian header length, a JSON header, raw
-little-endian buffers) or ``pytorch_model.bin`` (``torch.load`` with
-``weights_only=True``).  A directory with only ``flax_model.msgpack`` raises:
-the port has no msgpack reader.  ``from_flax_params`` carries the JAX
-package's parameters across as a state dict under Hugging Face's torch names.
+little-endian buffers), ``pytorch_model.bin`` (``torch.load`` with
+``weights_only=True``) or ``flax_model.msgpack`` (``msgpack.py``, its leaves
+renamed by ``flax_state_dict``), in that order.  ``FAMILIES`` maps each
+``model_type`` the port runs to its config and modules; ``fit_state_dict``
+loads any of the three by name, with or without the family's prefix
+(``bert.``, ``roberta.``, ``distilbert.``, ``electra.``), and drops the heads
+the module has no place for (a pretraining head, as most public Flax files
+carry: ``lm_head``, ``cls``, ``discriminator_predictions``).
 """
 
 from __future__ import annotations
@@ -19,9 +24,48 @@ import numpy as np
 import torch
 from torch import nn
 
-from lotus_tpu_torch.models.bert import BertConfig, BertForSequenceClassification, BertModel
+from lotus_tpu_torch.models.bert import BertConfig, BertForSequenceClassification, BertModel, EncoderConfig
+from lotus_tpu_torch.models.distilbert import DistilBertConfig, DistilBertForSequenceClassification, DistilBertModel
+from lotus_tpu_torch.models.electra import ElectraConfig, ElectraForSequenceClassification, ElectraModel
+from lotus_tpu_torch.models.msgpack import read_flax_msgpack
+from lotus_tpu_torch.models.roberta import RobertaConfig, RobertaForSequenceClassification, RobertaModel
 
 SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16, "I64": torch.int64}
+# model_type -> (config, encoder, sequence classifier): the families
+# FlaxAutoModel and FlaxAutoModelForSequenceClassification load that the
+# port runs.
+FAMILIES: dict[str, tuple[type[EncoderConfig], type[nn.Module], type[nn.Module]]] = {
+    "bert": (BertConfig, BertModel, BertForSequenceClassification),
+    "roberta": (RobertaConfig, RobertaModel, RobertaForSequenceClassification),
+    "xlm-roberta": (RobertaConfig, RobertaModel, RobertaForSequenceClassification),
+    "distilbert": (DistilBertConfig, DistilBertModel, DistilBertForSequenceClassification),
+    "electra": (ElectraConfig, ElectraModel, ElectraForSequenceClassification),
+}
+_POOLED = (BertModel, RobertaModel)  # the encoders that carry a pooler unless told not to
+
+
+def encoder_config(cfg: dict) -> EncoderConfig:
+    """The family config of a parsed ``config.json``; a ``model_type`` the
+    port does not run raises ``NotImplementedError`` naming it."""
+    model_type = cfg.get("model_type", "bert")
+    if model_type not in FAMILIES:
+        raise NotImplementedError(f"model_type {model_type!r}: the port runs {', '.join(sorted(FAMILIES))} "
+                                  f"checkpoints")
+    return FAMILIES[model_type][0].from_dict(cfg)
+
+
+def read_config(model_dir: str) -> EncoderConfig:
+    with open(os.path.join(model_dir, "config.json"), encoding="utf-8") as f:
+        return encoder_config(json.load(f))
+
+
+def new_module(config: EncoderConfig, classifier: bool = False, pooler: bool = False) -> nn.Module:
+    """The family's encoder (with a pooler where it has one and ``pooler``)
+    or sequence classifier for ``config``, on the current default device."""
+    encoder, seq_cls = next(f[1:] for f in FAMILIES.values() if f[0] is type(config))
+    if classifier:
+        return seq_cls(config)
+    return encoder(config, add_pooling_layer=pooler) if encoder in _POOLED else encoder(config)
 
 
 def read_safetensors(path: str) -> dict[str, torch.Tensor]:
@@ -47,46 +91,39 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
 
 
 def load_state_dict(model_dir: str) -> dict[str, torch.Tensor]:
-    """The weights of a checkpoint directory, by their names in the file."""
+    """The weights of a checkpoint directory, by their names in the file
+    (a Flax checkpoint's renamed as the port's, ``flax_state_dict``)."""
     st = os.path.join(model_dir, "model.safetensors")
     if os.path.exists(st):
         return read_safetensors(st)
     pt = os.path.join(model_dir, "pytorch_model.bin")
     if os.path.exists(pt):
         return torch.load(pt, map_location="cpu", weights_only=True)
-    if os.path.exists(os.path.join(model_dir, "flax_model.msgpack")):
-        raise NotImplementedError(f"{model_dir} holds only flax_model.msgpack; the port reads model.safetensors "
-                                  f"or pytorch_model.bin")
-    raise FileNotFoundError(f"{model_dir}: no model.safetensors or pytorch_model.bin")
+    fx = os.path.join(model_dir, "flax_model.msgpack")
+    if os.path.exists(fx):
+        return flax_state_dict(read_flax_msgpack(fx))
+    raise FileNotFoundError(f"{model_dir}: no model.safetensors, pytorch_model.bin or flax_model.msgpack")
 
 
 def fit_state_dict(module: nn.Module, state: dict[str, torch.Tensor]) -> nn.Module:
-    """Load ``state`` into a ``BertModel`` or ``BertForSequenceClassification``
-    by name, with or without the ``bert.`` prefix.  Every parameter of the
+    """Load ``state`` into a family's encoder or sequence classifier by
+    name, with or without the family's prefix.  Every parameter of the
     module must be present; weights it has no place for (an MLM head, a
-    pooler the module leaves out, an old ``position_ids`` buffer) are
-    ignored."""
-    encoder_only = isinstance(module, BertModel)
+    pooler the module leaves out, an old ``position_ids`` buffer, a learned
+    position table where DistilBERT's is sinusoidal) are ignored.  The
+    module's parameters become ``state``'s tensors (so a module built on the
+    meta device takes them without a copy)."""
+    prefix = module.base_model_prefix + "."
+    encoder_only = not hasattr(module, module.base_model_prefix)
+    heads = {name for name, _ in module.named_children()} - {module.base_model_prefix}
     named = {}
     for name, t in state.items():
-        bare = name[len("bert."):] if name.startswith("bert.") else name
-        named[bare if encoder_only or bare.startswith("classifier.") else "bert." + bare] = t
-    missing, _ = module.load_state_dict(named, strict=False)
+        bare = name[len(prefix):] if name.startswith(prefix) else name
+        named[bare if encoder_only or bare.split(".", 1)[0] in heads else prefix + bare] = t
+    missing, _ = module.load_state_dict(named, strict=False, assign=True)
     if missing:
         raise KeyError(f"the checkpoint lacks {missing}")
     return module
-
-
-def load_bert(model_dir: str, classifier: bool = False) -> nn.Module:
-    """The encoder (``BertModel`` without its pooler) or, with
-    ``classifier``, ``BertForSequenceClassification`` of a checkpoint
-    directory, in f32 on the CPU."""
-    if not os.path.isdir(model_dir):
-        raise FileNotFoundError(f"{model_dir!r} is not a checkpoint directory: the port reads local files and "
-                                f"downloads nothing")
-    cfg = BertConfig.from_dir(model_dir)
-    module = BertForSequenceClassification(cfg) if classifier else BertModel(cfg, add_pooling_layer=False)
-    return fit_state_dict(module, load_state_dict(model_dir)).eval()
 
 
 def _flatten(tree: Any, prefix: tuple[str, ...] = ()):
@@ -97,12 +134,11 @@ def _flatten(tree: Any, prefix: tuple[str, ...] = ()):
         yield prefix, tree
 
 
-def from_flax_params(params: dict, config: BertConfig) -> dict[str, torch.Tensor]:
-    """The port's state dict from the nested parameters of a
-    ``FlaxBertModel`` or ``FlaxBertForSequenceClassification`` (numpy
-    arrays): a dense ``kernel`` (in, out) becomes ``weight`` (out, in), an
-    ``embedding`` and a LayerNorm ``scale`` become ``weight``.  The names
-    must be those of the port's module for ``config``."""
+def flax_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """The nested parameters of a Flax model (numpy arrays) as a flat state
+    dict under PyTorch's names: a dense ``kernel`` (in, out) becomes
+    ``weight`` (out, in), an ``embedding`` and a LayerNorm ``scale`` become
+    ``weight``; every other name stays."""
     out = {}
     for path, leaf in _flatten(params):
         *head, last = path
@@ -112,10 +148,20 @@ def from_flax_params(params: dict, config: BertConfig) -> dict[str, torch.Tensor
         elif last in ("embedding", "scale"):
             last = "weight"
         out[".".join((*head, last))] = t
+    return out
+
+
+def from_flax_params(params: dict, config: EncoderConfig) -> dict[str, torch.Tensor]:
+    """The port's state dict from the nested parameters of a Flax encoder
+    or sequence classifier of ``config``'s family (``flax_state_dict``).
+    The names must be exactly those of the port's module: the encoder (with
+    its pooler, where the family has one, as Flax's encoders always do) or,
+    where they carry a ``classifier``, the sequence classifier."""
+    out = flax_state_dict(params)
     with torch.device("meta"):
-        ref = BertForSequenceClassification(config) if "classifier.weight" in out else BertModel(config)
+        ref = new_module(config, classifier="classifier" in params, pooler=True)
     want = set(ref.state_dict())
     if set(out) != want:
-        raise KeyError(f"Flax parameters do not map onto BERT: missing {sorted(want - set(out))}, "
+        raise KeyError(f"Flax parameters do not map onto {type(ref).__name__}: missing {sorted(want - set(out))}, "
                        f"unexpected {sorted(set(out) - want)}")
     return out

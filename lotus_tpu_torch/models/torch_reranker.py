@@ -1,11 +1,12 @@
-"""Cross-encoder reranker on the card: BERT's sequence-classification head
-in PyTorch.
+"""Cross-encoder reranker on the card: a family's sequence classifier
+(BERT, RoBERTa, XLM-R, DistilBERT or ELECTRA) in PyTorch.
 
 The port of ``JaxCrossEncoderReranker``
 (``lotus_tpu/models/flax_reranker.py:27-107``), which fills the role of the
-reference's ``CrossEncoderReranker``.  (query, doc) pairs are encoded as
-``[CLS] query [SEP] doc [SEP]``, cut ``longest_first`` to
-``max_seq_length``, and batched in ``TorchSentenceEncoderRM``'s buckets.
+reference's ``CrossEncoderReranker``.  (query, doc) pairs are encoded by the
+tokenizer's template (``[CLS] query [SEP] doc [SEP]``, ``<s> query </s></s>
+doc </s>``), cut ``longest_first`` to ``max_seq_length``, and batched in
+``TorchSentenceEncoderRM``'s buckets.
 Scores follow sentence-transformers' ``CrossEncoder``: a one-logit head
 scores directly, a head of more logits by the last (positive) one.
 """
@@ -15,16 +16,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lotus_tpu_torch.models.checkpoint import load_bert
+from lotus_tpu_torch.models.auto import load_encoder, load_tokenizer
 from lotus_tpu_torch.models.reranker import Reranker
 from lotus_tpu_torch.models.torch_rm import bucketed_batches
-from lotus_tpu_torch.models.wordpiece import WordPieceTokenizer
 from lotus_tpu_torch.ops.ivf import default_device
 from lotus_tpu_torch.types import RerankerOutput
 
 
 class TorchCrossEncoderReranker(Reranker):
-    """A BERT cross-encoder on the card (or on the CPU with
+    """A cross-encoder on the card (or on the CPU with
     ``device="cpu"``); ``model`` is a local checkpoint directory, ``dtype``
     a torch dtype (f32 by default), and scores are float32."""
 
@@ -40,8 +40,8 @@ class TorchCrossEncoderReranker(Reranker):
         self.model_name = model
         self.max_batch_size = int(max_batch_size)
         self.max_seq_length = int(max_seq_length)
-        self.model = load_bert(model, classifier=True).to(self.device, dtype or torch.float32)
-        self.tokenizer = WordPieceTokenizer.from_dir(model)
+        self.model = load_encoder(model, classifier=True).to(self.device, dtype or torch.float32)
+        self.tokenizer = load_tokenizer(model)
 
     def score_pairs(self, query: str, docs: list[str]) -> np.ndarray:
         """Raw cross-encoder scores for (query, doc) pairs, one per doc."""
@@ -49,10 +49,12 @@ class TorchCrossEncoderReranker(Reranker):
         with torch.inference_mode():
             for n, ids, mask in bucketed_batches(self.tokenizer, [query] * len(docs), docs, self.max_batch_size,
                                                  self.max_seq_length, self.device):
-                # token_type_ids stay 0, as the reference's do: it passes only
-                # input_ids and attention_mask (flax_reranker.py:96-100), and
-                # Flax BERT then zeroes them, where sentence-transformers'
-                # CrossEncoder gives the doc segment 1.
+                # No token_type_ids, as the reference passes none: it passes
+                # only input_ids and attention_mask (flax_reranker.py:96-100).
+                # Flax BERT and RoBERTa then zero them and Flax ELECTRA sets
+                # them all to 1 (ElectraModel.absent_token_type), where
+                # sentence-transformers' CrossEncoder gives the doc segment 1;
+                # DistilBERT has no segments.
                 logits = self.model(ids, mask).float()
                 scores.append((logits[:, 0] if logits.shape[-1] == 1 else logits[:, -1])[:n])
         return torch.cat(scores).cpu().numpy() if scores else np.zeros((0,), np.float32)

@@ -1,9 +1,13 @@
-"""Sentence-embedding RM on the card: a BERT encoder in PyTorch.
+"""Sentence-embedding RM on the card: an encoder (BERT, RoBERTa, XLM-R,
+DistilBERT or ELECTRA) in PyTorch.
 
 The port of ``JaxSentenceEncoderRM`` (``lotus_tpu/models/flax_rm.py:32-127``),
 which fills the role of the reference's ``SentenceTransformersRM``.  It
-reads a local checkpoint directory with the port's own tokenizer
-(``wordpiece.py``) and checkpoint reader (``checkpoint.py``), and keeps the
+reads a local checkpoint directory with the port's own tokenizer and
+checkpoint reader (``auto.load_tokenizer``, ``auto.load_encoder``), and
+calls the encoder with ids and mask only, as the reference does (so token
+types are the family's default: 0, but 1 for ELECTRA; DistilBERT has
+none).  It keeps the
 reference's buckets: the batch pads to ``max_batch_size`` with ``""`` and
 the tokens to the next power of two of at least 16, capped at
 ``max_seq_length``, so padding rows ride an all-zero attention mask and are
@@ -21,9 +25,9 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
-from lotus_tpu_torch.models.checkpoint import load_bert
+from lotus_tpu_torch.models.auto import load_encoder, load_tokenizer
 from lotus_tpu_torch.models.rm import RM
-from lotus_tpu_torch.models.wordpiece import WordPieceTokenizer
+from lotus_tpu_torch.models.tokenizer_json import JsonTokenizer
 from lotus_tpu_torch.ops.ivf import default_device
 
 MIN_SEQ_BUCKET = 16
@@ -38,7 +42,7 @@ def seq_bucket(longest: int, max_seq_length: int) -> int:
     return min(b, max_seq_length)
 
 
-def bucketed_batches(tokenizer: WordPieceTokenizer, texts: Sequence[str], pairs: Sequence[str] | None,
+def bucketed_batches(tokenizer: JsonTokenizer, texts: Sequence[str], pairs: Sequence[str] | None,
                      batch_size: int, max_seq_length: int,
                      device: torch.device) -> Iterator[tuple[int, torch.Tensor, torch.Tensor]]:
     """(real rows, input ids, attention mask) on ``device`` for each batch of
@@ -56,10 +60,12 @@ def bucketed_batches(tokenizer: WordPieceTokenizer, texts: Sequence[str], pairs:
 
 
 class TorchSentenceEncoderRM(RM):
-    """BERT embeddings on the card (or on the CPU with ``device="cpu"``).
+    """Encoder embeddings on the card (or on the CPU with ``device="cpu"``).
 
-    ``model`` is a local BERT checkpoint directory (``config.json``,
-    ``vocab.txt``, ``model.safetensors`` or ``pytorch_model.bin``).
+    ``model`` is a local checkpoint directory of a family ``load_encoder``
+    runs (``config.json``; ``tokenizer.json``, ``vocab.txt`` or
+    ``vocab.json`` + ``merges.txt``; ``model.safetensors``,
+    ``pytorch_model.bin`` or ``flax_model.msgpack``).
     ``dtype`` (a torch dtype, f32 by default) holds the parameters and runs
     the forward; outputs are always float32.  ``device=None`` takes the card
     and raises without one.
@@ -83,8 +89,8 @@ class TorchSentenceEncoderRM(RM):
         self.normalize_embeddings = normalize_embeddings
         self.pooling = pooling
         self.max_seq_length = int(max_seq_length)
-        self.encoder = load_bert(model).to(self.device, dtype or torch.float32)
-        self.tokenizer = WordPieceTokenizer.from_dir(model)
+        self.encoder = load_encoder(model).to(self.device, dtype or torch.float32)
+        self.tokenizer = load_tokenizer(model)
 
     def _pool(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.pooling == "mean":

@@ -4,8 +4,8 @@ here, as ``tests/test_flax_rm.py`` makes its own), and the port's
 checkpoint reader (``lotus_tpu_torch/models/checkpoint.py``) against
 ``transformers``: ``model.safetensors`` (f32, f16, bf16) and
 ``pytorch_model.bin`` load the tensors ``transformers`` loads, by name with
-or without ``bert.``; a msgpack-only directory and a non-BERT
-``model_type`` raise."""
+or without ``bert.``; a malformed msgpack and an unported ``model_type``
+raise."""
 
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from lotus_tpu_torch.models import BertConfig, BertForSequenceClassification, BertModel, load_bert, load_state_dict
+from lotus_tpu_torch.models import BertConfig, BertForSequenceClassification, BertModel, load_encoder, load_state_dict
 from lotus_tpu_torch.models.checkpoint import fit_state_dict
 
 transformers = pytest.importorskip("transformers")
@@ -84,7 +84,7 @@ def test_reader_loads_what_transformers_loads(tmp_path, fmt, num_labels):
     assert set(got) <= set(want) and {k for k in want if "position_ids" not in k} <= set(got)
     for k, t in got.items():
         assert t.dtype == want[k].dtype and torch.equal(t, want[k]), k
-    port = load_bert(d, classifier=num_labels is not None)
+    port = load_encoder(d, classifier=num_labels is not None)
     ids, mask = map(torch.from_numpy, sample_ids(0))
     with torch.no_grad():
         ref = model.float()(input_ids=ids, attention_mask=mask, token_type_ids=torch.zeros_like(ids))
@@ -96,7 +96,7 @@ def test_reader_loads_what_transformers_loads(tmp_path, fmt, num_labels):
 def test_encoder_loads_a_classification_checkpoint_and_back(tmp_path):
     """A checkpoint's weights load by name with or without ``bert.``."""
     write_bert(str(tmp_path / "cls"), num_labels=1)
-    enc = load_bert(str(tmp_path / "cls"))
+    enc = load_encoder(str(tmp_path / "cls"))
     assert isinstance(enc, BertModel) and enc.pooler is None
     bare = {k[len("bert."):]: v for k, v in load_state_dict(str(tmp_path / "cls")).items() if k.startswith("bert.")}
     cfg = BertConfig.from_dir(str(tmp_path / "cls"))
@@ -106,21 +106,28 @@ def test_encoder_loads_a_classification_checkpoint_and_back(tmp_path):
 
 
 def test_msgpack_only_and_other_model_types_raise(tmp_path):
+    """A malformed ``flax_model.msgpack`` raises ``ValueError`` naming the
+    file; the model types the port does not run raise
+    ``NotImplementedError`` naming the type, through ``config.json`` and
+    through ``BertConfig``; so does an activation other than the exact
+    GELU."""
+    cfg_path = tmp_path / "cfg"
+    write_bert(str(cfg_path))
+    cfg = json.loads((cfg_path / "config.json").read_text())
     d = tmp_path / "flax"
     d.mkdir()
-    (d / "flax_model.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="flax_model.msgpack"):
-        load_state_dict(str(d))
+    (d / "config.json").write_text(json.dumps(cfg))
+    for blob in (b"\x80", b"\xc1", b"\x81\xa1a\xc7\x05\x01", b""):
+        (d / "flax_model.msgpack").write_bytes(blob)
+        with pytest.raises(ValueError, match="flax_model.msgpack"):
+            load_state_dict(str(d))
     with pytest.raises(FileNotFoundError):
-        load_bert(str(tmp_path / "absent"))
-    for model_type in ("roberta", "xlm-roberta", "distilbert", "electra", "albert", "deberta-v2"):
+        load_encoder(str(tmp_path / "absent"))
+    for model_type in ("albert", "roformer", "big_bird", "roberta-prelayernorm", "deberta-v2"):
+        (cfg_path / "config.json").write_text(json.dumps({**cfg, "model_type": model_type}))
+        with pytest.raises(NotImplementedError, match=model_type):
+            load_encoder(str(cfg_path))
         with pytest.raises(NotImplementedError, match=model_type):
             BertConfig.from_dict({"model_type": model_type, "vocab_size": 10})
     with pytest.raises(NotImplementedError, match="gelu_new"):
         BertConfig.from_dict({"model_type": "bert", "vocab_size": 10, "hidden_act": "gelu_new"})
-    cfg_path = tmp_path / "cfg"
-    write_bert(str(cfg_path))
-    cfg = json.loads((cfg_path / "config.json").read_text())
-    (cfg_path / "config.json").write_text(json.dumps({**cfg, "model_type": "roberta"}))
-    with pytest.raises(NotImplementedError, match="roberta"):
-        load_bert(str(cfg_path))

@@ -99,3 +99,66 @@ def test_models_and_profiling_run_without_transformers(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, env=env,
                           cwd=str(tmp_path), timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+
+
+def test_families_run_without_hf_packages(tmp_path):
+    """The families past BERT and their formats need none of the packages
+    the card's machine lacks: with jax, pandas, lotus_tpu, transformers,
+    tokenizers, sentencepiece, regex, msgpack, flax and safetensors blocked,
+    an XLM-R checkpoint (``tokenizer.json``: Unigram with a charsmap), a
+    RoBERTa one with only ``vocab.json`` + ``merges.txt`` and a BERT one
+    with only ``flax_model.msgpack`` embed and rerank on the CPU as they do
+    in this process."""
+    import shutil
+
+    import numpy as np
+    import pytest
+
+    transformers = pytest.importorskip("transformers")
+    from test_torch_checkpoints import write_bert
+    from torch_families import write_family
+
+    from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
+
+    write_family(str(tmp_path / "xlmr"), "xlm-roberta", init_range=0.2)
+    write_family(str(tmp_path / "xlmr_rr"), "xlm-roberta", num_labels=1, init_range=0.2)
+    write_family(str(tmp_path / "roberta"), "roberta", init_range=0.2)
+    for name in ("tokenizer.json", "tokenizer_config.json", "special_tokens_map.json"):
+        os.remove(tmp_path / "roberta" / name)
+    write_bert(str(tmp_path / "bert_pt"), init_range=0.2)
+    transformers.FlaxAutoModel.from_pretrained(str(tmp_path / "bert_pt"), from_pt=True).save_pretrained(
+        str(tmp_path / "bert_flax"))
+    for name in ("vocab.txt", "tokenizer_config.json"):
+        shutil.copy(tmp_path / "bert_pt" / name, tmp_path / "bert_flax" / name)
+    docs = ["the cat sat on the mat", "Ｆｕｌｌ ①② café naïve 日本語 😀", "", "hello <mask> world"]
+    want = {name: TorchSentenceEncoderRM(model=str(tmp_path / name), max_batch_size=4, device="cpu")(docs)
+            for name in ("xlmr", "roberta", "bert_flax")}
+    want["scores"] = TorchCrossEncoderReranker(model=str(tmp_path / "xlmr_rr"), device="cpu").score_pairs("cat", docs)
+    np.savez(tmp_path / "want.npz", **want)
+    script = textwrap.dedent(
+        f"""
+        import sys
+        blocked = ("jax", "jaxlib", "pandas", "pydantic", "lotus_tpu", "transformers", "tokenizers",
+                   "sentencepiece", "regex", "msgpack", "flax", "safetensors", "sentence_transformers")
+        for name in blocked:
+            sys.modules[name] = None
+        sys.path.insert(0, {REPO!r})
+        import numpy as np
+        from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
+
+        want = np.load({str(tmp_path / "want.npz")!r})
+        docs = {docs!r}
+        for name in ("xlmr", "roberta", "bert_flax"):
+            rm = TorchSentenceEncoderRM(model={str(tmp_path)!r} + "/" + name, max_batch_size=4, device="cpu")
+            assert np.array_equal(rm(docs), want[name]), name
+        rr = TorchCrossEncoderReranker(model={str(tmp_path / "xlmr_rr")!r}, device="cpu")
+        assert np.array_equal(rr.score_pairs("cat", docs), want["scores"])
+        bad = [m for m in sys.modules if m.split(".")[0] in blocked and sys.modules[m] is not None]
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, env=env,
+                          cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]

@@ -3,7 +3,8 @@ port's models and store (``TorchSentenceEncoderRM``,
 ``TorchCrossEncoderReranker``, ``TorchVS``, all on the CPU) give the frames
 the JAX classes with ``TpuVS`` give, on one pair of tiny checkpoint
 directories: ``sem_index`` + ``sem_search``, ``sem_search(n_rerank=2)``
-and ``sem_sim_join``."""
+and ``sem_sim_join``; then the same on an XLM-RoBERTa pair (Unigram
+tokenizer with a charsmap, RoBERTa positions, the classification head)."""
 
 import numpy as np
 import pandas as pd
@@ -12,6 +13,7 @@ import pytest
 pytest.importorskip("transformers")
 
 from test_torch_checkpoints import seeded_vocab, write_bert  # noqa: E402
+from torch_families import write_family  # noqa: E402
 
 import lotus_tpu  # noqa: E402
 from lotus_tpu.models import JaxCrossEncoderReranker, JaxSentenceEncoderRM  # noqa: E402
@@ -55,9 +57,15 @@ def _sim_join(tmp_path):
     return [pd.DataFrame({"query": QUERIES}).sem_sim_join(right, left_on="query", right_on="text", K=3)]
 
 
-@pytest.mark.parametrize("scenario", [_search, _rerank, _sim_join], ids=lambda f: f.__name__.lstrip("_"))
-def test_frames_equal_the_jax_pair(checkpoints, tmp_path, scenario):
-    rm_dir, rr_dir = checkpoints
+@pytest.fixture(scope="module")
+def xlmr_checkpoints(tmp_path_factory):
+    rm_dir, rr_dir = (str(tmp_path_factory.mktemp(name)) for name in ("xlmr_rm", "xlmr_rr"))
+    write_family(rm_dir, "xlm-roberta", seed=7, init_range=0.2)
+    write_family(rr_dir, "xlm-roberta", num_labels=1, seed=8, init_range=0.2)
+    return rm_dir, rr_dir
+
+
+def _frames_equal(rm_dir, rr_dir, tmp_path, scenario):
     stacks = {
         "ref": (JaxSentenceEncoderRM(model=rm_dir, max_batch_size=8), TpuVS(),
                 JaxCrossEncoderReranker(model=rr_dir, max_batch_size=4)),
@@ -72,3 +80,13 @@ def test_frames_equal_the_jax_pair(checkpoints, tmp_path, scenario):
     for got, want in zip(frames["port"], frames["ref"]):
         assert len(want) > 0
         pd.testing.assert_frame_equal(got, want, check_exact=False, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("scenario", [_search, _rerank, _sim_join], ids=lambda f: f.__name__.lstrip("_"))
+def test_frames_equal_the_jax_pair(checkpoints, tmp_path, scenario):
+    _frames_equal(*checkpoints, tmp_path, scenario)
+
+
+@pytest.mark.parametrize("scenario", [_search, _rerank, _sim_join], ids=lambda f: f.__name__.lstrip("_"))
+def test_xlmr_frames_equal_the_jax_pair(xlmr_checkpoints, tmp_path, scenario):
+    _frames_equal(*xlmr_checkpoints, tmp_path, scenario)
