@@ -172,14 +172,39 @@ Phases (each prints its seconds and the card's name and power limit):
    through K2 at d 1024, K2 held to its
    plain version on the call's inputs and timed beside its bound.  Each
    ingest prints docs/s, tokens/s, the tokenizer's share and cost a word,
-   and the encoder's share of its bound.  The files are deleted after.
+   and the encoder's share of its bound.  The files are deleted after;
+28. the last encoder families the Flax auto classes load, at published
+   widths with seeded weights, each written under
+   ``build/lotus_tpu_torch/smoke_late_families`` as a 1-label classifier
+   that serves as RM (its encoder) and reranker: paraphrase-albert-small-v2
+   (ALBERT: 128-d embeddings, 6 layers in 1 shared group, ``gelu_new``, a
+   seeded 30,000-piece Unigram in ``AlbertConverter``'s pipeline with
+   ``NFKD``), roformer_chinese_base (RoFormer: rotary positions, a seeded
+   50,000-entry WordPiece named ``BertTokenizer``: its own class cuts with
+   jieba, which the port refuses), bigbird-roberta-base (BigBird:
+   ``block_sparse``, block 64, 3 random blocks, 4096 positions, a seeded
+   50,358-piece Unigram in ``BigBirdConverter``'s pipeline) and
+   efficient_mlm_m0.40 (RoBERTa-PreLayerNorm at RoBERTa-large widths).
+   Each as an RM and as a reranker on the card against the CPU in f32
+   (BigBird at the 256- and 512-token buckets; within 1e-4, scores within
+   1e-4 * (1 + |s|)), bf16 against f32 for the RMs (smallest cosine >=
+   0.99); ALBERT over 65,536 of config 2's docs in bf16 into an int8 IVF
+   store (nlist 128, block-aligned: K1), recall@5 >= 0.95 against exact f32,
+   K1 held to its plain version on the call's inputs; BigBird over 1,024
+   documents of 2,000-3,000 words in bf16, every batch in the 4096-token
+   bucket, into a Flat store, with queries of 200 words (the reference's
+   block-sparse attention fails below 256 tokens): recall@10 1.0 through
+   ids, >= 0.98 through K2, K2 held to its plain version on the call's
+   inputs and timed beside its bound.  The encoder's bound counts ALBERT's
+   shared groups once a layer and BigBird's block-sparse pairs.  The files
+   are deleted after.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after: K1 over phases 5-8 (calibration included), in each
 rank over phase 12's sharded search, over phase 13 and over each K1 store of
-phase 15 and over phase 25's and 27's stores; K2 over phase 10, over phases
-20-21, over phase 15's Flat store and over phase 24's and 27's; each must
-have launched its kernel, and each phase prints its count.
+phase 15 and over phase 25's, 27's and 28's stores; K2 over phase 10, over
+phases 20-21, over phase 15's Flat store and over phase 24's, 27's and 28's;
+each must have launched its kernel, and each phase prints its count.
 The last three lines are the kernel table (K1, whose launches add the
 ranks', and K2, then the variants later slices added, each with its own
 path's launches: K2 at d 1024 is phase 27's), the card, and
@@ -1532,11 +1557,12 @@ def recording(plain):
     return record, calls
 
 
-def smoke_vocab(seed: int = 0) -> list[str]:
-    """A seeded 30,522-entry WordPiece vocabulary in bert-base-uncased's
+def smoke_vocab(seed: int = 0, size: int = VOCAB_SIZE) -> list[str]:
+    """A seeded ``size``-entry WordPiece vocabulary in bert-base-uncased's
     layout: ``[PAD]``, ``[unused*]``, ``[UNK]`` ``[CLS]`` ``[SEP]``
     ``[MASK]`` at 100-103, single characters and their ``##`` forms, then
-    seeded whole words (3-10 letters) and ``##`` pieces (2-4 letters)."""
+    seeded whole words (3-10 letters) and ``##`` pieces (2-4 letters); a
+    larger ``size`` extends the smaller one's list."""
     import string
 
     import numpy as np
@@ -1547,7 +1573,7 @@ def smoke_vocab(seed: int = 0) -> list[str]:
     rng = np.random.default_rng(seed)
     letters = np.array(list(string.ascii_lowercase))
     seen = set(vocab)
-    while len(vocab) < VOCAB_SIZE:
+    while len(vocab) < size:
         piece = rng.random() < 0.15
         tok = ("##" if piece else "") + "".join(rng.choice(letters, rng.integers(2, 5) if piece else rng.integers(3, 11)))
         if tok not in seen:
@@ -1644,18 +1670,41 @@ def synth_texts(vocab: list[str], n: int, lo: int, hi: int, seed: int, per_topic
     return [" ".join(ws).capitalize() + "." for ws in np.split(flat, cuts)]
 
 
+def forward_weights(enc) -> int:
+    """The parameters a token's forward multiplies by: every non-embedding
+    one, but ALBERT's shared groups once for each layer that runs them."""
+    groups = getattr(enc.encoder, "albert_layer_groups", None)
+    if groups is None:
+        return sum(p.numel() for name, p in enc.named_parameters() if not name.startswith("embeddings."))
+    cfg = enc.config
+    sizes = [sum(p.numel() for p in g.parameters()) for g in groups]
+    runs = [int(i / (cfg.num_hidden_layers / cfg.num_hidden_groups)) for i in range(cfg.num_hidden_layers)]
+    return sum(p.numel() for p in enc.encoder.embedding_hidden_mapping_in.parameters()) + sum(sizes[g] for g in runs)
+
+
+def attention_pairs(cfg, s: int) -> int:
+    """The (query, key) pairs one sequence of ``s`` tokens scores: s * s,
+    or BigBird's block-sparse pattern (the first and last query blocks over
+    all s keys, the second and second-last over 4 + r blocks, the middle
+    ones over 5 + r)."""
+    if getattr(cfg, "attention_type", "original_full") != "block_sparse":
+        return s * s
+    bs, r = cfg.block_size, cfg.num_random_blocks
+    return 2 * bs * s + 2 * bs * (4 + r) * bs + (s // bs - 4) * bs * (5 + r) * bs
+
+
 def encode_split(rm, texts: list[str]):
     """``rm(texts)``, what ``sem_index`` calls, and its time split: host
     seconds in the tokenizer, device ms of the encoder's forwards (CUDA
     events around each, by module hooks), wall seconds; real and padded
-    tokens; the forwards' operations (2 x the non-embedding parameters a
-    token, plus attention's 4 * L * s * h) over the padded tokens, and over
-    the real ones alone (s each text's own length).  Returns (embeddings,
-    figures)."""
+    tokens; the forwards' operations (2 x ``forward_weights`` a token, plus
+    attention's 4 * L * h a scored pair, ``attention_pairs``) over the
+    padded tokens, and over the real ones alone (s each text's own length).
+    Returns (embeddings, figures)."""
     import torch
 
     enc, cfg = rm.encoder, rm.encoder.config
-    weights = sum(p.numel() for name, p in enc.named_parameters() if not name.startswith("embeddings."))
+    weights = forward_weights(enc)
     fig = dict(tokenize_s=0.0, padded=0, flops=0.0)
     events, real, real_flops = [], [], []
     encode = rm.tokenizer.encode
@@ -1670,11 +1719,15 @@ def encode_split(rm, texts: list[str]):
         ids, mask = args[:2]
         b, s = ids.shape
         fig["padded"] += b * s
-        fig["flops"] += 2.0 * weights * b * s + 4.0 * cfg.num_hidden_layers * s * cfg.hidden_size * b * s
+        pairs = attention_pairs(cfg, s)
+        fig["flops"] += 2.0 * weights * b * s + 4.0 * cfg.num_hidden_layers * cfg.hidden_size * pairs * b
         lens = mask.sum(1).double()
         real.append(mask.sum())
+        # A real token's keys: its own text's under full attention, the
+        # padded pattern's mean row under block-sparse attention.
+        keys = torch.full_like(lens, pairs / s) if getattr(cfg, "attention_type", "") == "block_sparse" else lens
         real_flops.append(2.0 * weights * lens.sum()
-                          + 4.0 * cfg.num_hidden_layers * cfg.hidden_size * (lens * lens).sum())
+                          + 4.0 * cfg.num_hidden_layers * cfg.hidden_size * (lens * keys).sum())
         events.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
         events[-1][0].record()
 
@@ -2108,11 +2161,20 @@ def _template(cls_tok: str, cls_id: int, sep_tok: str, sep_id: int, double_sep: 
                                for t, i in ((cls_tok, cls_id), (sep_tok, sep_id))}}
 
 
-def unigram_spec(words: list[str], size: int, seed: int) -> dict:
-    """XLM-R's ``tokenizer.json`` (``XLMRobertaConverter``'s pipeline) over a
-    seeded Unigram vocabulary of ``size`` pieces: ``<s> <pad> </s> <unk>``,
-    ``▁`` + every whole word, the ``##`` pieces bare, single characters,
-    seeded fillers, ``<mask>`` last; scores seeded so that whole words win."""
+def unigram_spec(words: list[str], size: int, seed: int, flavor: str = "xlm-roberta") -> dict:
+    """A sentencepiece Unigram ``tokenizer.json`` over a seeded vocabulary of
+    ``size`` pieces (``▁`` + every whole word, the ``##`` pieces bare,
+    single characters, seeded fillers; scores seeded so that whole words
+    win) with the special tokens, normalizer and template the converter of
+    ``flavor`` writes: ``XLMRobertaConverter`` (``<s> <pad> </s> <unk>``
+    first and ``<mask>`` last; the quote ``Replace``s, the charsmap,
+    ``Replace(" {2,}", " ")``; ``<s> A </s> </s> B </s>``),
+    ``AlbertConverter`` (``<pad> <unk> [CLS] [SEP] [MASK]`` first; the quote
+    ``Replace``s, ``NFKD``, ``StripAccents``, ``Lowercase``, the charsmap,
+    ``Replace(" {2,}", " ")``; ``[CLS] A [SEP] B:1 [SEP]:1``) or, for
+    ``big_bird``, ``BigBirdConverter`` (``<pad> <s> </s> <unk> [CLS] [SEP]
+    [MASK]`` first; ``SpmConverter``'s charsmap, right ``Strip`` and
+    ``Replace(" {2,}", "▁")``; ALBERT's template); ``Metaspace`` for all."""
     import base64
     import string
 
@@ -2120,6 +2182,19 @@ def unigram_spec(words: list[str], size: int, seed: int) -> dict:
 
     from lotus_tpu_torch.models.charsmap import build_charsmap
 
+    charsmap = {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(build_charsmap(SMOKE_CHARSMAP)).decode()}
+    quotes = [{"type": "Replace", "pattern": {"String": q}, "content": '"'} for q in ("``", "''")]
+    collapse = {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}
+    if flavor == "xlm-roberta":
+        head, tail, mask = ["<s>", "<pad>", "</s>", "<unk>"], ["<mask>"], "<mask>"
+        steps = [*quotes, charsmap, collapse]
+    elif flavor == "albert":
+        head, tail, mask = ["<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]"], [], "[MASK]"
+        steps = [*quotes, {"type": "NFKD"}, {"type": "StripAccents"}, {"type": "Lowercase"}, charsmap, collapse]
+    else:
+        head, tail, mask = ["<pad>", "<s>", "</s>", "<unk>", "[CLS]", "[SEP]", "[MASK]"], [], "[MASK]"
+        steps = [charsmap, {"type": "Strip", "strip_left": False, "strip_right": True},
+                 {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "▁"}]
     rng = np.random.default_rng(seed)
     pieces: dict[str, float] = {}
     for w in words:
@@ -2127,25 +2202,28 @@ def unigram_spec(words: list[str], size: int, seed: int) -> dict:
     chars = string.ascii_letters + string.digits + string.punctuation + "▁éïüßÜ日本語中文株式会社"
     for c in chars:
         pieces.setdefault(c, -float(rng.uniform(12, 16)))
+    n_pieces = size - len(head) - len(tail)
+    for p in [p for p in pieces if p not in chars][n_pieces - len(pieces):] if len(pieces) > n_pieces else []:
+        del pieces[p]  # a vocabulary smaller than the word list keeps the first words and every character
     letters = np.array(list(string.ascii_lowercase))
-    while len(pieces) < size - 5:
-        lengths = rng.integers(2, 8, size - 5 - len(pieces))
+    while len(pieces) < n_pieces:
+        lengths = rng.integers(2, 8, n_pieces - len(pieces))
         for n in lengths:
             pieces.setdefault(("▁" if rng.random() < 0.5 else "") + "".join(rng.choice(letters, n)),
                               -float(rng.uniform(10, 15)))
-    specials = [("<s>", 0), ("<pad>", 1), ("</s>", 2), ("<unk>", 3), ("<mask>", size - 1)]
-    vocab = [[t, 0.0] for t, _ in specials[:4]] + [[p, sc] for p, sc in pieces.items()] + [["<mask>", 0.0]]
+    vocab = [[t, 0.0] for t in head] + [[p, sc] for p, sc in pieces.items()] + [[t, 0.0] for t in tail]
     assert len(vocab) == size
+    ids = {t: i for i, (t, _) in enumerate(vocab) if t in head or t in tail}
+    if flavor == "xlm-roberta":
+        template = _template("<s>", ids["<s>"], "</s>", ids["</s>"], double_sep=True)
+    else:
+        template = _template("[CLS]", ids["[CLS]"], "[SEP]", ids["[SEP]"], double_sep=False)
     return {
-        "version": "1.0", "added_tokens": _added(specials, lstrip="<mask>"),
-        "normalizer": {"type": "Sequence", "normalizers": [
-            {"type": "Replace", "pattern": {"String": "``"}, "content": '"'},
-            {"type": "Replace", "pattern": {"String": "''"}, "content": '"'},
-            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(build_charsmap(SMOKE_CHARSMAP)).decode()},
-            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "version": "1.0", "added_tokens": _added(list(ids.items()), lstrip=mask),
+        "normalizer": {"type": "Sequence", "normalizers": steps},
         "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True},
-        "post_processor": _template("<s>", 0, "</s>", 2, double_sep=True),
-        "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab, "byte_fallback": False},
+        "post_processor": template,
+        "model": {"type": "Unigram", "unk_id": ids["<unk>"], "vocab": vocab, "byte_fallback": False},
     }
 
 
@@ -2199,11 +2277,14 @@ def wordpiece_spec(vocab: list[str]) -> dict:
     }
 
 
-def write_family_models(vocab: list[str], dev, seed: int = 10) -> dict[str, str]:
-    """One checkpoint directory per FAMILY_MODELS entry under FAMILY_DIR:
-    ``config.json`` (the family's keys), ``tokenizer.json`` (generated here:
-    seeded Unigram, seeded BPE merges or phase 23's WordPiece vocabulary),
-    ``tokenizer_config.json`` and ``model.safetensors`` with weights drawn as
+def write_family_models(vocab: list[str], dev, seed: int = 10, models: dict | None = None,
+                        root: str | None = None) -> dict[str, str]:
+    """One checkpoint directory per ``models`` entry (FAMILY_MODELS by
+    default) under ``root`` (FAMILY_DIR by default): ``config.json`` (the family's keys),
+    ``tokenizer.json`` (generated here: seeded Unigram in XLM-R's, ALBERT's
+    or BigBird's pipeline, seeded BPE merges, phase 23's WordPiece vocabulary
+    or its 50,000-entry extension), ``tokenizer_config.json`` (WordPiece ones
+    name ``BertTokenizer``) and ``model.safetensors`` with weights drawn as
     the initialiser draws them (N(0, 0.02), biases 0, LayerNorm 1 / 0), made
     on ``dev``.  Returns the directories."""
     import torch
@@ -2213,12 +2294,12 @@ def write_family_models(vocab: list[str], dev, seed: int = 10) -> dict[str, str]
     words = [w for w in vocab if not w.startswith("[")]
     specs = {}
     dirs = {}
-    for i, (name, shape) in enumerate(FAMILY_MODELS.items()):
-        d = os.path.join(FAMILY_DIR, name)
+    for i, (name, shape) in enumerate((models or FAMILY_MODELS).items()):
+        d = os.path.join(root or FAMILY_DIR, name)
         os.makedirs(d, exist_ok=True)
         config = {k: v for k, v in shape.items() if k not in ("tokenizer", "max_seq_length", "num_labels")}
         if shape["model_type"] != "distilbert":
-            config.update(hidden_act="gelu", position_embedding_type="absolute")
+            config = {"hidden_act": "gelu", "position_embedding_type": "absolute", **config}
         else:
             config.update(activation="gelu", sinusoidal_pos_embds=False)
         if "num_labels" in shape:
@@ -2226,9 +2307,15 @@ def write_family_models(vocab: list[str], dev, seed: int = 10) -> dict[str, str]
         kind = shape["tokenizer"]
         if kind not in specs:
             specs[kind] = {"unigram": lambda: unigram_spec(words, shape["vocab_size"], seed),
+                           "albert": lambda: unigram_spec(words, shape["vocab_size"], seed, "albert"),
+                           "spm": lambda: unigram_spec(words, shape["vocab_size"], seed, "big_bird"),
                            "bpe": lambda: bpe_spec([w for w in words if w.isalpha()], shape["vocab_size"]),
-                           "wordpiece": lambda: wordpiece_spec(vocab)}[kind]()
-        tok_config = {"pad_token": "[PAD]", "do_lower_case": True} if kind == "wordpiece" else {"pad_token": "<pad>"}
+                           "wordpiece": lambda: wordpiece_spec(vocab),
+                           "wordpiece-50k": lambda: wordpiece_spec(smoke_vocab(0, shape["vocab_size"]))}[kind]()
+        if kind.startswith("wordpiece"):  # RoFormer's own class would cut with jieba, which the port refuses
+            tok_config = {"pad_token": "[PAD]", "do_lower_case": True, "tokenizer_class": "BertTokenizer"}
+        else:
+            tok_config = {"pad_token": "<pad>"}
         for fname, obj in (("config.json", config), ("tokenizer.json", specs[kind]),
                            ("tokenizer_config.json", tok_config)):
             with open(os.path.join(d, fname), "w", encoding="utf-8") as f:
@@ -2326,39 +2413,24 @@ def print_tokenizer(label: str, texts: list[str], fig: dict) -> None:
         f"{1e6 * fig['tokenize_s'] / fig['real']:.3f} us a token on the host")
 
 
-def xlmr_phase(dev, vocab: list[str], dirs: dict, n: int = 65_536, nq: int = 1000, nlist: int = 128,
-               n_rerank_q: int = 16, top: int = 100) -> int:
-    """Phase 27b, XLM-R at multilingual-e5-base widths: ``n`` of config 2's
-    docs (8-48 words, a share of them multilingual) through
-    ``TorchSentenceEncoderRM`` in bf16 at max_batch_size 64, a
-    ``TorchVS(index_type="ivf", nlist=128, device_dtype="int8")`` store
-    (``n`` >= 512 * nlist, so it is block-aligned and K1 serves it); ``nq``
-    left-side queries: recall@5 at least 0.95 against exact f32, K1 held to
-    its plain version on the call's own inputs; then the bge-reranker-base
-    widths in bf16 over the top ``top`` of ``n_rerank_q`` queries.  Returns
-    K1's launches."""
+def ivf_text_store(dev, label: str, right: list[str], right_emb, left_emb, k: int, nlist: int,
+                   width: int) -> tuple[int, object, str]:
+    """``right_emb`` (the embeddings of the texts ``right``) in a
+    ``TorchVS(index_type="ivf", nlist=nlist, device_dtype="int8")`` store,
+    block-aligned (len(right) >= 512 * nlist), so a search without ids goes
+    to K1; the ``left_emb`` queries through it with K1's launches counted
+    from 0: recall@k at least 0.95 against exact f32, K1 held to its plain
+    version on the call's own inputs (``k1_store_compare``).  Returns K1's
+    launches, the store and its directory (deleted by the caller)."""
     import numpy as np
     import torch
 
     from lotus_tpu_torch import TorchVS
-    from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
     from lotus_tpu_torch.ops.io import read_meta
     from lotus_tpu_torch.ops.ivf_probe import probe_fold
 
-    k = 5
-    t0 = time.perf_counter()
-    right = multilingual(synth_texts(vocab, n, 8, 48, 61, per_topic=k), 62, share=0.05)
-    left = multilingual(synth_texts(vocab, n, 8, 48, 60, per_topic=k)[:nq], 63, share=0.05)
-    say(f"  {n:,} docs + {nq:,} queries of 8-48 words (5% of words non-ASCII) made in "
-        f"{time.perf_counter() - t0:.2f} s")
-    rm = TorchSentenceEncoderRM(model=dirs["multilingual-e5-base"], max_batch_size=CONFIG2_BATCH,
-                                dtype=torch.bfloat16, device=dev)
-    right_emb, fig = encode_split(rm, right)
-    print_split(f"multilingual-e5-base (XLM-R) bf16, max_batch_size {CONFIG2_BATCH}", n, fig, BF16_OPS_PER_S,
-                "989 TFLOP/s bf16")
-    print_tokenizer("Unigram + charsmap", right, fig)
-    left_emb = rm(left)
-    index_dir = os.path.join(TEXT_INDEX_DIR, "xlmr")
+    n, nq = len(right), len(left_emb)
+    index_dir = os.path.join(TEXT_INDEX_DIR, re.sub(r"\W+", "_", label.lower()))
     shutil.rmtree(index_dir, ignore_errors=True)
     vs = TorchVS(index_type="ivf", nlist=nlist, device_dtype="int8", device=dev)
     t0 = time.perf_counter()
@@ -2378,11 +2450,43 @@ def xlmr_phase(dev, vocab: list[str], dirs: dict, n: int = 65_536, nq: int = 100
         f"block_align {bl}; {nq:,} queries (nprobe {vs.nprobe}): recall@{k} {recall!r} vs exact f32, "
         f"{probe_ms:.3f} ms (host clock); K1 launches {launches}; routes {vs.stats['routes']}; mean pairwise cosine "
         f"{mean_cosine(right_emb)!r} [{GPU}]")
-    width = FAMILY_MODELS["multilingual-e5-base"]["hidden_size"]
-    assert bool(np.isfinite(right_emb).all()) and right_emb.shape == (n, width), "XLM-R embeddings"
-    assert int(bl) > 0 and launches > 0, "the XLM-R store did not take K1"
-    assert recall >= 0.95, f"XLM-R through K1: recall@5 {recall} below 0.95"
-    k1_store_compare("XLM-R from text", vs, left_emb, k)
+    assert bool(np.isfinite(right_emb).all()) and right_emb.shape == (n, width), f"{label} embeddings"
+    assert int(bl) > 0 and launches > 0, f"the {label} store did not take K1"
+    assert recall >= 0.95, f"{label} through K1: recall@{k} {recall} below 0.95"
+    k1_store_compare(f"{label} from text", vs, left_emb, k)
+    return launches, vs, index_dir
+
+
+def xlmr_phase(dev, vocab: list[str], dirs: dict, n: int = 65_536, nq: int = 1000, nlist: int = 128,
+               n_rerank_q: int = 16, top: int = 100) -> int:
+    """Phase 27b, XLM-R at multilingual-e5-base widths: ``n`` of config 2's
+    docs (8-48 words, a share of them multilingual) through
+    ``TorchSentenceEncoderRM`` in bf16 at max_batch_size 64, a
+    ``TorchVS(index_type="ivf", nlist=128, device_dtype="int8")`` store
+    (``n`` >= 512 * nlist, so it is block-aligned and K1 serves it); ``nq``
+    left-side queries: recall@5 at least 0.95 against exact f32, K1 held to
+    its plain version on the call's own inputs; then the bge-reranker-base
+    widths in bf16 over the top ``top`` of ``n_rerank_q`` queries.  Returns
+    K1's launches."""
+    import torch
+
+    from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
+
+    k = 5
+    t0 = time.perf_counter()
+    right = multilingual(synth_texts(vocab, n, 8, 48, 61, per_topic=k), 62, share=0.05)
+    left = multilingual(synth_texts(vocab, n, 8, 48, 60, per_topic=k)[:nq], 63, share=0.05)
+    say(f"  {n:,} docs + {nq:,} queries of 8-48 words (5% of words non-ASCII) made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rm = TorchSentenceEncoderRM(model=dirs["multilingual-e5-base"], max_batch_size=CONFIG2_BATCH,
+                                dtype=torch.bfloat16, device=dev)
+    right_emb, fig = encode_split(rm, right)
+    print_split(f"multilingual-e5-base (XLM-R) bf16, max_batch_size {CONFIG2_BATCH}", n, fig, BF16_OPS_PER_S,
+                "989 TFLOP/s bf16")
+    print_tokenizer("Unigram + charsmap", right, fig)
+    left_emb = rm(left)
+    launches, vs, index_dir = ivf_text_store(dev, "XLM-R", right, right_emb, left_emb, k, nlist,
+                                             FAMILY_MODELS["multilingual-e5-base"]["hidden_size"])
     del rm
 
     rr = TorchCrossEncoderReranker(model=dirs["bge-reranker-base"], dtype=torch.bfloat16, device=dev)
@@ -2424,38 +2528,24 @@ def summation_ties(q, rows, got, gt) -> tuple[list[tuple[int, int, float]], int]
     return exempt, sum(share > 1.0 for _, _, share in exempt)
 
 
-def roberta_large_phase(dev, vocab: list[str], dirs: dict, n: int = 10_000, nq: int = 256,
-                        top: int = 100) -> tuple[int, tuple]:
-    """Phase 27c, RoBERTa at all-roberta-large-v1 widths: config 1's ``n``
-    passages (150-300 words) through ``TorchSentenceEncoderRM`` in bf16, a
-    Flat store over the 1024-d embeddings; ``nq`` queries with ids = every
-    row, one a call (recall@10 1.0 against exact f32: an id outside the
-    oracle's top 10 must be a summation tie, ``summation_ties``) and without ids
-    under ``scan="pallas"`` (K2 at d 1024: recall@10 at least 0.98), K2 held
-    to its plain version on the call's own inputs and timed beside its bound.
-    Returns K2's launches and its (max_abs_err, ms, plain ms, bound ms,
-    bound_by) at d 1024."""
+def flat_text_store(dev, label: str, rm, passages: list[str], emb, queries: list[str], top: int,
+                    width: int) -> tuple[int, tuple]:
+    """``emb`` (the embeddings of ``passages``) in a Flat store; the
+    ``queries`` through ``rm`` and the store with ids = every row, one a
+    call (recall@10 1.0 against exact f32: an id outside the oracle's top 10
+    must be a summation tie, ``summation_ties``), and without ids under
+    ``scan="pallas"`` (K2, its launches counted from 0: recall@10 at least
+    0.98); K2 held to its plain version on the call's own inputs and timed
+    beside its bound.  Returns K2's launches and its (max_abs_err, ms, plain
+    ms, bound ms, bound_by)."""
     import numpy as np
     import torch
 
     from lotus_tpu_torch import TorchVS
-    from lotus_tpu_torch.models import TorchSentenceEncoderRM
     from lotus_tpu_torch.ops.flat_scan import scan_fold
 
-    t0 = time.perf_counter()
-    passages = synth_texts(vocab, n, 150, 300, 50, per_topic=K)
-    queries = [" ".join(np.random.default_rng(51 + i).choice(passages[j].split()[:40], 12))
-               for i, j in enumerate(np.random.default_rng(52).integers(0, n, nq))]
-    say(f"  {n:,} passages of 150-300 words, {nq} queries of 12 words from a passage's first 40; made in "
-        f"{time.perf_counter() - t0:.2f} s")
-    seq = FAMILY_MODELS["all-roberta-large-v1"]["max_seq_length"]
-    rm = TorchSentenceEncoderRM(model=dirs["all-roberta-large-v1"], max_seq_length=seq, dtype=torch.bfloat16,
-                                device=dev)
-    emb, fig = encode_split(rm, passages)
-    print_split(f"all-roberta-large-v1 (RoBERTa) bf16, max_batch_size 64, max_seq_length {seq}", n, fig,
-                BF16_OPS_PER_S, "989 TFLOP/s bf16")
-    print_tokenizer("byte-level BPE", passages, fig)
-    index_dir = os.path.join(TEXT_INDEX_DIR, "roberta")
+    n, nq = len(passages), len(queries)
+    index_dir = os.path.join(TEXT_INDEX_DIR, re.sub(r"\W+", "_", label.lower()))
     shutil.rmtree(index_dir, ignore_errors=True)
     vs = TorchVS(index_type="flat", device=dev)
     vs.index(passages, emb, index_dir)
@@ -2481,12 +2571,11 @@ def roberta_large_phase(dev, vocab: list[str], dirs: dict, n: int = 10_000, nq: 
         f"{nq} queries "
         f"at k {top}: recall@{K} {k2_recall!r}; K2 launches {launches}; mean pairwise cosine {mean_cosine(emb)!r} "
         f"[{GPU}]")
-    width = FAMILY_MODELS["all-roberta-large-v1"]["hidden_size"]
-    assert bool(np.isfinite(emb).all()) and emb.shape == (n, width), "RoBERTa-large embeddings"
-    assert untied == 0, f"RoBERTa-large with ids: recall@10 {ids_recall}, {untied} ids outside the exact top 10 untied"
-    assert launches > 0, "the scan='pallas' store did not launch K2"
-    assert k2_recall >= 0.98, f"RoBERTa-large through K2: recall@10 {k2_recall} below 0.98"
-    (err, ms, plain_ms), args = k2_store_compare("RoBERTa-large from text", k2, qv, top)[0]
+    assert bool(np.isfinite(emb).all()) and emb.shape == (n, width), f"{label} embeddings"
+    assert untied == 0, f"{label} with ids: recall@10 {ids_recall}, {untied} ids outside the exact top 10 untied"
+    assert launches > 0, f"the {label} scan='pallas' store did not launch K2"
+    assert k2_recall >= 0.98, f"{label} through K2: recall@10 {k2_recall} below 0.98"
+    (err, ms, plain_ms), args = k2_store_compare(f"{label} from text", k2, qv, top)[0]
     xq, xb = args[0], args[1]
     b_, n_, d_ = xq.shape[0], int(args[2]), xb.shape[1]
     need = n_ * d_ * xb.element_size() + b_ * d_ * xq.element_size() + b_ * 256 * 8
@@ -2496,6 +2585,39 @@ def roberta_large_phase(dev, vocab: list[str], dirs: dict, n: int = 10_000, nq: 
         f"{bound[0]:.4f} ms ({bound[1]}), K2 at {100 * bound[0] / ms:.1f}% of it [{GPU}]")
     shutil.rmtree(index_dir, ignore_errors=True)
     return launches, (err, ms, plain_ms, *bound)
+
+
+def roberta_large_phase(dev, vocab: list[str], dirs: dict, n: int = 10_000, nq: int = 256,
+                        top: int = 100) -> tuple[int, tuple]:
+    """Phase 27c, RoBERTa at all-roberta-large-v1 widths: config 1's ``n``
+    passages (150-300 words) through ``TorchSentenceEncoderRM`` in bf16, a
+    Flat store over the 1024-d embeddings; ``nq`` queries with ids = every
+    row, one a call (recall@10 1.0 against exact f32: an id outside the
+    oracle's top 10 must be a summation tie, ``summation_ties``) and without ids
+    under ``scan="pallas"`` (K2 at d 1024: recall@10 at least 0.98), K2 held
+    to its plain version on the call's own inputs and timed beside its bound.
+    Returns K2's launches and its (max_abs_err, ms, plain ms, bound ms,
+    bound_by) at d 1024."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+
+    t0 = time.perf_counter()
+    passages = synth_texts(vocab, n, 150, 300, 50, per_topic=K)
+    queries = [" ".join(np.random.default_rng(51 + i).choice(passages[j].split()[:40], 12))
+               for i, j in enumerate(np.random.default_rng(52).integers(0, n, nq))]
+    say(f"  {n:,} passages of 150-300 words, {nq} queries of 12 words from a passage's first 40; made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    seq = FAMILY_MODELS["all-roberta-large-v1"]["max_seq_length"]
+    rm = TorchSentenceEncoderRM(model=dirs["all-roberta-large-v1"], max_seq_length=seq, dtype=torch.bfloat16,
+                                device=dev)
+    emb, fig = encode_split(rm, passages)
+    print_split(f"all-roberta-large-v1 (RoBERTa) bf16, max_batch_size 64, max_seq_length {seq}", n, fig,
+                BF16_OPS_PER_S, "989 TFLOP/s bf16")
+    print_tokenizer("byte-level BPE", passages, fig)
+    return flat_text_store(dev, "RoBERTa-large", rm, passages, emb, queries, top,
+                           FAMILY_MODELS["all-roberta-large-v1"]["hidden_size"])
 
 
 def families_phases(dev, vocab: list[str]) -> tuple[int, int, tuple]:
@@ -2520,8 +2642,183 @@ def families_phases(dev, vocab: list[str]) -> tuple[int, int, tuple]:
     return k1, k2, k2_d1024
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the last encoder families the Flax auto classes load, from text
+# ---------------------------------------------------------------------------
+
+LATE_DIR = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_late_families")
+# Each model's published config.json widths, with seeded weights, written as a
+# 1-label sequence classifier: the RM reads its encoder, the reranker all of
+# it.  max_seq_length is the reference's default (flax_rm.py:48), but 4096
+# for BigBird, its length.  RoFormer's tokenizer is WordPiece over a
+# 50,000-entry vocabulary: its own class cuts with jieba, which the port
+# refuses.
+LATE_MODELS = {
+    "paraphrase-albert-small-v2": dict(model_type="albert", num_hidden_layers=6, num_hidden_groups=1,
+                                       inner_group_num=1, hidden_size=768, embedding_size=128,
+                                       num_attention_heads=12, intermediate_size=3072, vocab_size=30_000,
+                                       max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12,
+                                       hidden_act="gelu_new", tokenizer="albert", num_labels=1, max_seq_length=512),
+    "roformer_chinese_base": dict(model_type="roformer", num_hidden_layers=12, hidden_size=768, num_attention_heads=12,
+                                  intermediate_size=3072, vocab_size=50_000, max_position_embeddings=1536,
+                                  type_vocab_size=2, layer_norm_eps=1e-12, hidden_act="gelu", rotary_value=False,
+                                  tokenizer="wordpiece-50k", num_labels=1, max_seq_length=512),
+    "bigbird-roberta-base": dict(model_type="big_bird", num_hidden_layers=12, hidden_size=768, num_attention_heads=12,
+                                 intermediate_size=3072, vocab_size=50_358, max_position_embeddings=4096,
+                                 type_vocab_size=2, layer_norm_eps=1e-12, hidden_act="gelu_new",
+                                 attention_type="block_sparse", block_size=64, num_random_blocks=3, pad_token_id=0,
+                                 tokenizer="spm", num_labels=1, max_seq_length=4096),
+    "efficient_mlm_m0.40": dict(model_type="roberta-prelayernorm", num_hidden_layers=24, hidden_size=1024,
+                                num_attention_heads=16, intermediate_size=4096, vocab_size=50_265,
+                                max_position_embeddings=514, type_vocab_size=1, layer_norm_eps=1e-5, pad_token_id=1,
+                                tokenizer="bpe", num_labels=1, max_seq_length=512),
+}
+BIGBIRD_BATCH = 16  # BigBird's max_batch_size at 4096 tokens
+
+
+def late_families_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 32, n_large: int = 16) -> None:
+    """Phase 28a: each model as an RM and as a 1-label reranker through its
+    entry points on the card and on the CPU in f32 (``n_docs`` docs of mixed
+    length in four sequence buckets, ``n_large`` for the 24-layer
+    RoBERTa-PreLayerNorm; BigBird's in the 256- and 512-token buckets only,
+    where its block-sparse attention runs): embeddings within 1e-4, scores
+    within 1e-4 * (1 + |s|); bf16 against f32 on the card for the RMs:
+    smallest cosine at least 0.99."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
+    from lotus_tpu_torch.models.torch_rm import bucketed_batches
+
+    for name, d in dirs.items():
+        shape = LATE_MODELS[name]
+        n = n_large if shape["num_hidden_layers"] > 12 else n_docs
+        quarter = n // 4
+        # BigBird's texts fill the 256- and 512-token buckets (1.4 tokens a word).
+        sparse = shape["model_type"] == "big_bird"
+        spans = ((100, 160), (100, 160), (220, 320), (220, 320)) if sparse else ((3, 10), (11, 24), (25, 50), (51, 100))
+        docs = [t for i, (lo, hi) in enumerate(spans) for t in synth_texts(vocab, quarter, lo, hi, 180 + i)]
+        seq = shape["max_seq_length"]
+        kw = dict(model=d, max_batch_size=16, max_seq_length=seq)
+        t0 = time.perf_counter()
+        card_rm = TorchSentenceEncoderRM(device=dev, **kw)
+        got = card_rm(docs)
+        want = TorchSentenceEncoderRM(device="cpu", **kw)(docs)
+        bf16 = TorchSentenceEncoderRM(device=dev, dtype=torch.bfloat16, **kw)(docs)
+        err = float(np.abs(got - want).max())
+        cos = float(np.sum(bf16 * got, axis=1).min())
+        buckets = sorted({a.shape[1] for _, a, _ in bucketed_batches(card_rm.tokenizer, docs, None, 16, seq, "cpu")})
+        say(f"  {name} ({shape['model_type']}, TorchSentenceEncoderRM, f32, buckets {buckets}): {got.shape} "
+            f"embeddings on the card vs the CPU: max abs err {err!r} (tol 1e-4) -> {'OK' if err <= 1e-4 else 'MISMATCH'}"
+            f"; bf16 on the card vs f32 on the card: smallest cosine {cos!r} (must reach 0.99); "
+            f"{time.perf_counter() - t0:.2f} s [{GPU}]")
+        assert got.shape == (n, shape["hidden_size"]) and bool(np.isfinite(got).all())
+        assert not sparse or buckets == [256, 512], f"BigBird's buckets {buckets}"
+        assert err <= 1e-4, f"{name}: the card's embeddings differ from the CPU's"
+        assert cos >= 0.99, f"{name}: bf16 embeddings drift from f32 (cosine {cos})"
+        del card_rm
+        t0 = time.perf_counter()
+        queries = synth_texts(vocab, 4, 3, 9, 186)
+        card_rr, cpu_rr = TorchCrossEncoderReranker(device=dev, **kw), TorchCrossEncoderReranker(device="cpu", **kw)
+        got, want = (np.concatenate([rr.score_pairs(q, docs[i * quarter : (i + 1) * quarter])
+                                     for i, q in enumerate(queries)]) for rr in (card_rr, cpu_rr))
+        err = float(np.abs(got - want).max())
+        ok = bool((np.abs(got - want) <= 1e-4 * (1 + np.abs(want))).all())
+        say(f"  {name} ({shape['model_type']}, TorchCrossEncoderReranker, 1 label, f32): {len(got)} pair scores on "
+            f"the card vs the CPU: max abs err {err!r} (tol 1e-4*(1+|s|)) -> {'OK' if ok else 'MISMATCH'}; scores "
+            f"{float(want.min())!r}..{float(want.max())!r}; {time.perf_counter() - t0:.2f} s [{GPU}]")
+        assert ok and bool(np.isfinite(got).all()), f"{name}: the card's scores differ from the CPU's"
+        del card_rr, cpu_rr
+
+
+def albert_phase(dev, vocab: list[str], dirs: dict, n: int = 65_536, nq: int = 1000, nlist: int = 128) -> int:
+    """Phase 28b, ALBERT at paraphrase-albert-small-v2 widths: ``n`` of
+    config 2's docs (8-48 words, 5% of the words non-ASCII, so ``NFKD``,
+    ``StripAccents`` and the charsmap have work) through
+    ``TorchSentenceEncoderRM`` in bf16 at max_batch_size 64, into an int8 IVF
+    store (nlist 128, block-aligned: K1) through ``ivf_text_store``.
+    Returns K1's launches."""
+    import torch
+
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+
+    k = 5
+    t0 = time.perf_counter()
+    right = multilingual(synth_texts(vocab, n, 8, 48, 71, per_topic=k), 72, share=0.05)
+    left = multilingual(synth_texts(vocab, n, 8, 48, 70, per_topic=k)[:nq], 73, share=0.05)
+    say(f"  {n:,} docs + {nq:,} queries of 8-48 words (5% of words non-ASCII) made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rm = TorchSentenceEncoderRM(model=dirs["paraphrase-albert-small-v2"], max_batch_size=CONFIG2_BATCH,
+                                dtype=torch.bfloat16, device=dev)
+    right_emb, fig = encode_split(rm, right)
+    print_split(f"paraphrase-albert-small-v2 (ALBERT) bf16, max_batch_size {CONFIG2_BATCH}", n, fig, BF16_OPS_PER_S,
+                "989 TFLOP/s bf16")
+    print_tokenizer("Unigram + NFKD + charsmap", right, fig)
+    launches, _, index_dir = ivf_text_store(dev, "ALBERT", right, right_emb, rm(left), k, nlist,
+                                            LATE_MODELS["paraphrase-albert-small-v2"]["hidden_size"])
+    shutil.rmtree(index_dir, ignore_errors=True)
+    return launches
+
+
+def bigbird_phase(dev, vocab: list[str], dirs: dict, n: int = 1024, nq: int = 256, top: int = 100,
+                  words: tuple[int, int] = (2000, 3000)) -> tuple[int, tuple]:
+    """Phase 28c, BigBird at bigbird-roberta-base widths at its real use:
+    ``n`` long documents (``words`` words, each past 2048 tokens, so every
+    batch of BIGBIRD_BATCH lands in the 4096-token bucket and block-sparse
+    attention runs at full length) through ``TorchSentenceEncoderRM`` in
+    bf16, into a Flat store through ``flat_text_store`` (K2 at d 768).  The
+    queries are 200 words drawn from a document's first 400: the reference's
+    block-sparse attention fails below 256 tokens, so a short query cannot be
+    embedded at all.  Returns K2's launches and figures."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+
+    t0 = time.perf_counter()
+    passages = synth_texts(vocab, n, *words, 90, per_topic=K)
+    queries = [" ".join(np.random.default_rng(91 + i).choice(passages[j].split()[:400], 200))
+               for i, j in enumerate(np.random.default_rng(92).integers(0, n, nq))]
+    say(f"  {n:,} documents of {words[0]:,}-{words[1]:,} words, {nq} queries of 200 words from a document's "
+        f"first 400; made in {time.perf_counter() - t0:.2f} s")
+    seq = LATE_MODELS["bigbird-roberta-base"]["max_seq_length"]
+    rm = TorchSentenceEncoderRM(model=dirs["bigbird-roberta-base"], max_batch_size=BIGBIRD_BATCH, max_seq_length=seq,
+                                dtype=torch.bfloat16, device=dev)
+    emb, fig = encode_split(rm, passages)
+    print_split(f"bigbird-roberta-base (BigBird, block_sparse) bf16, max_batch_size {BIGBIRD_BATCH}, "
+                f"max_seq_length {seq}", n, fig, BF16_OPS_PER_S, "989 TFLOP/s bf16")
+    print_tokenizer("sentencepiece Unigram", passages, fig)
+    batches = -(-n // BIGBIRD_BATCH)
+    assert fig["padded"] == batches * BIGBIRD_BATCH * seq, f"a BigBird batch missed the {seq}-token bucket"
+    return flat_text_store(dev, "BigBird", rm, passages, emb, queries, top,
+                           LATE_MODELS["bigbird-roberta-base"]["hidden_size"])
+
+
+def late_phases(dev, vocab: list[str]) -> tuple[int, int]:
+    """Phase 28: the checkpoints written, card against CPU, ALBERT through
+    K1, BigBird at 4096 tokens through K2; the files deleted.  Returns K1's
+    and K2's launches."""
+    with Phase("the last encoder families (ALBERT, RoFormer, BigBird, RoBERTa-PreLayerNorm) at published widths "
+               "(seeded weights): card against CPU, bf16 against f32"):
+        t_phase = time.perf_counter()
+        t0 = time.perf_counter()
+        shutil.rmtree(LATE_DIR, ignore_errors=True)
+        dirs = write_family_models(vocab, dev, seed=20, models=LATE_MODELS, root=LATE_DIR)
+        size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(LATE_DIR) for f in fs)
+        say(f"  {len(dirs)} checkpoints ({size / 1e9:.3f} GB: model.safetensors, config.json, tokenizer.json) written "
+            f"in {time.perf_counter() - t0:.2f} s under {os.path.relpath(LATE_DIR, REPO)}")
+        late_families_phase(dev, vocab, dirs)
+    with Phase("ALBERT (paraphrase-albert-small-v2 widths) from text: IVF int8, K1"):
+        k1 = albert_phase(dev, vocab, dirs)
+    with Phase("BigBird (bigbird-roberta-base widths, block_sparse at 4096 tokens) from text: Flat, K2"):
+        k2, _ = bigbird_phase(dev, vocab, dirs)
+    shutil.rmtree(LATE_DIR, ignore_errors=True)
+    say(f"  phase 28: {time.perf_counter() - t_phase:.1f} s wall [{GPU}]")
+    return k1, k2
+
+
 def text_phases(dev) -> tuple[int, int, int, tuple]:
-    """Phases 23-27 (the models, configs 1-2 from text, profiling, the
+    """Phases 23-28 (the models, configs 1-2 from text, profiling, the
     families past BERT).  Returns K1's and K2's launches on their main
     paths, phase 27's K2 launches and K2's figures at d 1024."""
     with Phase("models at published widths (seeded weights): card against CPU, bf16 against f32"):
@@ -2542,8 +2839,9 @@ def text_phases(dev) -> tuple[int, int, int, tuple]:
         profiling_phase()
     shutil.rmtree(MODELS_DIR, ignore_errors=True)
     fam_k1, fam_k2, k2_d1024 = families_phases(dev, vocab)
+    late_k1, late_k2 = late_phases(dev, vocab)
     shutil.rmtree(TEXT_INDEX_DIR, ignore_errors=True)
-    return k1 + fam_k1, k2 + fam_k2, fam_k2, k2_d1024
+    return k1 + fam_k1 + late_k1, k2 + fam_k2 + late_k2, fam_k2, k2_d1024
 
 
 def config4_paths(dev) -> dict:

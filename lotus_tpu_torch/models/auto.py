@@ -4,11 +4,14 @@ local checkpoint directory.
 
 ``load_encoder`` dispatches on ``config.json``'s ``model_type`` to the
 families in ``checkpoint.FAMILIES`` (bert, roberta, xlm-roberta,
-distilbert, electra); any other type (albert, roformer, big_bird,
-roberta-prelayernorm, deberta-v2, ...) raises ``NotImplementedError``
-naming it.  ``load_tokenizer`` reads ``tokenizer.json`` first, then
-``vocab.txt`` (WordPiece), then ``vocab.json`` + ``merges.txt``
-(byte-level BPE).
+distilbert, electra, albert, roformer, big_bird, roberta-prelayernorm);
+any other type raises ``NotImplementedError`` naming it: of the types the
+reference's sequence-classification auto class maps, bart and mbart, and
+of those ``FlaxAutoModel`` maps, the decoders, the encoder-decoders and
+the vision and audio models.  ``load_tokenizer`` reads ``tokenizer.json``
+first, then ``vocab.txt`` (WordPiece), then ``vocab.json`` + ``merges.txt``
+(byte-level BPE); a directory whose tokenizer is RoFormer's jieba one is
+refused (``tokenizer_json``).
 """
 
 from __future__ import annotations

@@ -6,14 +6,17 @@ which ``JaxSentenceEncoderRM`` and ``JaxCrossEncoderReranker`` run as XLA:
 word + token-type + position embeddings and LayerNorm; per layer q/k/v, the
 query scaled by 1/sqrt(head size) before the product, an additive mask bias
 of ``finfo(dtype).min`` where the mask is 0, softmax, the output dense plus
-the residual plus LayerNorm, the intermediate dense with the exact erf GELU,
-the output dense plus the residual plus LayerNorm; the pooler's dense and
-tanh on ``[CLS]``; the classifier on the pooled row.  Plain ``nn.Linear``,
-``torch.matmul`` and ``softmax``: no fused attention.
+the residual plus LayerNorm, the intermediate dense with ``hidden_act``
+(``ACTIVATIONS``, Flax's ``ACT2FN``: ``gelu`` the exact erf form,
+``gelu_new`` the tanh form), the output dense plus the residual plus
+LayerNorm; the pooler's dense and tanh on ``[CLS]``; the classifier on the
+pooled row.  Plain ``nn.Linear``, ``torch.matmul`` and ``softmax``: no
+fused attention.
 
 ``EncoderConfig`` reads a ``config.json`` for every family; RoBERTa
-(``roberta.py``) and ELECTRA (``electra.py``) run these layers under their
-own embeddings and heads.
+(``roberta.py``), ELECTRA (``electra.py``), RoFormer (``roformer.py``) and
+BigBird (``big_bird.py``) run these layers under their own embeddings,
+attention and heads.
 """
 
 from __future__ import annotations
@@ -22,32 +25,40 @@ import json
 import math
 import os
 from dataclasses import dataclass
+from functools import partial
 from typing import ClassVar
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+# Flax's ACT2FN for the activations the port runs: "gelu" is the exact erf
+# form, "gelu_new" the tanh form (nn.gelu(approximate=True)).
+ACTIVATIONS = {"gelu": F.gelu, "gelu_new": partial(F.gelu, approximate="tanh")}
+
 
 class EncoderConfig:
     """What every family's config shares: it is read from ``config.json``,
     whose ``model_type`` must be one of ``model_types`` and whose activation
-    (under ``activation_key``) the exact GELU; the dataclass fields are read
-    under their own names, and ``num_labels`` from ``id2label``."""
+    (under ``activation_key``) one of ``ACTIVATIONS``; the dataclass fields
+    are read under their own names, and ``num_labels`` from ``id2label``."""
 
     model_types: ClassVar[tuple[str, ...]] = ()
     activation_key: ClassVar[str] = "hidden_act"
 
     @classmethod
     def from_dict(cls, cfg: dict):
-        """Read a ``config.json``; another model type, or any activation but
-        the exact GELU, raises ``NotImplementedError``."""
+        """Read a ``config.json``; another model type, an activation outside
+        ``ACTIVATIONS`` or relative positions raise ``NotImplementedError``."""
         model_type = cfg.get("model_type", cls.model_types[0])
         if model_type not in cls.model_types:
             raise NotImplementedError(f"model_type {model_type!r}: {cls.__name__} reads {', '.join(cls.model_types)}")
-        for key, want in ((cls.activation_key, "gelu"), ("position_embedding_type", "absolute")):
-            if cfg.get(key, want) != want:
-                raise NotImplementedError(f"{key} {cfg[key]!r}: the port runs {want!r} only")
+        act = cfg.get(cls.activation_key, "gelu")
+        if act not in ACTIVATIONS:
+            raise NotImplementedError(f"{cls.activation_key} {act!r}: the port runs {', '.join(map(repr, ACTIVATIONS))}")
+        if cfg.get("position_embedding_type", "absolute") != "absolute":
+            raise NotImplementedError(f"position_embedding_type {cfg['position_embedding_type']!r}: the port runs "
+                                      f"'absolute' only")
         num_labels = len(cfg["id2label"]) if "id2label" in cfg else cfg.get("num_labels", 2)
         fields = {k: cfg[k] for k in cls.__dataclass_fields__ if k in cfg and k != "num_labels"}
         return cls(**fields, num_labels=int(num_labels))
@@ -72,6 +83,7 @@ class BertConfig(EncoderConfig):
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    hidden_act: str = "gelu"
     num_labels: int = 2
 
 
@@ -104,23 +116,33 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, bias: bool = True):
         super().__init__()
         self.heads = cfg.num_attention_heads
-        self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size, bias=bias)
+        self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size, bias=bias)
+        self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size, bias=bias)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        q, k, v = self.heads_of(x)
+        return self.merge(self.attend(q, k, v, bias))
+
+    def heads_of(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """q, k, v of ``x`` (b, s, h), each (b, heads, s, head size)."""
         b, s, h = x.shape
+        return tuple(t(x).view(b, s, self.heads, h // self.heads).transpose(1, 2)
+                     for t in (self.query, self.key, self.value))
 
-        def split(t):  # (b, s, h) -> (b, heads, s, head size)
-            return t.view(b, s, self.heads, h // self.heads).transpose(1, 2)
+    @staticmethod
+    def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        scores = torch.matmul(q / math.sqrt(q.shape[-1]), k.transpose(-1, -2)) + bias
+        return torch.matmul(torch.softmax(scores, dim=-1), v)
 
-        q = split(self.query(x)) / math.sqrt(h // self.heads)
-        scores = torch.matmul(q, split(self.key(x)).transpose(-1, -2)) + bias
-        ctx = torch.matmul(torch.softmax(scores, dim=-1), split(self.value(x)))
-        return ctx.transpose(1, 2).reshape(b, s, h)
+    @staticmethod
+    def merge(ctx: torch.Tensor) -> torch.Tensor:
+        """(b, heads, s, head size) -> (b, s, h)."""
+        b, heads, s, d = ctx.shape
+        return ctx.transpose(1, 2).reshape(b, s, heads * d)
 
 
 class BertSelfOutput(nn.Module):
@@ -134,9 +156,9 @@ class BertSelfOutput(nn.Module):
 
 
 class BertAttention(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, attention: type[nn.Module] = BertSelfAttention):
         super().__init__()
-        self.self = BertSelfAttention(cfg)
+        self.self = attention(cfg)
         self.output = BertSelfOutput(cfg, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -147,15 +169,16 @@ class BertIntermediate(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.act = ACTIVATIONS[cfg.hidden_act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.gelu(self.dense(x))  # hidden_act "gelu": the exact erf form
+        return self.act(self.dense(x))
 
 
 class BertLayer(nn.Module):
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, attention: type[nn.Module] = BertSelfAttention):
         super().__init__()
-        self.attention = BertAttention(cfg)
+        self.attention = BertAttention(cfg, attention)
         self.intermediate = BertIntermediate(cfg)
         self.output = BertSelfOutput(cfg, cfg.intermediate_size)  # HF's BertOutput: the same shape of block
 
@@ -165,11 +188,15 @@ class BertLayer(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    def __init__(self, cfg: BertConfig):
-        super().__init__()
-        self.layer = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_hidden_layers))
+    """The layers; ``attention`` is the self-attention module of each
+    (BERT's, or a family's that reads other inputs: ``bias`` is handed to
+    it as the family's encoder gives it)."""
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def __init__(self, cfg: BertConfig, attention: type[nn.Module] = BertSelfAttention):
+        super().__init__()
+        self.layer = nn.ModuleList(BertLayer(cfg, attention) for _ in range(cfg.num_hidden_layers))
+
+    def forward(self, x: torch.Tensor, bias) -> torch.Tensor:
         for layer in self.layer:
             x = layer(x, bias)
         return x
@@ -191,13 +218,14 @@ class BertModel(nn.Module):
 
     base_model_prefix = "bert"
     embeddings_cls = BertEmbeddings
+    encoder_cls = BertEncoder
     absent_token_type = 0  # the segment Flax gives every token when the caller passes no token_type_ids
 
     def __init__(self, cfg: BertConfig, add_pooling_layer: bool = True):
         super().__init__()
         self.config = cfg
         self.embeddings = self.embeddings_cls(cfg)
-        self.encoder = BertEncoder(cfg)
+        self.encoder = self.encoder_cls(cfg)
         self.pooler = BertPooler(cfg) if add_pooling_layer else None
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
@@ -205,10 +233,15 @@ class BertModel(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.full_like(input_ids, self.absent_token_type)
         x = self.embed(input_ids, token_type_ids)
-        return self.encoder(x, mask_bias(attention_mask, x.dtype))
+        return self.encoder(x, self.attention_input(attention_mask, x.dtype))
 
     def embed(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor) -> torch.Tensor:
         return self.embeddings(input_ids, token_type_ids)
+
+    def attention_input(self, attention_mask: torch.Tensor, dtype: torch.dtype):
+        """What the encoder hands each layer's self-attention: Flax's
+        additive mask bias."""
+        return mask_bias(attention_mask, dtype)
 
 
 class BertForSequenceClassification(nn.Module):

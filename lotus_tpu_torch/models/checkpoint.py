@@ -8,9 +8,16 @@ little-endian buffers), ``pytorch_model.bin`` (``torch.load`` with
 renamed by ``flax_state_dict``), in that order.  ``FAMILIES`` maps each
 ``model_type`` the port runs to its config and modules; ``fit_state_dict``
 loads any of the three by name, with or without the family's prefix
-(``bert.``, ``roberta.``, ``distilbert.``, ``electra.``), and drops the heads
-the module has no place for (a pretraining head, as most public Flax files
-carry: ``lm_head``, ``cls``, ``discriminator_predictions``).
+(``bert.``, ``roberta.``, ``distilbert.``, ``electra.``, ``albert.``,
+``roformer.``, ``roberta_prelayernorm.``; BigBird's is ``bert.``), and drops
+the heads the module has no place for (a pretraining head, as most public
+Flax files carry: ``lm_head``, ``cls``, ``discriminator_predictions``,
+ALBERT's ``predictions`` and ``sop_classifier``).  The families' torch and
+Flax names are the same modulo ``flax_state_dict``'s renames (ALBERT's
+shared ``encoder.albert_layer_groups.<g>.albert_layers.<j>`` and
+RoBERTa-PreLayerNorm's top-level ``LayerNorm`` included); RoFormer's
+``encoder.embed_positions.weight``, which only torch files carry, is held to
+the computed sinusoid table and not loaded.
 """
 
 from __future__ import annotations
@@ -24,11 +31,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from lotus_tpu_torch.models.albert import AlbertConfig, AlbertForSequenceClassification, AlbertModel
 from lotus_tpu_torch.models.bert import BertConfig, BertForSequenceClassification, BertModel, EncoderConfig
+from lotus_tpu_torch.models.big_bird import BigBirdConfig, BigBirdForSequenceClassification, BigBirdModel
 from lotus_tpu_torch.models.distilbert import DistilBertConfig, DistilBertForSequenceClassification, DistilBertModel
 from lotus_tpu_torch.models.electra import ElectraConfig, ElectraForSequenceClassification, ElectraModel
 from lotus_tpu_torch.models.msgpack import read_flax_msgpack
 from lotus_tpu_torch.models.roberta import RobertaConfig, RobertaForSequenceClassification, RobertaModel
+from lotus_tpu_torch.models.roberta_prelayernorm import (
+    RobertaPreLayerNormConfig, RobertaPreLayerNormForSequenceClassification, RobertaPreLayerNormModel,
+)
+from lotus_tpu_torch.models.roformer import RoFormerConfig, RoFormerForSequenceClassification, RoFormerModel
 
 SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16, "I64": torch.int64}
 # model_type -> (config, encoder, sequence classifier): the families
@@ -40,8 +53,14 @@ FAMILIES: dict[str, tuple[type[EncoderConfig], type[nn.Module], type[nn.Module]]
     "xlm-roberta": (RobertaConfig, RobertaModel, RobertaForSequenceClassification),
     "distilbert": (DistilBertConfig, DistilBertModel, DistilBertForSequenceClassification),
     "electra": (ElectraConfig, ElectraModel, ElectraForSequenceClassification),
+    "albert": (AlbertConfig, AlbertModel, AlbertForSequenceClassification),
+    "roformer": (RoFormerConfig, RoFormerModel, RoFormerForSequenceClassification),
+    "big_bird": (BigBirdConfig, BigBirdModel, BigBirdForSequenceClassification),
+    "roberta-prelayernorm": (RobertaPreLayerNormConfig, RobertaPreLayerNormModel,
+                             RobertaPreLayerNormForSequenceClassification),
 }
-_POOLED = (BertModel, RobertaModel)  # the encoders that carry a pooler unless told not to
+# The encoders that carry a pooler unless told not to.
+_POOLED = (BertModel, RobertaModel, AlbertModel, BigBirdModel, RobertaPreLayerNormModel)
 
 
 def encoder_config(cfg: dict) -> EncoderConfig:
@@ -110,7 +129,8 @@ def fit_state_dict(module: nn.Module, state: dict[str, torch.Tensor]) -> nn.Modu
     name, with or without the family's prefix.  Every parameter of the
     module must be present; weights it has no place for (an MLM head, a
     pooler the module leaves out, an old ``position_ids`` buffer, a learned
-    position table where DistilBERT's is sinusoidal) are ignored.  The
+    position table where DistilBERT's is sinusoidal) are ignored (RoFormer's
+    sinusoid table is checked as it loads, ``roformer.check_table``).  The
     module's parameters become ``state``'s tensors (so a module built on the
     meta device takes them without a copy)."""
     prefix = module.base_model_prefix + "."

@@ -8,9 +8,10 @@ checkpoint), no token types, LayerNorm at eps 1e-12 (``:102-143``); per
 layer ``attention.{q_lin,k_lin,v_lin,out_lin}`` with the query scaled by
 1/sqrt(head size) and the mask applied as ``scores - 1e30 * (1 - mask)``
 (``:229``; not BERT's ``finfo.min`` bias, and in bf16 the two give other
-logits), ``sa_layer_norm`` after the residual, ``ffn.{lin1,lin2}`` with the
-exact GELU and ``output_layer_norm``.  The sequence classifier is
-``pre_classifier``, ReLU and ``classifier`` on ``[CLS]`` (``:619-652``).
+logits), ``sa_layer_norm`` after the residual, ``ffn.{lin1,lin2}`` with
+``activation`` (``bert.ACTIVATIONS``) and ``output_layer_norm``.  The
+sequence classifier is ``pre_classifier``, ReLU and ``classifier`` on
+``[CLS]`` (``:619-652``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lotus_tpu_torch.models.bert import EncoderConfig
+from lotus_tpu_torch.models.bert import ACTIVATIONS, EncoderConfig
 
 LAYER_NORM_EPS = 1e-12  # fixed in the reference's modules, not read from the config
 
@@ -44,6 +45,7 @@ class DistilBertConfig(EncoderConfig):
     n_heads: int = 12
     dim: int = 768
     hidden_dim: int = 3072
+    activation: str = "gelu"
     num_labels: int = 2
 
     @property
@@ -112,9 +114,10 @@ class FFN(nn.Module):
         super().__init__()
         self.lin1 = nn.Linear(cfg.dim, cfg.hidden_dim)
         self.lin2 = nn.Linear(cfg.hidden_dim, cfg.dim)
+        self.act = ACTIVATIONS[cfg.activation]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lin2(F.gelu(self.lin1(x)))  # activation "gelu": the exact erf form
+        return self.lin2(self.act(self.lin1(x)))
 
 
 class TransformerBlock(nn.Module):

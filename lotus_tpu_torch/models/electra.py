@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lotus_tpu_torch.models.bert import BertConfig, BertEmbeddings, BertEncoder, BertModel
+from lotus_tpu_torch.models.roberta import RobertaClassificationHead
 
 
 @dataclass(frozen=True)
@@ -60,19 +61,10 @@ class ElectraModel(BertModel):
         return x if self.embeddings_project is None else self.embeddings_project(x)
 
 
-class ElectraClassificationHead(nn.Module):
-    def __init__(self, cfg: ElectraConfig):
-        super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.out_proj = nn.Linear(cfg.hidden_size, cfg.num_labels)
-
-    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
-        return self.out_proj(F.gelu(self.dense(hidden[:, 0])))  # the exact erf GELU, as the reference's head
-
-
 class ElectraForSequenceClassification(nn.Module):
-    """The encoder and ``ElectraClassificationHead``: ``forward`` gives the
-    logits (b, num_labels)."""
+    """The encoder and the reference's ``ElectraClassificationHead``
+    (RoBERTa's head with the exact GELU in place of tanh): ``forward`` gives
+    the logits (b, num_labels)."""
 
     base_model_prefix = "electra"
 
@@ -80,7 +72,7 @@ class ElectraForSequenceClassification(nn.Module):
         super().__init__()
         self.config = cfg
         self.electra = ElectraModel(cfg)
-        self.classifier = ElectraClassificationHead(cfg)
+        self.classifier = RobertaClassificationHead(cfg, F.gelu)  # the exact erf GELU, as the reference's head
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: torch.Tensor | None = None) -> torch.Tensor:

@@ -16,7 +16,7 @@ and every pad at ``pad_token_id``.  The sequence classifier is
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import ClassVar
+from typing import Callable, ClassVar
 
 import torch
 from torch import nn
@@ -53,13 +53,17 @@ class RobertaModel(BertModel):
 
 
 class RobertaClassificationHead(nn.Module):
-    def __init__(self, cfg: RobertaConfig):
+    """``dense``, ``act`` (RoBERTa's tanh; ELECTRA, RoFormer and BigBird
+    give theirs) and ``out_proj`` on token 0."""
+
+    def __init__(self, cfg: BertConfig, act: Callable[[torch.Tensor], torch.Tensor] = torch.tanh):
         super().__init__()
         self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.out_proj = nn.Linear(cfg.hidden_size, cfg.num_labels)
+        self.act = act
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:
-        return self.out_proj(torch.tanh(self.dense(hidden[:, 0])))
+        return self.out_proj(self.act(self.dense(hidden[:, 0])))
 
 
 class RobertaForSequenceClassification(nn.Module):

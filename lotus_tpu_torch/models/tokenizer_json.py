@@ -10,7 +10,7 @@ One text goes through, in order:
    word; the other pieces are normalized, and then the ``normalized: true``
    tokens are split out of them;
 2. the normalizer: ``Sequence``, ``BertNormalizer``, ``NFC`` / ``NFD`` /
-   ``NFKC``, ``Lowercase``, ``Strip``, ``StripAccents``,
+   ``NFKC`` / ``NFKD``, ``Lowercase``, ``Strip``, ``StripAccents``,
    ``Replace`` (a string or a ``Regex``) and ``Precompiled``
    (``charsmap.py``);
 3. the pre-tokenizer: ``Sequence``, ``BertPreTokenizer``, ``ByteLevel``
@@ -33,6 +33,14 @@ a ``ByteLevel`` pre-tokenizer.  Padding uses the tokenizer's own
 vocabulary files into: ``from_vocab_txt`` (BERT's WordPiece) and
 ``from_vocab_merges`` (RoBERTa's byte-level BPE).  Encodings are int64
 numpy arrays.
+
+A directory whose tokenizer ``AutoTokenizer`` would build as
+``RoFormerTokenizer`` (named by ``tokenizer_config.json`` or ``config.json``,
+or a ``roformer`` model without a tokenizer class) is refused with
+``NotImplementedError``: ``RoFormerTokenizerFast`` cuts words with jieba
+(a custom ``JiebaPreTokenizer`` over ``rjieba``) that ``tokenizer.json``
+does not record (``save_pretrained`` writes a ``BertPreTokenizer`` in its
+place), so reading the file would tokenize differently without an error.
 """
 
 from __future__ import annotations
@@ -101,7 +109,7 @@ def normalizer(spec: dict | None) -> Callable[[str], str] | None:
         return partial(bert_normalize, clean_text=spec.get("clean_text", True),
                        handle_chinese_chars=spec.get("handle_chinese_chars", True),
                        strip_accents=lower if strip is None else strip, lowercase_text=lower)
-    if kind in ("NFC", "NFD", "NFKC"):
+    if kind in ("NFC", "NFD", "NFKC", "NFKD"):
         return partial(unicodedata.normalize, kind)
     if kind == "Lowercase":
         return lowercase
@@ -114,7 +122,7 @@ def normalizer(spec: dict | None) -> Callable[[str], str] | None:
     if kind == "Precompiled":
         return Charsmap(base64.b64decode(spec["precompiled_charsmap"])).normalize
     raise NotImplementedError(f"normalizer {kind!r}: the port reads Sequence, BertNormalizer, NFC, NFD, NFKC, "
-                              f"Lowercase, Strip, StripAccents, Replace and Precompiled")
+                              f"NFKD, Lowercase, Strip, StripAccents, Replace and Precompiled")
 
 
 # ---- pre-tokenizers ----------------------------------------------------------
@@ -516,13 +524,29 @@ class JsonTokenizer:
         return {"input_ids": ids, "token_type_ids": types, "attention_mask": mask}
 
 
+JIEBA_TOKENIZERS = ("RoFormerTokenizer", "RoFormerTokenizerFast")
+
+
+def _read_json(path: str, name: str) -> dict:
+    p = os.path.join(path, name)
+    if not os.path.exists(p):
+        return {}
+    with open(p, encoding="utf-8") as f:
+        return {k: v for k, v in json.load(f).items() if v is not None}
+
+
 def _read_config(path: str) -> dict:
     """``tokenizer_config.json``, its special tokens completed from
-    ``special_tokens_map.json``; empty where neither is there."""
-    config: dict = {}
-    for name in ("special_tokens_map.json", "tokenizer_config.json"):
-        p = os.path.join(path, name)
-        if os.path.exists(p):
-            with open(p, encoding="utf-8") as f:
-                config.update({k: v for k, v in json.load(f).items() if v is not None})
+    ``special_tokens_map.json``; empty where neither is there.  Refuses a
+    directory whose tokenizer is RoFormer's (jieba)."""
+    config = {**_read_json(path, "special_tokens_map.json"), **_read_json(path, "tokenizer_config.json")}
+    model = _read_json(path, "config.json")
+    # AutoTokenizer's order: tokenizer_config's class, config.json's, the model type's.
+    cls = config.get("tokenizer_class") or model.get("tokenizer_class")
+    if cls in JIEBA_TOKENIZERS or (cls is None and model.get("model_type") == "roformer"):
+        raise NotImplementedError(
+            f"{path}: the tokenizer is {cls or 'RoFormerTokenizer'}, which cuts Chinese words with jieba (rjieba) "
+            f"before WordPiece; tokenizer.json does not record that cut, and the port has no jieba dictionary yet, "
+            f"so the cut waits until one is in the repository (name a WordPiece tokenizer_class such as "
+            f"BertTokenizer to read this directory without jieba)")
     return config

@@ -1,5 +1,6 @@
 """Cross-encoder reranker on the card: a family's sequence classifier
-(BERT, RoBERTa, XLM-R, DistilBERT or ELECTRA) in PyTorch.
+(BERT, RoBERTa, XLM-R, DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird or
+RoBERTa-PreLayerNorm) in PyTorch.
 
 The port of ``JaxCrossEncoderReranker``
 (``lotus_tpu/models/flax_reranker.py:27-107``), which fills the role of the
@@ -51,7 +52,8 @@ class TorchCrossEncoderReranker(Reranker):
                                                  self.max_seq_length, self.device):
                 # No token_type_ids, as the reference passes none: it passes
                 # only input_ids and attention_mask (flax_reranker.py:96-100).
-                # Flax BERT and RoBERTa then zero them and Flax ELECTRA sets
+                # Flax BERT, RoBERTa, ALBERT, RoFormer, BigBird and
+                # RoBERTa-PreLayerNorm then zero them and Flax ELECTRA sets
                 # them all to 1 (ElectraModel.absent_token_type), where
                 # sentence-transformers' CrossEncoder gives the doc segment 1;
                 # DistilBERT has no segments.

@@ -109,8 +109,8 @@ def test_msgpack_only_and_other_model_types_raise(tmp_path):
     """A malformed ``flax_model.msgpack`` raises ``ValueError`` naming the
     file; the model types the port does not run raise
     ``NotImplementedError`` naming the type, through ``config.json`` and
-    through ``BertConfig``; so does an activation other than the exact
-    GELU."""
+    through ``BertConfig`` (which reads ``bert`` alone); so does an
+    activation outside the table (``gelu`` and ``gelu_new``)."""
     cfg_path = tmp_path / "cfg"
     write_bert(str(cfg_path))
     cfg = json.loads((cfg_path / "config.json").read_text())
@@ -123,11 +123,13 @@ def test_msgpack_only_and_other_model_types_raise(tmp_path):
             load_state_dict(str(d))
     with pytest.raises(FileNotFoundError):
         load_encoder(str(tmp_path / "absent"))
-    for model_type in ("albert", "roformer", "big_bird", "roberta-prelayernorm", "deberta-v2"):
+    for model_type in ("bart", "mbart", "t5", "deberta-v2"):
         (cfg_path / "config.json").write_text(json.dumps({**cfg, "model_type": model_type}))
         with pytest.raises(NotImplementedError, match=model_type):
             load_encoder(str(cfg_path))
+    for model_type in ("albert", "roformer", "big_bird", "roberta-prelayernorm", "deberta-v2"):
         with pytest.raises(NotImplementedError, match=model_type):
             BertConfig.from_dict({"model_type": model_type, "vocab_size": 10})
-    with pytest.raises(NotImplementedError, match="gelu_new"):
-        BertConfig.from_dict({"model_type": "bert", "vocab_size": 10, "hidden_act": "gelu_new"})
+    with pytest.raises(NotImplementedError, match="silu"):
+        BertConfig.from_dict({"model_type": "bert", "vocab_size": 10, "hidden_act": "silu"})
+    assert BertConfig.from_dict({"model_type": "bert", "vocab_size": 10, "hidden_act": "gelu_new"}).hidden_act == "gelu_new"

@@ -1,7 +1,10 @@
 """The encoder families past BERT in the port (``roberta.py``,
-``distilbert.py``, ``electra.py``, loaded through ``auto.py``) against the
-JAX package's classes on tiny checkpoints (width 32, 2 layers) saved with
-``save_pretrained``, weights drawn wide (std 0.2) so outputs spread:
+``distilbert.py``, ``electra.py``, ``albert.py``, ``roformer.py``,
+``big_bird.py`` at ``original_full``, ``roberta_prelayernorm.py``, loaded
+through ``auto.py``) against the JAX package's classes on tiny checkpoints
+(width 32, 2 layers) saved with ``save_pretrained``, weights drawn wide
+(std 0.2) so outputs spread (BigBird's block-sparse attention is
+``test_torch_big_bird.py``'s):
 
 - ``TorchSentenceEncoderRM(device="cpu")`` equals ``JaxSentenceEncoderRM``
   within 1e-5 for mean and CLS pooling, normalised and not, over a padded
@@ -11,8 +14,12 @@ JAX package's classes on tiny checkpoints (width 32, 2 layers) saved with
 - ``from_flax_params`` of the Flax model's own parameters gives its outputs
   within 1e-5, encoder and classifier;
 - the variants: ELECTRA with ``embedding_size`` below the hidden size
-  (``embeddings_project``), DistilBERT with sinusoidal positions, RoBERTa
-  at a 512-token bucket (positions up to 513);
+  (``embeddings_project``), DistilBERT with sinusoidal positions, ALBERT
+  with 3 layers over 2 shared groups of 2 inner layers, RoFormer with
+  ``rotary_value``, RoBERTa at a 512-token bucket (positions up to 513);
+- RoFormer with ``embedding_size`` other than the hidden size, which the
+  reference cannot load, is refused; a torch checkpoint's sinusoid table is
+  held to the computed one;
 - ELECTRA's segment quirk, beside BERT's in ``test_torch_reranker.py``: the
   reference passes no segment ids, and Flax ELECTRA then puts every token in
   segment 1, so both differ from the torch model given the pair's segment
@@ -38,6 +45,8 @@ VARIANTS = {
     **{f: (f, {}) for f in FAMILIES},
     "electra-factorized": ("electra", {"embedding_size": 16}),
     "distilbert-sinusoidal": ("distilbert", {"sinusoidal_pos_embds": True}),
+    "albert-groups": ("albert", {"num_hidden_layers": 3, "num_hidden_groups": 2, "inner_group_num": 2}),
+    "roformer-rotary-value": ("roformer", {"rotary_value": True}),
 }
 DOCS = seeded_texts(5, 6, seeded_words(0, 200), 1, 6) + ["", " ".join(seeded_words(1, 14)), "Hello, WORLD! naïve ①"]
 QUERY = "hello world " + " ".join(seeded_words(0, 3))
@@ -148,13 +157,47 @@ def test_loaded_modules_and_unported_types(checkpoints, tmp_path):
     kinds = {name: type(load_encoder(dirs[0])).__name__ for name, dirs in checkpoints.items()}
     assert kinds == {"roberta": "RobertaModel", "xlm-roberta": "RobertaModel", "distilbert": "DistilBertModel",
                      "electra": "ElectraModel", "electra-factorized": "ElectraModel",
-                     "distilbert-sinusoidal": "DistilBertModel"}
+                     "distilbert-sinusoidal": "DistilBertModel", "albert": "AlbertModel",
+                     "albert-groups": "AlbertModel", "roformer": "RoFormerModel",
+                     "roformer-rotary-value": "RoFormerModel", "big_bird": "BigBirdModel",
+                     "roberta-prelayernorm": "RobertaPreLayerNormModel"}
     assert load_encoder(checkpoints["roberta"][0]).pooler is None
     assert load_encoder(checkpoints["electra-factorized"][0]).embeddings_project is not None
     assert load_encoder(checkpoints["electra"][0]).embeddings_project is None
-    for model_type in ("albert", "roformer", "big_bird", "roberta-prelayernorm", "deberta-v2", "t5"):
+    # ALBERT's groups are shared: 3 layers run 2 group objects (0, 0, 1).
+    groups = load_encoder(checkpoints["albert-groups"][0]).encoder.albert_layer_groups
+    assert len(groups) == 2 and all(len(g.albert_layers) == 2 for g in groups)
+    for model_type in ("bart", "mbart", "deberta-v2", "t5"):
         with pytest.raises(NotImplementedError, match=model_type):
             encoder_config({"model_type": model_type, "vocab_size": 10})
-    for family, key in (("distilbert", "activation"), ("electra", "hidden_act"), ("roberta", "hidden_act")):
-        with pytest.raises(NotImplementedError, match="gelu_new"):
-            encoder_config({"model_type": family, key: "gelu_new"})
+    for family, key in (("distilbert", "activation"), ("electra", "hidden_act"), ("roberta", "hidden_act"),
+                        ("albert", "hidden_act"), ("big_bird", "hidden_act")):
+        assert encoder_config({"model_type": family, key: "gelu_new"}) is not None
+        with pytest.raises(NotImplementedError, match="'silu'"):
+            encoder_config({"model_type": family, key: "silu"})
+
+
+def test_roformer_refusals(checkpoints, tmp_path):
+    """Flax RoFormer embeds at the hidden size with no ``embeddings_project``,
+    so the reference cannot load a checkpoint whose ``embedding_size``
+    differs; the port refuses it too.  A torch checkpoint's
+    ``embed_positions.weight`` must be the sinusoid table the reference
+    computes: one laid out otherwise (interleaved, as DistilBERT's) raises."""
+    d = str(tmp_path / "emb16")
+    write_family(d, "roformer", seed=3, embedding_size=16)
+    with pytest.raises(ValueError, match="shape"):
+        JaxSentenceEncoderRM(model=d, max_batch_size=4)
+    with pytest.raises(NotImplementedError, match="embedding_size 16"):
+        TorchSentenceEncoderRM(model=d, device="cpu")
+    from lotus_tpu_torch.models.checkpoint import fit_state_dict, load_state_dict
+    from lotus_tpu_torch.models.distilbert import sinusoidal_table
+    from lotus_tpu_torch.models.roformer import sinusoidal_positions
+
+    src = checkpoints["roformer"][0]
+    state = load_state_dict(src)
+    table = state["encoder.embed_positions.weight"]
+    assert torch.equal(table, sinusoidal_positions(*table.shape))
+    cfg = read_config(src)
+    bad = {**state, "encoder.embed_positions.weight": sinusoidal_table(*table.shape)}
+    with pytest.raises(ValueError, match="embed_positions"):
+        fit_state_dict(new_module(cfg), bad)

@@ -106,9 +106,10 @@ def test_families_run_without_hf_packages(tmp_path):
     the card's machine lacks: with jax, pandas, lotus_tpu, transformers,
     tokenizers, sentencepiece, regex, msgpack, flax and safetensors blocked,
     an XLM-R checkpoint (``tokenizer.json``: Unigram with a charsmap), a
-    RoBERTa one with only ``vocab.json`` + ``merges.txt`` and a BERT one
-    with only ``flax_model.msgpack`` embed and rerank on the CPU as they do
-    in this process."""
+    RoBERTa one with only ``vocab.json`` + ``merges.txt``, a BERT one
+    with only ``flax_model.msgpack``, and ALBERT (``NFKD``), RoFormer,
+    BigBird (sentencepiece BPE) and RoBERTa-PreLayerNorm ones embed and
+    rerank on the CPU as they do in this process."""
     import shutil
 
     import numpy as np
@@ -123,6 +124,9 @@ def test_families_run_without_hf_packages(tmp_path):
     write_family(str(tmp_path / "xlmr"), "xlm-roberta", init_range=0.2)
     write_family(str(tmp_path / "xlmr_rr"), "xlm-roberta", num_labels=1, init_range=0.2)
     write_family(str(tmp_path / "roberta"), "roberta", init_range=0.2)
+    families = ("albert", "roformer", "big_bird", "roberta-prelayernorm")
+    for family in families:
+        write_family(str(tmp_path / family), family, init_range=0.2)
     for name in ("tokenizer.json", "tokenizer_config.json", "special_tokens_map.json"):
         os.remove(tmp_path / "roberta" / name)
     write_bert(str(tmp_path / "bert_pt"), init_range=0.2)
@@ -131,8 +135,9 @@ def test_families_run_without_hf_packages(tmp_path):
     for name in ("vocab.txt", "tokenizer_config.json"):
         shutil.copy(tmp_path / "bert_pt" / name, tmp_path / "bert_flax" / name)
     docs = ["the cat sat on the mat", "Ｆｕｌｌ ①② café naïve 日本語 😀", "", "hello <mask> world"]
+    names = ("xlmr", "roberta", "bert_flax", *families)
     want = {name: TorchSentenceEncoderRM(model=str(tmp_path / name), max_batch_size=4, device="cpu")(docs)
-            for name in ("xlmr", "roberta", "bert_flax")}
+            for name in names}
     want["scores"] = TorchCrossEncoderReranker(model=str(tmp_path / "xlmr_rr"), device="cpu").score_pairs("cat", docs)
     np.savez(tmp_path / "want.npz", **want)
     script = textwrap.dedent(
@@ -148,7 +153,7 @@ def test_families_run_without_hf_packages(tmp_path):
 
         want = np.load({str(tmp_path / "want.npz")!r})
         docs = {docs!r}
-        for name in ("xlmr", "roberta", "bert_flax"):
+        for name in {names!r}:
             rm = TorchSentenceEncoderRM(model={str(tmp_path)!r} + "/" + name, max_batch_size=4, device="cpu")
             assert np.array_equal(rm(docs), want[name]), name
         rr = TorchCrossEncoderReranker(model={str(tmp_path / "xlmr_rr")!r}, device="cpu")

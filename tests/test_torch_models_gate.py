@@ -4,7 +4,9 @@ port's models and store (``TorchSentenceEncoderRM``,
 the JAX classes with ``TpuVS`` give, on one pair of tiny checkpoint
 directories: ``sem_index`` + ``sem_search``, ``sem_search(n_rerank=2)``
 and ``sem_sim_join``; then the same on an XLM-RoBERTa pair (Unigram
-tokenizer with a charsmap, RoBERTa positions, the classification head)."""
+tokenizer with a charsmap, RoBERTa positions, the classification head) and
+on an ALBERT pair (``NFKD`` and Unigram, factorized embeddings, shared
+layer groups, the classifier on the pooled row)."""
 
 import numpy as np
 import pandas as pd
@@ -65,6 +67,14 @@ def xlmr_checkpoints(tmp_path_factory):
     return rm_dir, rr_dir
 
 
+@pytest.fixture(scope="module")
+def albert_checkpoints(tmp_path_factory):
+    rm_dir, rr_dir = (str(tmp_path_factory.mktemp(name)) for name in ("albert_rm", "albert_rr"))
+    write_family(rm_dir, "albert", seed=7, init_range=0.2)
+    write_family(rr_dir, "albert", num_labels=1, seed=8, init_range=0.2)
+    return rm_dir, rr_dir
+
+
 def _frames_equal(rm_dir, rr_dir, tmp_path, scenario):
     stacks = {
         "ref": (JaxSentenceEncoderRM(model=rm_dir, max_batch_size=8), TpuVS(),
@@ -90,3 +100,8 @@ def test_frames_equal_the_jax_pair(checkpoints, tmp_path, scenario):
 @pytest.mark.parametrize("scenario", [_search, _rerank, _sim_join], ids=lambda f: f.__name__.lstrip("_"))
 def test_xlmr_frames_equal_the_jax_pair(xlmr_checkpoints, tmp_path, scenario):
     _frames_equal(*xlmr_checkpoints, tmp_path, scenario)
+
+
+@pytest.mark.parametrize("scenario", [_search, _rerank, _sim_join], ids=lambda f: f.__name__.lstrip("_"))
+def test_albert_frames_equal_the_jax_pair(albert_checkpoints, tmp_path, scenario):
+    _frames_equal(*albert_checkpoints, tmp_path, scenario)

@@ -5,8 +5,12 @@ through ``checkpoint.load_state_dict``): a ``FlaxBertModel`` and a
 outputs, which read the same file natively; so do the pretraining models
 most public Flax files hold (``FlaxBertForPreTraining``,
 ``FlaxRobertaForMaskedLM``, ``FlaxElectraForPreTraining``,
-``FlaxDistilBertForMaskedLM``: the family's prefix and a head the encoder
-drops); a leaf above Flax's chunk size
+``FlaxDistilBertForMaskedLM``, ``FlaxAlbertForPreTraining``,
+``FlaxRoFormerForMaskedLM``, ``FlaxBigBirdForPreTraining``,
+``FlaxRobertaPreLayerNormForMaskedLM``: the family's prefix and a head the
+encoder drops); ALBERT's shared groups, RoFormer (no position table in a
+Flax file), BigBird and RoBERTa-PreLayerNorm (its top-level ``LayerNorm``)
+as msgpack alone; a leaf above Flax's chunk size
 is rebuilt (the test lowers ``flax.serialization.MAX_CHUNK_SIZE`` in its
 own process; nothing in ``lotus_tpu`` changes); the decoder agrees with the
 ``msgpack`` package on every type Flax writes; a truncated or malformed
@@ -45,11 +49,13 @@ def flax_only(torch_dir: str, out: str, classifier: bool = False, flax_class=Non
     return out
 
 
-@pytest.mark.parametrize("family", ["bert", "xlm-roberta"])
+@pytest.mark.parametrize("family", ["bert", "xlm-roberta", "albert", "roformer", "big_bird", "roberta-prelayernorm"])
 def test_msgpack_only_directories_give_the_jax_embeddings(tmp_path, family):
     src = str(tmp_path / "torch")
     if family == "bert":
         write_bert(src, init_range=0.2)
+    elif family == "albert":  # 3 layers over 2 shared groups of 2
+        write_family(src, family, init_range=0.2, num_hidden_layers=3, num_hidden_groups=2, inner_group_num=2)
     else:
         write_family(src, family, init_range=0.2)
     d = flax_only(src, str(tmp_path / "flax"))
@@ -62,6 +68,9 @@ def test_msgpack_only_directories_give_the_jax_embeddings(tmp_path, family):
 @pytest.mark.parametrize("family, flax_class, prefix", [
     ("bert", "FlaxBertForPreTraining", "bert"), ("roberta", "FlaxRobertaForMaskedLM", "roberta"),
     ("electra", "FlaxElectraForPreTraining", "electra"), ("distilbert", "FlaxDistilBertForMaskedLM", "distilbert"),
+    ("albert", "FlaxAlbertForPreTraining", "albert"), ("roformer", "FlaxRoFormerForMaskedLM", "roformer"),
+    ("big_bird", "FlaxBigBirdForPreTraining", "bert"),
+    ("roberta-prelayernorm", "FlaxRobertaPreLayerNormForMaskedLM", "roberta_prelayernorm"),
 ])
 def test_msgpack_pretraining_heads_give_the_jax_embeddings(tmp_path, family, flax_class, prefix):
     """A msgpack-only directory of a pretraining model: its leaves sit under

@@ -7,7 +7,14 @@ fast tokenizers loaded from the same directory, as ``JaxSentenceEncoderRM``
   ``merges.txt``), through ``tokenizer.json`` and through the two vocab files
   alone;
 - Unigram (``XLMRobertaTokenizerFast(tokenizer_object=...)`` over a seeded
-  vocabulary with tied scores, ``Metaspace`` and a ``Precompiled`` charsmap);
+  vocabulary with tied scores, ``Metaspace`` and a ``Precompiled`` charsmap;
+  ``AlbertTokenizerFast`` with ``NFKD``, ``StripAccents`` and ``Lowercase``
+  before the charsmap and ``$B:1`` in its template);
+- sentencepiece BPE (``BigBirdTokenizerFast`` with ``fuse_unk`` and
+  ``SpmConverter``'s normalizer); RoFormer's and RoBERTa-PreLayerNorm's
+  directories (a ``BertTokenizer``, byte-level BPE);
+- a RoFormer directory whose tokenizer is ``RoFormerTokenizer`` (jieba) is
+  refused, as the reference fails to build it without ``rjieba``;
 - WordPiece through ``tokenizer.json`` (``DistilBertTokenizerFast``,
   ``ElectraTokenizerFast``), equal to the ``vocab.txt`` path;
 - pairs, ``longest_first`` truncation and both padding modes;
@@ -199,3 +206,40 @@ def test_unported_components_raise(tmp_path):
                        ("post_processor", "Sequence")):
         with pytest.raises(NotImplementedError, match=kind):
             JsonTokenizer({**spec, part: {**(spec[part] or {}), "type": kind}})
+
+
+def test_nfkd_equals_the_library():
+    ref = tokenizers.normalizers.NFKD()
+    port = JsonTokenizer({"normalizer": {"type": "NFKD"}, "model": {"type": "WordPiece", "vocab": {"[UNK]": 0},
+                                                                    "unk_token": "[UNK]"}})._normalize
+    for text in TRICKY + ["ﬀ ﬃ ﬁ", "Ⅻ ½ ㎏ ㍿", "Å Ω K", "ｶﾞ ｱ", "x²₃", "ǅ ǈ", "한글 ᄀ"]:
+        assert port(text) == ref.normalize_str(text), repr(text)
+
+
+@pytest.mark.parametrize("where", ["tokenizer_config", "config_class", "model_type"])
+def test_roformer_jieba_tokenizer_is_refused(tmp_path, where):
+    """``RoFormerTokenizerFast`` cuts words with jieba, which
+    ``tokenizer.json`` does not record (it holds a ``BertPreTokenizer``):
+    a directory whose tokenizer is RoFormer's is refused, never read as
+    WordPiece, whether ``tokenizer_config.json`` or ``config.json`` names
+    the class or a ``roformer`` model names none; the reference's
+    ``AutoTokenizer`` fails there too, without ``rjieba``."""
+    d = str(tmp_path)
+    write_tokenizer(d, "roformer")
+    with open(os.path.join(d, "tokenizer_config.json"), encoding="utf-8") as f:
+        tok_config = json.load(f)
+    tok_config.pop("tokenizer_class")
+    model = {"model_type": "roformer"}
+    if where == "tokenizer_config":
+        tok_config["tokenizer_class"] = "RoFormerTokenizer"
+    elif where == "config_class":
+        model["tokenizer_class"] = "RoFormerTokenizerFast"
+    for name, obj in (("tokenizer_config.json", tok_config), ("config.json", model)):
+        with open(os.path.join(d, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f)
+    with pytest.raises(NotImplementedError, match="jieba"):
+        load_tokenizer(d)
+    with pytest.raises(NotImplementedError, match="jieba"):
+        JsonTokenizer.from_vocab_txt(d)
+    with pytest.raises(ImportError, match="rjieba"):
+        transformers.AutoTokenizer.from_pretrained(d)
