@@ -197,13 +197,38 @@ Phases (each prints its seconds and the card's name and power limit):
    ids, >= 0.98 through K2, K2 held to its plain version on the call's
    inputs and timed beside its bound.  The encoder's bound counts ALBERT's
    shared groups once a layer and BigBird's block-sparse pairs.  The files
-   are deleted after.
+   are deleted after;
+29. the encoder-decoder families the Flax auto classes load, at published
+   widths with seeded weights, under ``build/lotus_tpu_torch/smoke_seq2seq``
+   (``write_seq2seq_models``; ``shared`` alone holds the tied token
+   embeddings): bart-base (BART, 6 + 6 layers at 768, RM),
+   bart-large (12 + 12 at 1024) and mbart-large-cc25 (mBART, pre-LN,
+   250,027 pieces, ``scale_embedding``), each a 1-label classifier serving
+   as RM and reranker, pegasus-large (16 + 16, sinusoidal positions, ReLU),
+   blenderbot-400M-distill (2 + 12 at 1280, 128 positions) and
+   blenderbot_small-90M (8 + 8 at 512, the slow tokenizer's ``vocab.json``
+   / ``merges.txt``), RMs only; tokenizers seeded in their converters'
+   layouts (mBART's template set from ``src_lang``).  Each RM (and
+   reranker) on the card against the CPU in f32 (32 docs, 16 for the models
+   of 24 layers or more; within 1e-4, scores within 1e-4 * (1 + |s|)), bf16
+   against f32 (smallest cosine >= 0.99); Blenderbot at max_seq_length 128,
+   and one call at 512 that must raise ``ValueError`` before any layer
+   runs; BART-base over 65,536 of config 2's docs in bf16 into an int8 IVF
+   store (nlist 128, block-aligned: K1), recall@5 >= 0.95 over 1,000
+   queries, K1 held to its plain version on the call's inputs, the
+   bart-large reranker over 16 x 100 pairs; mBART over 4,096 of config 1's
+   passages in bf16 (the 512-token bucket) into a Flat store: recall@10 1.0
+   through ids, >= 0.98 through K2 at d 1024, K2 held to its plain version
+   on the call's inputs and timed beside its bound, the mBART reranker over
+   16 x 100 pairs.  The encoder-decoder's bound counts both stacks and the
+   cross-attention (``seq2seq_pairs``).  The files are deleted after.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after: K1 over phases 5-8 (calibration included), in each
 rank over phase 12's sharded search, over phase 13 and over each K1 store of
-phase 15 and over phase 25's, 27's and 28's stores; K2 over phase 10, over
-phases 20-21, over phase 15's Flat store and over phase 24's, 27's and 28's;
+phase 15 and over phase 25's, 27's, 28's and 29's stores; K2 over phase
+10, over phases 20-21, over phase 15's Flat store and over phase 24's,
+27's, 28's and 29's;
 each must have launched its kernel, and each phase prints its count.
 The last three lines are the kernel table (K1, whose launches add the
 ranks', and K2, then the variants later slices added, each with its own
@@ -1672,10 +1697,13 @@ def synth_texts(vocab: list[str], n: int, lo: int, hi: int, seed: int, per_topic
 
 def forward_weights(enc) -> int:
     """The parameters a token's forward multiplies by: every non-embedding
-    one, but ALBERT's shared groups once for each layer that runs them."""
+    one (an encoder-decoder's ``shared`` tokens and position tables are
+    gathers), but ALBERT's shared groups once for each layer that runs
+    them."""
     groups = getattr(enc.encoder, "albert_layer_groups", None)
     if groups is None:
-        return sum(p.numel() for name, p in enc.named_parameters() if not name.startswith("embeddings."))
+        return sum(p.numel() for name, p in enc.named_parameters()
+                   if not name.startswith(("embeddings.", "shared.")) and "embed_positions" not in name)
     cfg = enc.config
     sizes = [sum(p.numel() for p in g.parameters()) for g in groups]
     runs = [int(i / (cfg.num_hidden_layers / cfg.num_hidden_groups)) for i in range(cfg.num_hidden_layers)]
@@ -1693,14 +1721,23 @@ def attention_pairs(cfg, s: int) -> int:
     return 2 * bs * s + 2 * bs * (4 + r) * bs + (s // bs - 4) * bs * (5 + r) * bs
 
 
+def seq2seq_pairs(cfg, s):
+    """The (query, key) pairs, summed over the layers, that an
+    encoder-decoder scores for a sequence of ``s`` tokens (a number or a
+    tensor of lengths): each encoder layer s * s, each decoder layer its
+    causal s * (s + 1) / 2 and the cross-attention's s * s."""
+    return cfg.encoder_layers * s * s + cfg.decoder_layers * (s * (s + 1) / 2 + s * s)
+
+
 def encode_split(rm, texts: list[str]):
     """``rm(texts)``, what ``sem_index`` calls, and its time split: host
     seconds in the tokenizer, device ms of the encoder's forwards (CUDA
     events around each, by module hooks), wall seconds; real and padded
     tokens; the forwards' operations (2 x ``forward_weights`` a token, plus
-    attention's 4 * L * h a scored pair, ``attention_pairs``) over the
-    padded tokens, and over the real ones alone (s each text's own length).
-    Returns (embeddings, figures)."""
+    attention's 4 * L * h a scored pair, ``attention_pairs``; an
+    encoder-decoder's 4 * d_model a pair of ``seq2seq_pairs``, both stacks
+    and the cross-attention) over the padded tokens, and over the real ones
+    alone (s each text's own length).  Returns (embeddings, figures)."""
     import torch
 
     enc, cfg = rm.encoder, rm.encoder.config
@@ -1719,15 +1756,19 @@ def encode_split(rm, texts: list[str]):
         ids, mask = args[:2]
         b, s = ids.shape
         fig["padded"] += b * s
-        pairs = attention_pairs(cfg, s)
-        fig["flops"] += 2.0 * weights * b * s + 4.0 * cfg.num_hidden_layers * cfg.hidden_size * pairs * b
         lens = mask.sum(1).double()
         real.append(mask.sum())
-        # A real token's keys: its own text's under full attention, the
-        # padded pattern's mean row under block-sparse attention.
-        keys = torch.full_like(lens, pairs / s) if getattr(cfg, "attention_type", "") == "block_sparse" else lens
-        real_flops.append(2.0 * weights * lens.sum()
-                          + 4.0 * cfg.num_hidden_layers * cfg.hidden_size * (lens * keys).sum())
+        if hasattr(cfg, "decoder_layers"):
+            fig["flops"] += 2.0 * weights * b * s + 4.0 * cfg.d_model * seq2seq_pairs(cfg, s) * b
+            real_flops.append(2.0 * weights * lens.sum() + 4.0 * cfg.d_model * seq2seq_pairs(cfg, lens).sum())
+        else:
+            pairs = attention_pairs(cfg, s)
+            fig["flops"] += 2.0 * weights * b * s + 4.0 * cfg.num_hidden_layers * cfg.hidden_size * pairs * b
+            # A real token's keys: its own text's under full attention, the
+            # padded pattern's mean row under block-sparse attention.
+            keys = torch.full_like(lens, pairs / s) if getattr(cfg, "attention_type", "") == "block_sparse" else lens
+            real_flops.append(2.0 * weights * lens.sum()
+                              + 4.0 * cfg.num_hidden_layers * cfg.hidden_size * (lens * keys).sum())
         events.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
         events[-1][0].record()
 
@@ -2161,6 +2202,25 @@ def _template(cls_tok: str, cls_id: int, sep_tok: str, sep_id: int, double_sep: 
                                for t, i in ((cls_tok, cls_id), (sep_tok, sep_id))}}
 
 
+# MBartConverter's language codes, after the pieces, and PegasusConverter's
+# head of the vocabulary (offset 103).
+MBART_LANGS = ("ar_AR", "cs_CZ", "de_DE", "en_XX", "es_XX", "et_EE", "fi_FI", "fr_XX", "gu_IN", "hi_IN", "it_IT",
+               "ja_XX", "kk_KZ", "ko_KR", "lt_LT", "lv_LV", "my_MM", "ne_NP", "nl_XX", "ro_RO", "ru_RU", "si_LK",
+               "tr_TR", "vi_VN", "zh_CN")
+PEGASUS_HEAD = ("<pad>", "</s>", "<mask_1>", "<mask_2>", *(f"<unk_{i}>" for i in range(2, 103)), "<unk>")
+
+
+def suffix_template(suffix: list[str], ids: dict) -> dict:
+    """``A`` / ``A B`` followed by the ``suffix`` tokens, all of type 0."""
+    def part(name):
+        kind = "Sequence" if name in ("A", "B") else "SpecialToken"
+        return {kind: {"id": name, "type_id": 0}}
+
+    return {"type": "TemplateProcessing", "single": [part(x) for x in ("A", *suffix)],
+            "pair": [part(x) for x in ("A", "B", *suffix)],
+            "special_tokens": {t: {"id": t, "ids": [ids[t]], "tokens": [t]} for t in suffix}}
+
+
 def unigram_spec(words: list[str], size: int, seed: int, flavor: str = "xlm-roberta") -> dict:
     """A sentencepiece Unigram ``tokenizer.json`` over a seeded vocabulary of
     ``size`` pieces (``▁`` + every whole word, the ``##`` pieces bare,
@@ -2174,7 +2234,13 @@ def unigram_spec(words: list[str], size: int, seed: int, flavor: str = "xlm-robe
     ``Replace(" {2,}", " ")``; ``[CLS] A [SEP] B:1 [SEP]:1``) or, for
     ``big_bird``, ``BigBirdConverter`` (``<pad> <s> </s> <unk> [CLS] [SEP]
     [MASK]`` first; ``SpmConverter``'s charsmap, right ``Strip`` and
-    ``Replace(" {2,}", "▁")``; ALBERT's template); ``Metaspace`` for all."""
+    ``Replace(" {2,}", "▁")``; ALBERT's template), ``mbart``
+    (``MBartConverter``: ``<s> <pad> </s> <unk>`` first, the language codes
+    and ``<mask>`` last; ``SpmConverter``'s normalizer; ``A </s> en_XX``) or
+    ``pegasus`` (``PegasusConverter``: ``<pad> </s> <mask_1> <mask_2>``,
+    ``<unk_2>`` .. ``<unk_102>`` and ``<unk>`` first; ``SpmConverter``'s
+    normalizer; ``WhitespaceSplit`` before ``Metaspace``; ``A </s>``);
+    ``Metaspace`` for all."""
     import base64
     import string
 
@@ -2191,10 +2257,15 @@ def unigram_spec(words: list[str], size: int, seed: int, flavor: str = "xlm-robe
     elif flavor == "albert":
         head, tail, mask = ["<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]"], [], "[MASK]"
         steps = [*quotes, {"type": "NFKD"}, {"type": "StripAccents"}, {"type": "Lowercase"}, charsmap, collapse]
-    else:
-        head, tail, mask = ["<pad>", "<s>", "</s>", "<unk>", "[CLS]", "[SEP]", "[MASK]"], [], "[MASK]"
+    else:  # SpmConverter's normalizer
         steps = [charsmap, {"type": "Strip", "strip_left": False, "strip_right": True},
                  {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "▁"}]
+        if flavor == "mbart":
+            head, tail, mask = ["<s>", "<pad>", "</s>", "<unk>"], [*MBART_LANGS, "<mask>"], "<mask>"
+        elif flavor == "pegasus":
+            head, tail, mask = list(PEGASUS_HEAD), [], "<mask_2>"
+        else:
+            head, tail, mask = ["<pad>", "<s>", "</s>", "<unk>", "[CLS]", "[SEP]", "[MASK]"], [], "[MASK]"
     rng = np.random.default_rng(seed)
     pieces: dict[str, float] = {}
     for w in words:
@@ -2214,28 +2285,37 @@ def unigram_spec(words: list[str], size: int, seed: int, flavor: str = "xlm-robe
     vocab = [[t, 0.0] for t in head] + [[p, sc] for p, sc in pieces.items()] + [[t, 0.0] for t in tail]
     assert len(vocab) == size
     ids = {t: i for i, (t, _) in enumerate(vocab) if t in head or t in tail}
+    pre = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True}
     if flavor == "xlm-roberta":
         template = _template("<s>", ids["<s>"], "</s>", ids["</s>"], double_sep=True)
+    elif flavor == "mbart":  # the file's; MBartTokenizerFast sets its own from src_lang
+        template = suffix_template(["</s>", "en_XX"], ids)
+    elif flavor == "pegasus":
+        template = suffix_template(["</s>"], ids)
+        pre = {"type": "Sequence", "pretokenizers": [{"type": "WhitespaceSplit"}, pre]}
     else:
         template = _template("[CLS]", ids["[CLS]"], "[SEP]", ids["[SEP]"], double_sep=False)
     return {
         "version": "1.0", "added_tokens": _added(list(ids.items()), lstrip=mask),
         "normalizer": {"type": "Sequence", "normalizers": steps},
-        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True},
+        "pre_tokenizer": pre,
         "post_processor": template,
         "model": {"type": "Unigram", "unk_id": ids["<unk>"], "vocab": vocab, "byte_fallback": False},
     }
 
 
-def bpe_spec(words: list[str], size: int) -> dict:
-    """RoBERTa's ``tokenizer.json`` (byte-level BPE) with ``size`` tokens:
-    ``<s> <pad> </s> <unk>``, the 256 byte characters, then the merges that
-    build each word left to right (``Ġ`` + word, for every word in the
-    seeded order, then the bare words) until the vocabulary is full, each
-    merge's result in the vocabulary, and ``<mask>`` last."""
+def bpe_spec(words: list[str], size: int, flavor: str = "roberta") -> dict:
+    """RoBERTa's (and BART's) ``tokenizer.json`` (byte-level BPE) with
+    ``size`` tokens: ``<s> <pad> </s> <unk>``, the 256 byte characters, then
+    the merges that build each word left to right (``Ġ`` + word, for every
+    word in the seeded order, then the bare words) until the vocabulary is
+    full, each merge's result in the vocabulary, and ``<mask>`` last.  The
+    ``blenderbot`` flavor is ``BlenderbotConverter``'s: ``<pad> <s> </s>
+    <unk>`` first, a prefix space, and ``A </s>``."""
     from lotus_tpu_torch.models.bpe import bytes_to_unicode
 
-    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    heads = {"roberta": ("<s>", "<pad>", "</s>", "<unk>"), "blenderbot": ("<pad>", "<s>", "</s>", "<unk>")}
+    vocab = {t: i for i, t in enumerate(heads[flavor])}
     for c in bytes_to_unicode().values():
         vocab.setdefault(c, len(vocab))
     merges = []
@@ -2250,11 +2330,16 @@ def bpe_spec(words: list[str], size: int) -> dict:
     vocab["<mask>"] = len(vocab)
     assert len(vocab) == size
     specials = [(t, vocab[t]) for t in ("<s>", "<pad>", "</s>", "<unk>", "<mask>")]
+    if flavor == "blenderbot":
+        post = suffix_template(["</s>"], vocab)
+    else:
+        post = {"type": "RobertaProcessing", "sep": ["</s>", 2], "cls": ["<s>", 0], "trim_offsets": True,
+                "add_prefix_space": False}
     return {
         "version": "1.0", "added_tokens": _added(specials, lstrip="<mask>"), "normalizer": None,
-        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": True},
-        "post_processor": {"type": "RobertaProcessing", "sep": ["</s>", 2], "cls": ["<s>", 0], "trim_offsets": True,
-                           "add_prefix_space": False},
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": flavor == "blenderbot", "trim_offsets": True,
+                          "use_regex": True},
+        "post_processor": post,
         "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
                   "end_of_word_suffix": "", "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
                   "vocab": vocab, "merges": merges},
@@ -2287,10 +2372,6 @@ def write_family_models(vocab: list[str], dev, seed: int = 10, models: dict | No
     name ``BertTokenizer``) and ``model.safetensors`` with weights drawn as
     the initialiser draws them (N(0, 0.02), biases 0, LayerNorm 1 / 0), made
     on ``dev``.  Returns the directories."""
-    import torch
-
-    from lotus_tpu_torch.models.checkpoint import encoder_config, new_module
-
     words = [w for w in vocab if not w.startswith("[")]
     specs = {}
     dirs = {}
@@ -2320,21 +2401,32 @@ def write_family_models(vocab: list[str], dev, seed: int = 10, models: dict | No
                            ("tokenizer_config.json", tok_config)):
             with open(os.path.join(d, fname), "w", encoding="utf-8") as f:
                 json.dump(obj, f)
-        with torch.device(dev):
-            module = new_module(encoder_config(config), classifier="num_labels" in shape)
-        g = torch.Generator(device=dev).manual_seed(seed + i)
-        with torch.no_grad():
-            for pname, p in module.named_parameters():
-                if "LayerNorm" in pname or "layer_norm" in pname:
-                    p.fill_(1.0 if pname.endswith("weight") else 0.0)
-                elif pname.endswith("bias"):
-                    p.zero_()
-                else:
-                    p.copy_(0.02 * torch.randn(p.shape, generator=g, device=dev))
-        write_safetensors(os.path.join(d, "model.safetensors"), module.state_dict())
+        write_seeded_weights(d, config, "num_labels" in shape, dev, seed + i)
         dirs[name] = d
-        del module
     return dirs
+
+
+def write_seeded_weights(path: str, config: dict, classifier: bool, dev, seed: int) -> None:
+    """``model.safetensors`` in ``path``: the family's encoder (or sequence
+    classifier) of the parsed ``config.json`` ``config``, with weights drawn
+    as the initialiser draws them (N(0, 0.02), biases 0, each LayerNorm 1 /
+    0) from ``seed``, made on ``dev``."""
+    import torch
+
+    from lotus_tpu_torch.models.checkpoint import encoder_config, new_module
+
+    with torch.device(dev):
+        module = new_module(encoder_config(config), classifier=classifier)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for pname, p in module.named_parameters():
+            if "LayerNorm" in pname or "layer_norm" in pname or "layernorm_embedding" in pname:
+                p.fill_(1.0 if pname.endswith("weight") else 0.0)
+            elif pname.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(0.02 * torch.randn(p.shape, generator=g, device=dev))
+    write_safetensors(os.path.join(path, "model.safetensors"), module.state_dict())
 
 
 def multilingual(texts: list[str], seed: int, share: float = 0.15) -> list[str]:
@@ -2676,6 +2768,56 @@ LATE_MODELS = {
 BIGBIRD_BATCH = 16  # BigBird's max_batch_size at 4096 tokens
 
 
+def check_rm(dev, name: str, model_type: str, kw: dict, docs: list[str], width: int) -> list[int]:
+    """``TorchSentenceEncoderRM(**kw)`` on the card against the CPU in f32
+    (within 1e-4) and bf16 against f32 on the card (smallest cosine at least
+    0.99) over ``docs``.  Returns the sequence buckets the docs took."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+    from lotus_tpu_torch.models.torch_rm import bucketed_batches
+
+    t0 = time.perf_counter()
+    card_rm = TorchSentenceEncoderRM(device=dev, **kw)
+    got = card_rm(docs)
+    want = TorchSentenceEncoderRM(device="cpu", **kw)(docs)
+    bf16 = TorchSentenceEncoderRM(device=dev, dtype=torch.bfloat16, **kw)(docs)
+    err = float(np.abs(got - want).max())
+    cos = float(np.sum(bf16 * got, axis=1).min())
+    seq = kw["max_seq_length"]
+    buckets = sorted({a.shape[1] for _, a, _ in bucketed_batches(card_rm.tokenizer, docs, None, 16, seq, "cpu")})
+    say(f"  {name} ({model_type}, TorchSentenceEncoderRM, f32, buckets {buckets}): {got.shape} "
+        f"embeddings on the card vs the CPU: max abs err {err!r} (tol 1e-4) -> {'OK' if err <= 1e-4 else 'MISMATCH'}"
+        f"; bf16 on the card vs f32 on the card: smallest cosine {cos!r} (must reach 0.99); "
+        f"{time.perf_counter() - t0:.2f} s [{GPU}]")
+    assert got.shape == (len(docs), width) and bool(np.isfinite(got).all())
+    assert err <= 1e-4, f"{name}: the card's embeddings differ from the CPU's"
+    assert cos >= 0.99, f"{name}: bf16 embeddings drift from f32 (cosine {cos})"
+    return buckets
+
+
+def check_reranker(dev, name: str, model_type: str, kw: dict, queries: list[str], docs: list[str]) -> None:
+    """``TorchCrossEncoderReranker(**kw)`` (1 label) on the card against the
+    CPU in f32, each query over its share of ``docs``: scores within
+    1e-4 * (1 + |s|)."""
+    import numpy as np
+
+    from lotus_tpu_torch.models import TorchCrossEncoderReranker
+
+    t0 = time.perf_counter()
+    share = len(docs) // len(queries)
+    card_rr, cpu_rr = TorchCrossEncoderReranker(device=dev, **kw), TorchCrossEncoderReranker(device="cpu", **kw)
+    got, want = (np.concatenate([rr.score_pairs(q, docs[i * share : (i + 1) * share]) for i, q in enumerate(queries)])
+                 for rr in (card_rr, cpu_rr))
+    err = float(np.abs(got - want).max())
+    ok = bool((np.abs(got - want) <= 1e-4 * (1 + np.abs(want))).all())
+    say(f"  {name} ({model_type}, TorchCrossEncoderReranker, 1 label, f32): {len(got)} pair scores on "
+        f"the card vs the CPU: max abs err {err!r} (tol 1e-4*(1+|s|)) -> {'OK' if ok else 'MISMATCH'}; scores "
+        f"{float(want.min())!r}..{float(want.max())!r}; {time.perf_counter() - t0:.2f} s [{GPU}]")
+    assert ok and bool(np.isfinite(got).all()), f"{name}: the card's scores differ from the CPU's"
+
+
 def late_families_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 32, n_large: int = 16) -> None:
     """Phase 28a: each model as an RM and as a 1-label reranker through its
     entry points on the card and on the CPU in f32 (``n_docs`` docs of mixed
@@ -2683,13 +2825,7 @@ def late_families_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 32, n_l
     RoBERTa-PreLayerNorm; BigBird's in the 256- and 512-token buckets only,
     where its block-sparse attention runs): embeddings within 1e-4, scores
     within 1e-4 * (1 + |s|); bf16 against f32 on the card for the RMs:
-    smallest cosine at least 0.99."""
-    import numpy as np
-    import torch
-
-    from lotus_tpu_torch.models import TorchCrossEncoderReranker, TorchSentenceEncoderRM
-    from lotus_tpu_torch.models.torch_rm import bucketed_batches
-
+    smallest cosine at least 0.99 (``check_rm``, ``check_reranker``)."""
     for name, d in dirs.items():
         shape = LATE_MODELS[name]
         n = n_large if shape["num_hidden_layers"] > 12 else n_docs
@@ -2698,37 +2834,10 @@ def late_families_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 32, n_l
         sparse = shape["model_type"] == "big_bird"
         spans = ((100, 160), (100, 160), (220, 320), (220, 320)) if sparse else ((3, 10), (11, 24), (25, 50), (51, 100))
         docs = [t for i, (lo, hi) in enumerate(spans) for t in synth_texts(vocab, quarter, lo, hi, 180 + i)]
-        seq = shape["max_seq_length"]
-        kw = dict(model=d, max_batch_size=16, max_seq_length=seq)
-        t0 = time.perf_counter()
-        card_rm = TorchSentenceEncoderRM(device=dev, **kw)
-        got = card_rm(docs)
-        want = TorchSentenceEncoderRM(device="cpu", **kw)(docs)
-        bf16 = TorchSentenceEncoderRM(device=dev, dtype=torch.bfloat16, **kw)(docs)
-        err = float(np.abs(got - want).max())
-        cos = float(np.sum(bf16 * got, axis=1).min())
-        buckets = sorted({a.shape[1] for _, a, _ in bucketed_batches(card_rm.tokenizer, docs, None, 16, seq, "cpu")})
-        say(f"  {name} ({shape['model_type']}, TorchSentenceEncoderRM, f32, buckets {buckets}): {got.shape} "
-            f"embeddings on the card vs the CPU: max abs err {err!r} (tol 1e-4) -> {'OK' if err <= 1e-4 else 'MISMATCH'}"
-            f"; bf16 on the card vs f32 on the card: smallest cosine {cos!r} (must reach 0.99); "
-            f"{time.perf_counter() - t0:.2f} s [{GPU}]")
-        assert got.shape == (n, shape["hidden_size"]) and bool(np.isfinite(got).all())
+        kw = dict(model=d, max_batch_size=16, max_seq_length=shape["max_seq_length"])
+        buckets = check_rm(dev, name, shape["model_type"], kw, docs, shape["hidden_size"])
         assert not sparse or buckets == [256, 512], f"BigBird's buckets {buckets}"
-        assert err <= 1e-4, f"{name}: the card's embeddings differ from the CPU's"
-        assert cos >= 0.99, f"{name}: bf16 embeddings drift from f32 (cosine {cos})"
-        del card_rm
-        t0 = time.perf_counter()
-        queries = synth_texts(vocab, 4, 3, 9, 186)
-        card_rr, cpu_rr = TorchCrossEncoderReranker(device=dev, **kw), TorchCrossEncoderReranker(device="cpu", **kw)
-        got, want = (np.concatenate([rr.score_pairs(q, docs[i * quarter : (i + 1) * quarter])
-                                     for i, q in enumerate(queries)]) for rr in (card_rr, cpu_rr))
-        err = float(np.abs(got - want).max())
-        ok = bool((np.abs(got - want) <= 1e-4 * (1 + np.abs(want))).all())
-        say(f"  {name} ({shape['model_type']}, TorchCrossEncoderReranker, 1 label, f32): {len(got)} pair scores on "
-            f"the card vs the CPU: max abs err {err!r} (tol 1e-4*(1+|s|)) -> {'OK' if ok else 'MISMATCH'}; scores "
-            f"{float(want.min())!r}..{float(want.max())!r}; {time.perf_counter() - t0:.2f} s [{GPU}]")
-        assert ok and bool(np.isfinite(got).all()), f"{name}: the card's scores differ from the CPU's"
-        del card_rr, cpu_rr
+        check_reranker(dev, name, shape["model_type"], kw, synth_texts(vocab, 4, 3, 9, 186), docs)
 
 
 def albert_phase(dev, vocab: list[str], dirs: dict, n: int = 65_536, nq: int = 1000, nlist: int = 128) -> int:
@@ -2817,9 +2926,276 @@ def late_phases(dev, vocab: list[str]) -> tuple[int, int]:
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the encoder-decoder families the Flax auto classes load, from text
+# ---------------------------------------------------------------------------
+
+SEQ2SEQ_DIR = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_seq2seq")
+
+
+def _seq2seq(model_type: str, d: int, layers: tuple[int, int], heads: int, ffn: int, vocab: int, positions: int,
+             ids: tuple, **kw) -> dict:
+    return dict(model_type=model_type, d_model=d, encoder_layers=layers[0], decoder_layers=layers[1],
+                encoder_attention_heads=heads, decoder_attention_heads=heads, encoder_ffn_dim=ffn,
+                decoder_ffn_dim=ffn, vocab_size=vocab, max_position_embeddings=positions,
+                **dict(zip(("pad_token_id", "bos_token_id", "eos_token_id", "decoder_start_token_id"), ids)),
+                **{"activation_function": "gelu", "scale_embedding": True, "max_seq_length": 512, **kw})
+
+
+# Each model's published config.json widths, layout flags and special ids,
+# with seeded weights; those with num_labels are written as a 1-label
+# sequence classifier, which serves as RM (its encoder-decoder) and as
+# reranker.  max_seq_length is the reference's default (flax_rm.py:48), but
+# Blenderbot's 128 positions, past which the reference fails.
+SEQ2SEQ_MODELS = {
+    "bart-base": _seq2seq("bart", 768, (6, 6), 12, 3072, 50_265, 1024, (1, 0, 2, 2), scale_embedding=False,
+                          tokenizer="bpe"),
+    "bart-large": _seq2seq("bart", 1024, (12, 12), 16, 4096, 50_265, 1024, (1, 0, 2, 2), scale_embedding=False,
+                           tokenizer="bpe", num_labels=1),
+    "mbart-large-cc25": _seq2seq("mbart", 1024, (12, 12), 16, 4096, 250_027, 1024, (1, 0, 2), tokenizer="mbart",
+                                 num_labels=1),
+    "pegasus-large": _seq2seq("pegasus", 1024, (16, 16), 16, 4096, 96_103, 1024, (0, None, 1, 0),
+                              activation_function="relu", tokenizer="pegasus"),
+    "blenderbot-400M-distill": _seq2seq("blenderbot", 1280, (2, 12), 32, 5120, 8008, 128, (0, 1, 2, 1),
+                                        tokenizer="blenderbot", max_seq_length=128),
+    "blenderbot_small-90M": _seq2seq("blenderbot-small", 512, (8, 8), 16, 2048, 54_944, 512, (0, 1, 2, 1),
+                                     tokenizer="blenderbot-small"),
+}
+SEQ2SEQ_RERANK_PAIRS = (16, 100)  # queries x candidates each reranker scores in 29b and 29c
+
+
+def blenderbot_small_files(path: str, words: list[str], size: int) -> None:
+    """Blenderbot-Small's ``vocab.json`` / ``merges.txt`` (no
+    ``tokenizer.json``: its tokenizer is the slow one) with ``size``
+    entries: ``__null__ __start__ __end__ __unk__ __newln__``, every
+    character alone and ``@@``-continued, then for each word the merges
+    that build it left to right (its last character marked ``</w>``), each
+    merge's result in the slow tokenizer's form (``@@`` while the word goes
+    on, bare where it ends), until the vocabulary is full."""
+    import string
+
+    vocab = {t: i for i, t in enumerate(("__null__", "__start__", "__end__", "__unk__", "__newln__"))}
+    for c in string.ascii_lowercase + string.digits + string.punctuation:
+        vocab.setdefault(c, len(vocab))
+        vocab.setdefault(c + "@@", len(vocab))
+    merges, seen = [], set()
+    for w in (w.lower() for w in words):
+        if len(vocab) >= size:
+            break
+        symbols = [*w[:-1], w[-1] + "</w>"]
+        cur = symbols[0]
+        for nxt in symbols[1:]:
+            if (cur, nxt) not in seen:
+                seen.add((cur, nxt))
+                merges.append((cur, nxt))
+            cur += nxt
+            vocab.setdefault(cur[:-4] if cur.endswith("</w>") else cur + "@@", len(vocab))
+    while len(vocab) < size:
+        vocab[f"__filler{len(vocab)}__"] = len(vocab)
+    vocab = dict(list(vocab.items())[:size])
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+def write_seq2seq_models(vocab: list[str], dev, seed: int = 30, models: dict | None = None,
+                         root: str = SEQ2SEQ_DIR) -> dict[str, str]:
+    """One checkpoint directory per ``models`` entry (SEQ2SEQ_MODELS by
+    default) under ``root``: ``config.json``, the tokenizer (generated here:
+    ``tokenizer.json`` of BART's byte-level BPE over the words of phase 23's
+    vocabulary, Blenderbot's (``bpe_spec``'s ``blenderbot`` flavor), mBART's
+    and Pegasus's seeded Unigram in their converters' layouts
+    (``unigram_spec``); Blenderbot-Small's ``vocab.json`` / ``merges.txt``,
+    ``blenderbot_small_files``), ``tokenizer_config.json`` (mBART's names
+    its class and ``src_lang`` en_XX) and ``model.safetensors`` with
+    weights drawn by ``write_seeded_weights`` (``shared`` alone holds the
+    tied token embeddings), made on ``dev``.  Returns the directories."""
+    words = [w for w in vocab if not w.startswith("[")]
+    alpha = [w for w in words if w.isalpha()]
+    dirs = {}
+    for i, (name, shape) in enumerate((models or SEQ2SEQ_MODELS).items()):
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        config = {k: v for k, v in shape.items()
+                  if k not in ("tokenizer", "max_seq_length", "num_labels") and v is not None}
+        if "num_labels" in shape:
+            config["id2label"] = {str(j): f"LABEL_{j}" for j in range(shape["num_labels"])}
+        kind, size = shape["tokenizer"], shape["vocab_size"]
+        files = {"config.json": config}
+        if kind == "blenderbot-small":
+            blenderbot_small_files(d, alpha, size)
+            files["tokenizer_config.json"] = {}  # no class: AutoTokenizer builds the type's slow one
+        else:
+            files["tokenizer.json"] = {"bpe": lambda: bpe_spec(alpha, size),
+                                       "blenderbot": lambda: bpe_spec(alpha, size, "blenderbot"),
+                                       "mbart": lambda: unigram_spec(words, size, seed, "mbart"),
+                                       "pegasus": lambda: unigram_spec(words, size, seed, "pegasus")}[kind]()
+            files["tokenizer_config.json"] = ({"pad_token": "<pad>", "src_lang": "en_XX",
+                                               "tokenizer_class": "MBartTokenizer"} if kind == "mbart"
+                                              else {"pad_token": "<pad>"})
+        for fname, obj in files.items():
+            with open(os.path.join(d, fname), "w", encoding="utf-8") as f:
+                json.dump(obj, f)
+        write_seeded_weights(d, config, "num_labels" in shape, dev, seed + i)
+        dirs[name] = d
+    return dirs
+
+
+def seq2seq_check_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 32, n_large: int = 16) -> None:
+    """Phase 29a: each model as an RM (and, with a classifier, as a 1-label
+    reranker) through its entry points on the card and on the CPU in f32
+    (``n_docs`` docs of mixed length in four sequence buckets, ``n_large``
+    for the models of 24 layers or more): embeddings within 1e-4, scores
+    within 1e-4 * (1 + |s|); bf16 against f32 on the card for the RMs:
+    smallest cosine at least 0.99.  Blenderbot runs at its 128 positions;
+    then one call at the RM's default 512 tokens, whose first bucket passes
+    128, must raise ``ValueError`` before any layer of the model runs."""
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+
+    for name, d in dirs.items():
+        shape = SEQ2SEQ_MODELS[name]
+        n = n_large if shape["encoder_layers"] + shape["decoder_layers"] >= 24 else n_docs
+        quarter = n // 4
+        docs = [t for i, (lo, hi) in enumerate(((3, 10), (11, 24), (25, 50), (51, 100)))
+                for t in synth_texts(vocab, quarter, lo, hi, 280 + i)]
+        if shape["model_type"] == "mbart":
+            docs = multilingual(docs, 285)
+        kw = dict(model=d, max_batch_size=16, max_seq_length=shape["max_seq_length"])
+        buckets = check_rm(dev, name, shape["model_type"], kw, docs, shape["d_model"])
+        assert max(buckets) <= shape["max_position_embeddings"], f"{name}'s buckets {buckets}"
+        if shape["max_position_embeddings"] < 512:
+            long_rm = TorchSentenceEncoderRM(device=dev, model=d, max_batch_size=16)
+            ran = []
+            hook = long_rm.encoder.encoder.register_forward_pre_hook(lambda *_: ran.append(1))
+            try:
+                long_rm(synth_texts(vocab, 16, 150, 200, 287))  # past 128 tokens each
+                raised = None
+            except ValueError as e:
+                raised = str(e)
+            finally:
+                hook.remove()
+            say(f"  {name} at max_seq_length 512 over 16 docs of 150-200 words: {raised!r}; encoder layers run "
+                f"{len(ran)}")
+            assert raised is not None and not ran, f"{name}: a bucket past its positions did not raise before the forward"
+        if "num_labels" in shape:
+            check_reranker(dev, name, shape["model_type"], kw, synth_texts(vocab, 4, 3, 9, 286), docs)
+
+
+def rerank_rate(dev, label: str, model_dir: str, queries: list[str], texts: list[str], cands) -> None:
+    """The ``model_dir`` reranker in bf16 (max_batch_size 64) over each
+    query's candidates: pairs/s on the host clock, after a warm call."""
+    import torch
+
+    from lotus_tpu_torch.models import TorchCrossEncoderReranker
+
+    rr = TorchCrossEncoderReranker(model=model_dir, dtype=torch.bfloat16, device=dev)
+    rr(queries[0], [texts[i] for i in cands[0]], K)  # warm
+    sync(dev)
+    t0 = time.perf_counter()
+    orders = [rr(q, [texts[i] for i in c], K).indices for q, c in zip(queries, cands)]
+    sync(dev)
+    rr_s = time.perf_counter() - t0
+    pairs = sum(len(c) for c in cands)
+    say(f"  {label} reranker (1 label) bf16, max_batch_size 64, over the top {len(cands[0])} of {len(queries)} "
+        f"queries: {pairs:,} pairs in {rr_s:.3f} s = {pairs / rr_s:,.1f} pairs/s (host clock) [{GPU}]")
+    assert all(len(o) == K and len(set(o)) == K for o in orders), f"the {label} reranker's orders"
+
+
+def bart_phase(dev, vocab: list[str], dirs: dict, n: int = 65_536, nq: int = 1000, nlist: int = 128) -> int:
+    """Phase 29b, BART at bart-base widths: ``n`` of config 2's docs (8-48
+    words) through ``TorchSentenceEncoderRM`` in bf16 at max_batch_size 64,
+    into an int8 IVF store (nlist 128, block-aligned: K1) through
+    ``ivf_text_store`` (recall@5 at least 0.95 over ``nq`` queries, K1 held
+    to its plain version on the call's own inputs); then the bart-large
+    reranker over SEQ2SEQ_RERANK_PAIRS.  Returns K1's launches."""
+    import torch
+
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+
+    k = 5
+    t0 = time.perf_counter()
+    right = synth_texts(vocab, n, 8, 48, 291, per_topic=k)
+    left = synth_texts(vocab, n, 8, 48, 290, per_topic=k)[:nq]
+    say(f"  {n:,} docs + {nq:,} queries of 8-48 words made in {time.perf_counter() - t0:.2f} s")
+    rm = TorchSentenceEncoderRM(model=dirs["bart-base"], max_batch_size=CONFIG2_BATCH, dtype=torch.bfloat16,
+                                device=dev)
+    right_emb, fig = encode_split(rm, right)
+    print_split(f"bart-base (BART) bf16, max_batch_size {CONFIG2_BATCH}", n, fig, BF16_OPS_PER_S, "989 TFLOP/s bf16")
+    print_tokenizer("byte-level BPE", right, fig)
+    left_emb = rm(left)
+    del rm
+    launches, vs, index_dir = ivf_text_store(dev, "BART-base", right, right_emb, left_emb, k, nlist,
+                                             SEQ2SEQ_MODELS["bart-base"]["d_model"])
+    nq_rr, top = SEQ2SEQ_RERANK_PAIRS
+    rerank_rate(dev, "bart-large (BART)", dirs["bart-large"], left[:nq_rr], right,
+                vs(left_emb[:nq_rr], top).indices)
+    shutil.rmtree(index_dir, ignore_errors=True)
+    return launches
+
+
+def mbart_phase(dev, vocab: list[str], dirs: dict, n: int = 4096, nq: int = 256, top: int = 100) -> tuple[int, tuple]:
+    """Phase 29c, mBART at mbart-large-cc25 widths: ``n`` of config 1's
+    passages (150-300 words, the 512-token bucket) through
+    ``TorchSentenceEncoderRM`` in bf16, into a Flat store through
+    ``flat_text_store`` (recall@10 1.0 through ids, at least 0.98 through K2
+    at d 1024, K2 held to its plain version on the call's own inputs and
+    timed beside its bound); then the mBART reranker over
+    SEQ2SEQ_RERANK_PAIRS.  Returns K2's launches and figures."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+
+    t0 = time.perf_counter()
+    passages = synth_texts(vocab, n, 150, 300, 50, per_topic=K)
+    queries = [" ".join(np.random.default_rng(51 + i).choice(passages[j].split()[:40], 12))
+               for i, j in enumerate(np.random.default_rng(52).integers(0, n, nq))]
+    say(f"  {n:,} passages of 150-300 words, {nq} queries of 12 words from a passage's first 40; made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rm = TorchSentenceEncoderRM(model=dirs["mbart-large-cc25"], max_batch_size=CONFIG2_BATCH, dtype=torch.bfloat16,
+                                device=dev)
+    emb, fig = encode_split(rm, passages)
+    print_split(f"mbart-large-cc25 (mBART) bf16, max_batch_size {CONFIG2_BATCH}", n, fig, BF16_OPS_PER_S,
+                "989 TFLOP/s bf16")
+    print_tokenizer("Unigram + charsmap", passages, fig)
+    assert fig["padded"] == -(-n // CONFIG2_BATCH) * CONFIG2_BATCH * 512, "an mBART batch missed the 512-token bucket"
+    width = SEQ2SEQ_MODELS["mbart-large-cc25"]["d_model"]
+    launches, figures = flat_text_store(dev, "mBART", rm, passages, emb, queries, top, width)
+    nq_rr, top_rr = SEQ2SEQ_RERANK_PAIRS
+    qv = torch.from_numpy(rm(queries[:nq_rr])).to(dev)
+    del rm
+    cands = exact_topk(qv, torch.from_numpy(emb).to(dev), top_rr).tolist()
+    rerank_rate(dev, "mbart-large-cc25 (mBART)", dirs["mbart-large-cc25"], queries[:nq_rr], passages, cands)
+    return launches, figures
+
+
+def seq2seq_phases(dev, vocab: list[str]) -> tuple[int, int]:
+    """Phase 29: the checkpoints written, card against CPU, BART-base
+    through K1, mBART through K2 at d 1024; the files deleted.  Returns K1's
+    and K2's launches."""
+    with Phase("the encoder-decoder families (BART, mBART, Pegasus, Blenderbot, Blenderbot-Small) at published "
+               "widths (seeded weights): card against CPU, bf16 against f32"):
+        t_phase = time.perf_counter()
+        t0 = time.perf_counter()
+        shutil.rmtree(SEQ2SEQ_DIR, ignore_errors=True)
+        dirs = write_seq2seq_models(vocab, dev)
+        size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(SEQ2SEQ_DIR) for f in fs)
+        say(f"  {len(dirs)} checkpoints ({size / 1e9:.3f} GB: model.safetensors, config.json, tokenizer files) "
+            f"written in {time.perf_counter() - t0:.2f} s under {os.path.relpath(SEQ2SEQ_DIR, REPO)}")
+        seq2seq_check_phase(dev, vocab, dirs)
+    with Phase("BART (bart-base widths) from text: IVF int8, K1; bart-large reranker"):
+        k1 = bart_phase(dev, vocab, dirs)
+    with Phase("mBART (mbart-large-cc25 widths) from text: Flat, K2 at d 1024; mBART reranker"):
+        k2, _ = mbart_phase(dev, vocab, dirs)
+    shutil.rmtree(SEQ2SEQ_DIR, ignore_errors=True)
+    say(f"  phase 29: {time.perf_counter() - t_phase:.1f} s wall [{GPU}]")
+    return k1, k2
+
+
 def text_phases(dev) -> tuple[int, int, int, tuple]:
-    """Phases 23-28 (the models, configs 1-2 from text, profiling, the
-    families past BERT).  Returns K1's and K2's launches on their main
+    """Phases 23-29 (the models, configs 1-2 from text, profiling, the
+    families past BERT, the encoder-decoders).  Returns K1's and K2's launches on their main
     paths, phase 27's K2 launches and K2's figures at d 1024."""
     with Phase("models at published widths (seeded weights): card against CPU, bf16 against f32"):
         t0 = time.perf_counter()
@@ -2840,8 +3216,9 @@ def text_phases(dev) -> tuple[int, int, int, tuple]:
     shutil.rmtree(MODELS_DIR, ignore_errors=True)
     fam_k1, fam_k2, k2_d1024 = families_phases(dev, vocab)
     late_k1, late_k2 = late_phases(dev, vocab)
+    s2s_k1, s2s_k2 = seq2seq_phases(dev, vocab)
     shutil.rmtree(TEXT_INDEX_DIR, ignore_errors=True)
-    return k1 + fam_k1 + late_k1, k2 + fam_k2 + late_k2, fam_k2, k2_d1024
+    return k1 + fam_k1 + late_k1 + s2s_k1, k2 + fam_k2 + late_k2 + s2s_k2, fam_k2, k2_d1024
 
 
 def config4_paths(dev) -> dict:

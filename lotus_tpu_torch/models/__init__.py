@@ -1,22 +1,30 @@
 """Embedding and rerank models of the port (M9, M13): the encoder families
 FlaxAutoModel loads that the port runs (BERT, RoBERTa, XLM-RoBERTa,
-DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird, RoBERTa-PreLayerNorm) in
-PyTorch, with their own tokenizers (WordPiece, byte-level BPE, Unigram and
-sentencepiece BPE, read from ``tokenizer.json`` or the older vocab files)
-and checkpoint readers (safetensors, ``pytorch_model.bin``, Flax msgpack),
-so no ``transformers``, ``tokenizers``, ``safetensors`` or ``msgpack`` is
-needed."""
+DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird, RoBERTa-PreLayerNorm) and
+its encoder-decoder families (BART and mBART, also as rerankers; Pegasus,
+Blenderbot and Blenderbot-Small as RMs) in PyTorch, with their own
+tokenizers (WordPiece, byte-level BPE, Unigram and sentencepiece BPE, read
+from ``tokenizer.json`` or the older vocab files, and Blenderbot-Small's
+slow BPE) and checkpoint readers (safetensors, ``pytorch_model.bin``, Flax
+msgpack), so no ``transformers``, ``tokenizers``, ``safetensors`` or
+``msgpack`` is needed."""
 
 from lotus_tpu_torch.models.albert import AlbertConfig, AlbertForSequenceClassification, AlbertModel
 from lotus_tpu_torch.models.auto import load_encoder, load_tokenizer
+from lotus_tpu_torch.models.bart import BartConfig, BartForSequenceClassification, BartModel
 from lotus_tpu_torch.models.bert import BertConfig, BertForSequenceClassification, BertModel, EncoderConfig
 from lotus_tpu_torch.models.big_bird import BigBirdConfig, BigBirdForSequenceClassification, BigBirdModel
+from lotus_tpu_torch.models.blenderbot import BlenderbotConfig
+from lotus_tpu_torch.models.blenderbot_small import BlenderbotSmallConfig, BlenderbotSmallModel
+from lotus_tpu_torch.models.blenderbot_small_tokenizer import BlenderbotSmallTokenizer
 from lotus_tpu_torch.models.checkpoint import (
     FAMILIES, encoder_config, fit_state_dict, from_flax_params, load_state_dict, read_safetensors,
 )
 from lotus_tpu_torch.models.distilbert import DistilBertConfig, DistilBertForSequenceClassification, DistilBertModel
 from lotus_tpu_torch.models.electra import ElectraConfig, ElectraForSequenceClassification, ElectraModel
+from lotus_tpu_torch.models.mbart import MBartConfig, MBartForSequenceClassification, MBartModel
 from lotus_tpu_torch.models.msgpack import read_flax_msgpack
+from lotus_tpu_torch.models.pegasus import PegasusConfig, PegasusModel
 from lotus_tpu_torch.models.reranker import Reranker
 from lotus_tpu_torch.models.rm import RM, as_query_matrix
 from lotus_tpu_torch.models.roberta import RobertaConfig, RobertaForSequenceClassification, RobertaModel
@@ -30,14 +38,15 @@ from lotus_tpu_torch.models.torch_rm import TorchSentenceEncoderRM
 from lotus_tpu_torch.models.wordpiece import WordPieceTokenizer
 
 __all__ = [
-    "FAMILIES", "RM", "AlbertConfig", "AlbertForSequenceClassification", "AlbertModel", "BertConfig",
-    "BertForSequenceClassification", "BertModel", "BigBirdConfig", "BigBirdForSequenceClassification",
-    "BigBirdModel", "DistilBertConfig", "DistilBertForSequenceClassification", "DistilBertModel", "ElectraConfig",
-    "ElectraForSequenceClassification", "ElectraModel", "EncoderConfig", "JsonTokenizer", "Reranker",
-    "RoFormerConfig", "RoFormerForSequenceClassification", "RoFormerModel", "RobertaConfig",
+    "FAMILIES", "RM", "AlbertConfig", "AlbertForSequenceClassification", "AlbertModel", "BartConfig",
+    "BartForSequenceClassification", "BartModel", "BertConfig", "BertForSequenceClassification", "BertModel",
+    "BigBirdConfig", "BigBirdForSequenceClassification", "BigBirdModel", "BlenderbotConfig", "BlenderbotSmallConfig",
+    "BlenderbotSmallModel", "BlenderbotSmallTokenizer", "DistilBertConfig", "DistilBertForSequenceClassification",
+    "DistilBertModel", "ElectraConfig", "ElectraForSequenceClassification", "ElectraModel", "EncoderConfig",
+    "JsonTokenizer", "MBartConfig", "MBartForSequenceClassification", "MBartModel", "PegasusConfig", "PegasusModel",
+    "Reranker", "RoFormerConfig", "RoFormerForSequenceClassification", "RoFormerModel", "RobertaConfig",
     "RobertaForSequenceClassification", "RobertaModel", "RobertaPreLayerNormConfig",
     "RobertaPreLayerNormForSequenceClassification", "RobertaPreLayerNormModel", "TorchCrossEncoderReranker",
     "TorchSentenceEncoderRM", "WordPieceTokenizer", "as_query_matrix", "encoder_config", "fit_state_dict",
-    "from_flax_params", "load_encoder", "load_state_dict", "load_tokenizer", "read_flax_msgpack",
-    "read_safetensors",
+    "from_flax_params", "load_encoder", "load_state_dict", "load_tokenizer", "read_flax_msgpack", "read_safetensors",
 ]

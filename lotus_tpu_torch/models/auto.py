@@ -4,14 +4,19 @@ local checkpoint directory.
 
 ``load_encoder`` dispatches on ``config.json``'s ``model_type`` to the
 families in ``checkpoint.FAMILIES`` (bert, roberta, xlm-roberta,
-distilbert, electra, albert, roformer, big_bird, roberta-prelayernorm);
-any other type raises ``NotImplementedError`` naming it: of the types the
-reference's sequence-classification auto class maps, bart and mbart, and
-of those ``FlaxAutoModel`` maps, the decoders, the encoder-decoders and
-the vision and audio models.  ``load_tokenizer`` reads ``tokenizer.json``
-first, then ``vocab.txt`` (WordPiece), then ``vocab.json`` + ``merges.txt``
-(byte-level BPE); a directory whose tokenizer is RoFormer's jieba one is
-refused (``tokenizer_json``).
+distilbert, electra, albert, roformer, big_bird, roberta-prelayernorm;
+bart and mbart, also as sequence classifiers; pegasus, blenderbot and
+blenderbot-small as encoders only, where a classifier raises
+``ValueError`` as the reference's auto class does); any other type raises
+``NotImplementedError`` naming it: of the types ``FlaxAutoModel`` maps,
+marian, t5 and its kin, the decoders and the vision and audio models.
+``load_tokenizer`` builds the class ``AutoTokenizer`` would
+(``tokenizer_json.read_tokenizer_config``): Blenderbot-Small's slow tokenizer from
+``vocab.json`` and ``merges.txt`` (``blenderbot_small_tokenizer.py``), and
+for any other class ``tokenizer.json`` first, then ``vocab.txt``
+(WordPiece), then ``vocab.json`` + ``merges.txt`` (byte-level BPE); a
+directory whose tokenizer is RoFormer's jieba one is refused
+(``tokenizer_json``).
 """
 
 from __future__ import annotations
@@ -21,8 +26,9 @@ import os
 import torch
 from torch import nn
 
+from lotus_tpu_torch.models.blenderbot_small_tokenizer import BlenderbotSmallTokenizer
 from lotus_tpu_torch.models.checkpoint import fit_state_dict, load_state_dict, new_module, read_config
-from lotus_tpu_torch.models.tokenizer_json import JsonTokenizer
+from lotus_tpu_torch.models.tokenizer_json import JsonTokenizer, read_tokenizer_config
 
 
 def load_encoder(model_dir: str, classifier: bool = False) -> nn.Module:
@@ -39,11 +45,14 @@ def load_encoder(model_dir: str, classifier: bool = False) -> nn.Module:
 
 
 def load_tokenizer(model_dir: str) -> JsonTokenizer:
-    """The tokenizer of a checkpoint directory: ``tokenizer.json``, else
+    """The tokenizer of a checkpoint directory: Blenderbot-Small's where
+    ``AutoTokenizer`` would build it, else ``tokenizer.json``, else
     ``vocab.txt``, else ``vocab.json`` and ``merges.txt``."""
     def has(*names: str) -> bool:
         return all(os.path.exists(os.path.join(model_dir, n)) for n in names)
 
+    if read_tokenizer_config(model_dir).get("tokenizer_class") == "BlenderbotSmallTokenizer":
+        return BlenderbotSmallTokenizer.from_dir(model_dir)
     if has("tokenizer.json"):
         return JsonTokenizer.from_dir(model_dir)
     if has("vocab.txt"):

@@ -33,15 +33,17 @@ import torch.nn.functional as F
 from torch import nn
 
 # Flax's ACT2FN for the activations the port runs: "gelu" is the exact erf
-# form, "gelu_new" the tanh form (nn.gelu(approximate=True)).
-ACTIVATIONS = {"gelu": F.gelu, "gelu_new": partial(F.gelu, approximate="tanh")}
+# form, "gelu_new" the tanh form (nn.gelu(approximate=True)); "relu" is
+# Pegasus's.
+ACTIVATIONS = {"gelu": F.gelu, "gelu_new": partial(F.gelu, approximate="tanh"), "relu": F.relu}
 
 
 class EncoderConfig:
     """What every family's config shares: it is read from ``config.json``,
     whose ``model_type`` must be one of ``model_types`` and whose activation
     (under ``activation_key``) one of ``ACTIVATIONS``; the dataclass fields
-    are read under their own names, and ``num_labels`` from ``id2label``."""
+    are read under their own names, and ``num_labels`` from ``id2label`` (or
+    ``num_labels``, else the family's default)."""
 
     model_types: ClassVar[tuple[str, ...]] = ()
     activation_key: ClassVar[str] = "hidden_act"
@@ -59,7 +61,8 @@ class EncoderConfig:
         if cfg.get("position_embedding_type", "absolute") != "absolute":
             raise NotImplementedError(f"position_embedding_type {cfg['position_embedding_type']!r}: the port runs "
                                       f"'absolute' only")
-        num_labels = len(cfg["id2label"]) if "id2label" in cfg else cfg.get("num_labels", 2)
+        default = cls.__dataclass_fields__["num_labels"].default
+        num_labels = len(cfg["id2label"]) if "id2label" in cfg else cfg.get("num_labels", default)
         fields = {k: cfg[k] for k in cls.__dataclass_fields__ if k in cfg and k != "num_labels"}
         return cls(**fields, num_labels=int(num_labels))
 

@@ -9,15 +9,20 @@ renamed by ``flax_state_dict``), in that order.  ``FAMILIES`` maps each
 ``model_type`` the port runs to its config and modules; ``fit_state_dict``
 loads any of the three by name, with or without the family's prefix
 (``bert.``, ``roberta.``, ``distilbert.``, ``electra.``, ``albert.``,
-``roformer.``, ``roberta_prelayernorm.``; BigBird's is ``bert.``), and drops
-the heads the module has no place for (a pretraining head, as most public
-Flax files carry: ``lm_head``, ``cls``, ``discriminator_predictions``,
-ALBERT's ``predictions`` and ``sop_classifier``).  The families' torch and
+``roformer.``, ``roberta_prelayernorm.``; BigBird's is ``bert.``, the
+encoder-decoders' ``model.``), and drops the heads the module has no place
+for (a pretraining head, as most public Flax files carry: ``lm_head``,
+``cls``, ``discriminator_predictions``, ALBERT's ``predictions`` and
+``sop_classifier``; a ``*ForConditionalGeneration``'s ``lm_head`` and
+``final_logits_bias``).  The encoder-decoders' token embeddings are
+``shared``: a checkpoint that carries ``encoder.embed_tokens`` /
+``decoder.embed_tokens`` beside it or in its place loads as well
+(``bart._tie_embeddings``).  The families' torch and
 Flax names are the same modulo ``flax_state_dict``'s renames (ALBERT's
 shared ``encoder.albert_layer_groups.<g>.albert_layers.<j>`` and
 RoBERTa-PreLayerNorm's top-level ``LayerNorm`` included); RoFormer's
 ``encoder.embed_positions.weight``, which only torch files carry, is held to
-the computed sinusoid table and not loaded.
+the computed sinusoid table and not loaded, and so are Pegasus's two.
 """
 
 from __future__ import annotations
@@ -32,11 +37,16 @@ import torch
 from torch import nn
 
 from lotus_tpu_torch.models.albert import AlbertConfig, AlbertForSequenceClassification, AlbertModel
+from lotus_tpu_torch.models.bart import BartConfig, BartForSequenceClassification, BartModel
 from lotus_tpu_torch.models.bert import BertConfig, BertForSequenceClassification, BertModel, EncoderConfig
 from lotus_tpu_torch.models.big_bird import BigBirdConfig, BigBirdForSequenceClassification, BigBirdModel
+from lotus_tpu_torch.models.blenderbot import BlenderbotConfig
+from lotus_tpu_torch.models.blenderbot_small import BlenderbotSmallConfig, BlenderbotSmallModel
 from lotus_tpu_torch.models.distilbert import DistilBertConfig, DistilBertForSequenceClassification, DistilBertModel
 from lotus_tpu_torch.models.electra import ElectraConfig, ElectraForSequenceClassification, ElectraModel
+from lotus_tpu_torch.models.mbart import MBartConfig, MBartForSequenceClassification, MBartModel
 from lotus_tpu_torch.models.msgpack import read_flax_msgpack
+from lotus_tpu_torch.models.pegasus import PegasusConfig, PegasusModel
 from lotus_tpu_torch.models.roberta import RobertaConfig, RobertaForSequenceClassification, RobertaModel
 from lotus_tpu_torch.models.roberta_prelayernorm import (
     RobertaPreLayerNormConfig, RobertaPreLayerNormForSequenceClassification, RobertaPreLayerNormModel,
@@ -46,8 +56,9 @@ from lotus_tpu_torch.models.roformer import RoFormerConfig, RoFormerForSequenceC
 SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16, "I64": torch.int64}
 # model_type -> (config, encoder, sequence classifier): the families
 # FlaxAutoModel and FlaxAutoModelForSequenceClassification load that the
-# port runs.
-FAMILIES: dict[str, tuple[type[EncoderConfig], type[nn.Module], type[nn.Module]]] = {
+# port runs; None where the sequence-classification auto class does not map
+# the type (an RM only).
+FAMILIES: dict[str, tuple[type[EncoderConfig], type[nn.Module], type[nn.Module] | None]] = {
     "bert": (BertConfig, BertModel, BertForSequenceClassification),
     "roberta": (RobertaConfig, RobertaModel, RobertaForSequenceClassification),
     "xlm-roberta": (RobertaConfig, RobertaModel, RobertaForSequenceClassification),
@@ -58,6 +69,11 @@ FAMILIES: dict[str, tuple[type[EncoderConfig], type[nn.Module], type[nn.Module]]
     "big_bird": (BigBirdConfig, BigBirdModel, BigBirdForSequenceClassification),
     "roberta-prelayernorm": (RobertaPreLayerNormConfig, RobertaPreLayerNormModel,
                              RobertaPreLayerNormForSequenceClassification),
+    "bart": (BartConfig, BartModel, BartForSequenceClassification),
+    "mbart": (MBartConfig, MBartModel, MBartForSequenceClassification),
+    "pegasus": (PegasusConfig, PegasusModel, None),
+    "blenderbot": (BlenderbotConfig, BartModel, None),
+    "blenderbot-small": (BlenderbotSmallConfig, BlenderbotSmallModel, None),
 }
 # The encoders that carry a pooler unless told not to.
 _POOLED = (BertModel, RobertaModel, AlbertModel, BigBirdModel, RobertaPreLayerNormModel)
@@ -81,8 +97,12 @@ def read_config(model_dir: str) -> EncoderConfig:
 def new_module(config: EncoderConfig, classifier: bool = False, pooler: bool = False) -> nn.Module:
     """The family's encoder (with a pooler where it has one and ``pooler``)
     or sequence classifier for ``config``, on the current default device."""
-    encoder, seq_cls = next(f[1:] for f in FAMILIES.values() if f[0] is type(config))
+    model_type, encoder, seq_cls = next((t, *f[1:]) for t, f in FAMILIES.items() if f[0] is type(config))
     if classifier:
+        if seq_cls is None:
+            raise ValueError(f"model_type {model_type!r} has no sequence classifier: "
+                             f"FlaxAutoModelForSequenceClassification does not map it, so the port runs it as an "
+                             f"RM only")
         return seq_cls(config)
     return encoder(config, add_pooling_layer=pooler) if encoder in _POOLED else encoder(config)
 
@@ -176,10 +196,11 @@ def from_flax_params(params: dict, config: EncoderConfig) -> dict[str, torch.Ten
     or sequence classifier of ``config``'s family (``flax_state_dict``).
     The names must be exactly those of the port's module: the encoder (with
     its pooler, where the family has one, as Flax's encoders always do) or,
-    where they carry a ``classifier``, the sequence classifier."""
+    where they carry a ``classifier`` (``classification_head`` for the
+    encoder-decoders), the sequence classifier."""
     out = flax_state_dict(params)
     with torch.device("meta"):
-        ref = new_module(config, classifier="classifier" in params, pooler=True)
+        ref = new_module(config, classifier=bool({"classifier", "classification_head"} & set(params)), pooler=True)
     want = set(ref.state_dict())
     if set(out) != want:
         raise KeyError(f"Flax parameters do not map onto {type(ref).__name__}: missing {sorted(want - set(out))}, "

@@ -34,13 +34,24 @@ vocabulary files into: ``from_vocab_txt`` (BERT's WordPiece) and
 ``from_vocab_merges`` (RoBERTa's byte-level BPE).  Encodings are int64
 numpy arrays.
 
-A directory whose tokenizer ``AutoTokenizer`` would build as
-``RoFormerTokenizer`` (named by ``tokenizer_config.json`` or ``config.json``,
-or a ``roformer`` model without a tokenizer class) is refused with
-``NotImplementedError``: ``RoFormerTokenizerFast`` cuts words with jieba
-(a custom ``JiebaPreTokenizer`` over ``rjieba``) that ``tokenizer.json``
-does not record (``save_pretrained`` writes a ``BertPreTokenizer`` in its
-place), so reading the file would tokenize differently without an error.
+The tokenizer class is the one ``AutoTokenizer`` would build: named by
+``tokenizer_config.json``, else by ``config.json``, else the model type's
+(``TYPE_TOKENIZERS``).  Two classes change what the file says:
+
+- ``MBartTokenizerFast`` replaces the file's template at load time with
+  ``$A </s> <src_lang>`` and ``$A $B </s> <src_lang>`` (a pair has one
+  ``</s>``), ``src_lang`` from ``tokenizer_config.json`` or ``en_XX``
+  (``tokenization_mbart_fast.py:121-124``, ``:219-232``);
+  ``MBart50TokenizerFast`` with ``<src_lang> $A </s>`` and ``<src_lang> $A
+  $B </s>``;
+- ``RoFormerTokenizer`` is refused with ``NotImplementedError``:
+  ``RoFormerTokenizerFast`` cuts words with jieba (a custom
+  ``JiebaPreTokenizer`` over ``rjieba``) that ``tokenizer.json`` does not
+  record (``save_pretrained`` writes a ``BertPreTokenizer`` in its place),
+  so reading the file would tokenize differently without an error.
+
+Blenderbot-Small's class is the slow one, which reads no ``tokenizer.json``
+(``blenderbot_small_tokenizer.py``; ``auto.load_tokenizer`` picks it).
 """
 
 from __future__ import annotations
@@ -355,8 +366,13 @@ class JsonTokenizer:
         self.pre_tokenize = pre_tokenizer(pre)
         self.model, vocab = model(spec["model"])
         self._cut = None if pre is None else CHUNK_LOCAL.get(pre["type"])
-        self.single, self.pair = post_processor(spec.get("post_processor"))
         self.vocab = {**vocab, **{t["content"]: t["id"] for t in added}}
+        self.single, self.pair = post_processor(spec.get("post_processor"))
+        mbart = MBART_TEMPLATES.get(str(config.get("tokenizer_class", "")).removesuffix("Fast"))
+        if mbart is not None:  # ids as convert_tokens_to_ids gives them: the unknown token's if missing
+            unk = self.vocab.get(special_token(config.get("unk_token", "<unk>")))
+            self.single, self.pair = mbart(*(self.vocab.get(special_token(config.get(k, v)), unk)
+                                             for k, v in (("src_lang", "en_XX"), ("eos_token", "</s>"))))
         pad = config.get("pad_token")
         if pad is None and spec.get("padding"):
             pad = spec["padding"].get("pad_token")
@@ -369,7 +385,7 @@ class JsonTokenizer:
         (whose special tokens ``special_tokens_map.json`` completes)."""
         with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
             spec = json.load(f)
-        return cls(spec, _read_config(path))
+        return cls(spec, read_tokenizer_config(path))
 
     @classmethod
     def from_vocab_txt(cls, path: str) -> "JsonTokenizer":
@@ -380,7 +396,7 @@ class JsonTokenizer:
         ``[CLS] A [SEP] B [SEP]``), with BERT's special tokens unless
         ``tokenizer_config.json`` names others; ``do_lower_case``,
         ``strip_accents`` and ``tokenize_chinese_chars`` come from it too."""
-        config = _read_config(path)
+        config = read_tokenizer_config(path)
         vocab: dict[str, int] = {}
         with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as f:
             for i, line in enumerate(f):
@@ -408,7 +424,7 @@ class JsonTokenizer:
         (``RobertaConverter``: no normalizer, ``ByteLevel`` pre-tokenizer,
         ``RobertaProcessing``), with RoBERTa's special tokens unless
         ``tokenizer_config.json`` names others."""
-        config = _read_config(path)
+        config = read_tokenizer_config(path)
         with open(os.path.join(path, "vocab.json"), encoding="utf-8") as f:
             vocab = json.load(f)
         names = {"bos_token": "<s>", "eos_token": "</s>", "sep_token": "</s>", "cls_token": "<s>",
@@ -525,6 +541,24 @@ class JsonTokenizer:
 
 
 JIEBA_TOKENIZERS = ("RoFormerTokenizer", "RoFormerTokenizerFast")
+# The class AutoTokenizer builds for a model type when no file names one
+# (TOKENIZER_MAPPING_NAMES), for the types whose class changes what the port
+# reads.
+TYPE_TOKENIZERS = {"roformer": "RoFormerTokenizer", "mbart": "MBartTokenizer",
+                   "blenderbot-small": "BlenderbotSmallTokenizer"}
+
+
+def _mbart(lang: int, eos: int) -> tuple[Template, Template]:
+    return [("A", 0), ([eos, lang], 0)], [("A", 0), ("B", 0), ([eos, lang], 0)]
+
+
+def _mbart50(lang: int, eos: int) -> tuple[Template, Template]:
+    return [([lang], 0), ("A", 0), ([eos], 0)], [([lang], 0), ("A", 0), ("B", 0), ([eos], 0)]
+
+
+# The (single, pair) templates the mBART fast tokenizers set at load time,
+# from the ids of src_lang and of the eos token.
+MBART_TEMPLATES = {"MBartTokenizer": _mbart, "MBart50Tokenizer": _mbart50}
 
 
 def _read_json(path: str, name: str) -> dict:
@@ -535,15 +569,18 @@ def _read_json(path: str, name: str) -> dict:
         return {k: v for k, v in json.load(f).items() if v is not None}
 
 
-def _read_config(path: str) -> dict:
+def read_tokenizer_config(path: str) -> dict:
     """``tokenizer_config.json``, its special tokens completed from
-    ``special_tokens_map.json``; empty where neither is there.  Refuses a
+    ``special_tokens_map.json``, with ``tokenizer_class`` the class
+    ``AutoTokenizer`` builds (absent where nothing names one).  Refuses a
     directory whose tokenizer is RoFormer's (jieba)."""
     config = {**_read_json(path, "special_tokens_map.json"), **_read_json(path, "tokenizer_config.json")}
     model = _read_json(path, "config.json")
     # AutoTokenizer's order: tokenizer_config's class, config.json's, the model type's.
-    cls = config.get("tokenizer_class") or model.get("tokenizer_class")
-    if cls in JIEBA_TOKENIZERS or (cls is None and model.get("model_type") == "roformer"):
+    cls = config.get("tokenizer_class") or model.get("tokenizer_class") or TYPE_TOKENIZERS.get(model.get("model_type"))
+    if cls is not None:
+        config["tokenizer_class"] = cls
+    if cls in JIEBA_TOKENIZERS:
         raise NotImplementedError(
             f"{path}: the tokenizer is {cls or 'RoFormerTokenizer'}, which cuts Chinese words with jieba (rjieba) "
             f"before WordPiece; tokenizer.json does not record that cut, and the port has no jieba dictionary yet, "

@@ -1,13 +1,17 @@
 """Cross-encoder reranker on the card: a family's sequence classifier
-(BERT, RoBERTa, XLM-R, DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird or
-RoBERTa-PreLayerNorm) in PyTorch.
+(BERT, RoBERTa, XLM-R, DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird,
+RoBERTa-PreLayerNorm, BART or mBART) in PyTorch; Pegasus, Blenderbot and
+Blenderbot-Small have none, and are refused as the reference's auto class
+refuses them.
 
 The port of ``JaxCrossEncoderReranker``
 (``lotus_tpu/models/flax_reranker.py:27-107``), which fills the role of the
 reference's ``CrossEncoderReranker``.  (query, doc) pairs are encoded by the
 tokenizer's template (``[CLS] query [SEP] doc [SEP]``, ``<s> query </s></s>
-doc </s>``), cut ``longest_first`` to ``max_seq_length``, and batched in
-``TorchSentenceEncoderRM``'s buckets.
+doc </s>``, mBART's ``query doc </s> <lang>``), cut ``longest_first`` to
+``max_seq_length``, and batched in ``TorchSentenceEncoderRM``'s buckets.
+BART's and mBART's heads read the sum of the decoder states at every
+``</s>``, as the reference computes them under ``jit`` (``bart.py``).
 Scores follow sentence-transformers' ``CrossEncoder``: a one-logit head
 scores directly, a head of more logits by the last (positive) one.
 """
@@ -56,7 +60,7 @@ class TorchCrossEncoderReranker(Reranker):
                 # RoBERTa-PreLayerNorm then zero them and Flax ELECTRA sets
                 # them all to 1 (ElectraModel.absent_token_type), where
                 # sentence-transformers' CrossEncoder gives the doc segment 1;
-                # DistilBERT has no segments.
+                # DistilBERT, BART and mBART have no segments.
                 logits = self.model(ids, mask).float()
                 scores.append((logits[:, 0] if logits.shape[-1] == 1 else logits[:, -1])[:n])
         return torch.cat(scores).cpu().numpy() if scores else np.zeros((0,), np.float32)

@@ -1,16 +1,20 @@
 """Sentence-embedding RM on the card: an encoder (BERT, RoBERTa, XLM-R,
-DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird or RoBERTa-PreLayerNorm) in
-PyTorch.
+DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird or RoBERTa-PreLayerNorm) or
+an encoder-decoder (BART, mBART, Pegasus, Blenderbot or Blenderbot-Small)
+in PyTorch.
 
 The port of ``JaxSentenceEncoderRM`` (``lotus_tpu/models/flax_rm.py:32-127``),
 which fills the role of the reference's ``SentenceTransformersRM``.  It
 reads a local checkpoint directory with the port's own tokenizer and
 checkpoint reader (``auto.load_tokenizer``, ``auto.load_encoder``), and
-calls the encoder with ids and mask only, as the reference does (so token
-types are the family's default: 0, but 1 for ELECTRA; DistilBERT has
-none).  BigBird's block-sparse attention fails, as the reference's does,
-on a bucket that is not whole blocks or holds fewer than 4
-(``big_bird.check_blocks``).  It keeps the
+calls the model with ids and mask only, as the reference does (so token
+types are the family's default: 0, but 1 for ELECTRA; DistilBERT and the
+encoder-decoders have none).  An encoder-decoder's hidden states are its
+decoder's, run on the shifted ids (``bart.py``).  Where the reference
+fails on a bucket, the port raises before it runs the bucket: BigBird's
+block-sparse attention on one that is not whole blocks or holds fewer than
+4 (``big_bird.check_blocks``), an encoder-decoder on one longer than its
+``max_position_embeddings`` (``bart.check_length``).  It keeps the
 reference's buckets: the batch pads to ``max_batch_size`` with ``""`` and
 the tokens to the next power of two of at least 16, capped at
 ``max_seq_length``, so padding rows ride an all-zero attention mask and are

@@ -17,7 +17,12 @@ made here from a seed).
   normalizer, ``Metaspace``, the same template) over a sentencepiece-style
   BPE (``fuse_unk``) trained by ``tokenizers`` on seeded text;
 - ``write_family``: a checkpoint directory saved with ``save_pretrained``
-  (weights and tokenizer) for one family.
+  (weights and tokenizer) for one family;
+- the encoder-decoder families (``SEQ2SEQ``, kept out of ``FAMILIES`` so
+  that the files parametrised over it do not grow): ``write_seq2seq`` and
+  ``write_seq2seq_tokenizer`` (BART's and Blenderbot's byte-level BPE,
+  mBART's and Pegasus's Unigram in their converters' layouts,
+  Blenderbot-Small's slow BPE files, ``blenderbot_small_files``).
 """
 
 from __future__ import annotations
@@ -234,6 +239,153 @@ def write_family(path: str, family: str, *, num_labels: int | None = None, seed:
     Returns the torch model."""
     tok = write_tokenizer(path, family, seed)
     cfg = family_config(family, len(tok), num_labels=num_labels, init_range=init_range, **cfg_kw)
+    auto = transformers.AutoModel if num_labels is None else transformers.AutoModelForSequenceClassification
+    torch.manual_seed(seed)
+    model = auto.from_config(cfg).eval()
+    model.save_pretrained(path)
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        assert json.load(f)["model_type"] == family
+    return model
+
+
+# ---- the encoder-decoder families ------------------------------------------------
+
+SEQ2SEQ = ("bart", "mbart", "pegasus", "blenderbot", "blenderbot-small")
+SEQ2SEQ_CLASSIFIERS = ("bart", "mbart")  # the types FlaxAutoModelForSequenceClassification maps
+# MBartConverter's language codes (FAIRSEQ_LANGUAGE_CODES), after the pieces.
+MBART_LANGS = ("ar_AR", "cs_CZ", "de_DE", "en_XX", "es_XX", "et_EE", "fi_FI", "fr_XX", "gu_IN", "hi_IN", "it_IT",
+               "ja_XX", "kk_KZ", "ko_KR", "lt_LT", "lv_LV", "my_MM", "ne_NP", "nl_XX", "ro_RO", "ru_RU", "si_LK",
+               "tr_TR", "vi_VN", "zh_CN")
+PEGASUS_HEAD = ("<pad>", "</s>", "<mask_1>", "<mask_2>", *(f"<unk_{i}>" for i in range(2, 103)), "<unk>")
+
+
+def spm_unigram(vocab: list[tuple[str, float]], unk: str, blob: bytes | None, template: processors.TemplateProcessing,
+                whitespace_split: bool = False) -> Tokenizer:
+    """A Unigram tokenizer as ``SpmConverter`` builds one: the ``Precompiled``
+    charsmap, ``Strip`` on the right, ``Replace(" {2,}", "▁")``, ``Metaspace``
+    (always; after ``WhitespaceSplit`` for Pegasus) and ``template``."""
+    tok = Tokenizer(models.Unigram(vocab, unk_id=[t for t, _ in vocab].index(unk), byte_fallback=False))
+    steps = [normalizers.Precompiled(blob)] if blob is not None else []
+    tok.normalizer = normalizers.Sequence([*steps, normalizers.Strip(left=False, right=True),
+                                           normalizers.Replace(Regex(" {2,}"), "▁")])
+    meta = pre_tokenizers.Metaspace(replacement="▁", prepend_scheme="always", split=True)
+    tok.pre_tokenizer = pre_tokenizers.Sequence([pre_tokenizers.WhitespaceSplit(), meta]) if whitespace_split else meta
+    tok.decoder = decoders.Metaspace(replacement="▁", prepend_scheme="always", split=True)
+    tok.post_processor = template
+    return tok
+
+
+def mbart_tokenizer(seed: int = 0, blob: bytes | None = None) -> Tokenizer:
+    """mBART's fast tokenizer as ``MBartConverter`` builds it over a seeded
+    Unigram vocabulary (``<s> <pad> </s> <unk>``, the pieces, the language
+    codes, ``<mask>``), with the file's template ``$A </s> en_XX``."""
+    vocab = unigram_vocab(seed, specials=(("<s>", "<pad>", "</s>", "<unk>"), (*MBART_LANGS, "<mask>")))
+    ids = {t: i for i, (t, _) in enumerate(vocab)}
+    template = processors.TemplateProcessing(single="$A </s> en_XX", pair="$A $B </s> en_XX",
+                                             special_tokens=[("</s>", ids["</s>"]), ("en_XX", ids["en_XX"])])
+    return spm_unigram(vocab, "<unk>", blob, template)
+
+
+def pegasus_tokenizer(seed: int = 0, blob: bytes | None = None) -> Tokenizer:
+    """Pegasus's fast tokenizer as ``PegasusConverter`` builds it over a
+    seeded Unigram vocabulary (``<pad> </s> <mask_1> <mask_2>``,
+    ``<unk_2>`` .. ``<unk_102>``, ``<unk>``, the pieces), ``WhitespaceSplit``
+    before ``Metaspace``, and ``$A </s>`` / ``$A $B </s>``."""
+    vocab = unigram_vocab(seed, specials=(PEGASUS_HEAD, ()))
+    template = processors.TemplateProcessing(single="$A </s>", pair="$A $B </s>", special_tokens=[("</s>", 1)])
+    return spm_unigram(vocab, "<unk>", blob, template, whitespace_split=True)
+
+
+def blenderbot_small_files(path: str, seed: int = 0, vocab_size: int = 400) -> None:
+    """Blenderbot-Small's ``vocab.json`` / ``merges.txt``: BPE merges with
+    ``</w>`` trained by ``tokenizers`` on seeded lowercase words, the
+    vocabulary in the slow tokenizer's form (a piece that ends a word
+    without ``</w>``, any other with ``@@``), with ``__null__``,
+    ``__start__``, ``__end__``, ``__unk__`` first and ``__newln__``."""
+    from tokenizers import trainers
+
+    trainee = Tokenizer(models.BPE(unk_token="__unk__", end_of_word_suffix="</w>"))
+    trainee.normalizer = normalizers.Lowercase()
+    trainee.pre_tokenizer = pre_tokenizers.Sequence([pre_tokenizers.WhitespaceSplit(),
+                                                     pre_tokenizers.Punctuation(behavior="isolated")])
+    corpus = seeded_texts(seed, 400, seeded_words(seed, 300), 3, 20)
+    trainee.train_from_iterator(corpus, trainers.BpeTrainer(vocab_size=vocab_size, min_frequency=2,
+                                                            end_of_word_suffix="</w>", show_progress=False))
+    trained = json.loads(trainee.to_str())["model"]
+    vocab = {t: i for i, t in enumerate(("__null__", "__start__", "__end__", "__unk__", "__newln__"))}
+    for t in trained["vocab"]:
+        vocab.setdefault(t[:-4] if t.endswith("</w>") else t + "@@", len(vocab))
+    for c in LETTERS + list(".,!?()'"):  # single characters stand alone
+        vocab.setdefault(c, len(vocab))
+    merges = [m.split(" ", 1) if isinstance(m, str) else m for m in trained["merges"]]
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+def write_seq2seq_tokenizer(path: str, family: str, seed: int = 0, **kw):
+    """The family's tokenizer as ``AutoTokenizer`` builds it, saved in
+    ``path`` (``kw`` go to its class: ``src_lang`` for mBART,
+    ``add_prefix_space`` for Blenderbot).  Blenderbot-Small's is the slow
+    tokenizer, its ``tokenizer_config.json`` left without a class, as
+    ``AutoTokenizer`` (4.57) fails to convert it to the fast class that a
+    named class sends it to.  Returns it."""
+    os.makedirs(path, exist_ok=True)
+    blob = build_charsmap(CHARSMAP)
+    if family in ("bart", "blenderbot"):
+        write_bpe_files(path, seed)
+        cls = transformers.BartTokenizerFast if family == "bart" else transformers.BlenderbotTokenizerFast
+        tok = cls(vocab_file=os.path.join(path, "vocab.json"), merges_file=os.path.join(path, "merges.txt"), **kw)
+    elif family == "mbart":
+        tok = transformers.MBartTokenizerFast(tokenizer_object=mbart_tokenizer(seed, blob), **kw)
+    elif family == "pegasus":
+        tok = transformers.PegasusTokenizerFast(tokenizer_object=pegasus_tokenizer(seed, blob), **kw)
+    else:
+        blenderbot_small_files(path, seed)
+        tok = transformers.BlenderbotSmallTokenizer(os.path.join(path, "vocab.json"), os.path.join(path, "merges.txt"))
+    tok.save_pretrained(path)
+    if family == "blenderbot-small":
+        cfg_path = os.path.join(path, "tokenizer_config.json")
+        with open(cfg_path, encoding="utf-8") as f:
+            cfg = json.load(f)
+        cfg.pop("tokenizer_class")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            json.dump(cfg, f)
+    return tok
+
+
+def seq2seq_config(family: str, vocab_size: int, *, num_labels: int | None = None, init_std: float = 0.02,
+                   max_position_embeddings: int = 128, **kw):
+    """A tiny config (width 32, 2 + 2 layers, 2 heads, FFN 64) of
+    ``family``, with the published models' layout flags: ``scale_embedding``
+    for mBART, Pegasus and both Blenderbots, ReLU for Pegasus."""
+    cls = {"bart": transformers.BartConfig, "mbart": transformers.MBartConfig, "pegasus": transformers.PegasusConfig,
+           "blenderbot": transformers.BlenderbotConfig,
+           "blenderbot-small": transformers.BlenderbotSmallConfig}[family]
+    ids = {"bart": (1, 0, 2, 2), "mbart": (1, 0, 2, None), "pegasus": (0, None, 1, 0), "blenderbot": (0, 1, 2, 1),
+           "blenderbot-small": (0, 1, 2, 1)}[family]
+    fields = dict(vocab_size=vocab_size, d_model=32, encoder_layers=2, decoder_layers=2, encoder_attention_heads=2,
+                  decoder_attention_heads=2, encoder_ffn_dim=64, decoder_ffn_dim=64, init_std=init_std,
+                  max_position_embeddings=max_position_embeddings, scale_embedding=family != "bart",
+                  activation_function="relu" if family == "pegasus" else "gelu",
+                  **dict(zip(("pad_token_id", "bos_token_id", "eos_token_id", "decoder_start_token_id"), ids)))
+    if num_labels is not None:
+        fields["num_labels"] = num_labels
+    fields.update(kw)
+    return cls(**fields)
+
+
+def write_seq2seq(path: str, family: str, *, num_labels: int | None = None, seed: int = 0, init_std: float = 0.02,
+                  tokenizer_kw: dict | None = None, **cfg_kw):
+    """A ``family`` checkpoint in ``path``: its tokenizer, and the
+    encoder-decoder (or with ``num_labels`` the sequence classifier) drawn
+    with weights of standard deviation ``init_std``, saved with
+    ``save_pretrained`` (``model.safetensors``, which keeps ``shared`` of the
+    tied embeddings).  Returns the torch model."""
+    tok = write_seq2seq_tokenizer(path, family, seed, **(tokenizer_kw or {}))
+    cfg = seq2seq_config(family, len(tok), num_labels=num_labels, init_std=init_std, **cfg_kw)
     auto = transformers.AutoModel if num_labels is None else transformers.AutoModelForSequenceClassification
     torch.manual_seed(seed)
     model = auto.from_config(cfg).eval()
