@@ -159,8 +159,8 @@ Phases (each prints its seconds and the card's name and power limit):
    byte-level BPE merges, phase 23's WordPiece): multilingual-e5-base and
    bge-reranker-base (XLM-R), all-roberta-large-v1 (RoBERTa, 24 x 1024),
    msmarco-distilbert-base-v4 (DistilBERT) and ms-marco-electra-base
-   (ELECTRA, 1 label).  Each through its entry point on the card against the
-   CPU in f32 (64 docs, 16 for RoBERTa-large; multilingual text for XLM-R;
+   (ELECTRA, 1 label, ``CHECK_DEPTH`` layers).  Each through its entry
+   point on the card against the CPU in f32 (64 docs, 16 for RoBERTa-large; multilingual text for XLM-R;
    within 1e-4, scores within 1e-4 * (1 + |s|)), bf16 against f32 for the
    RMs (smallest cosine >= 0.99); XLM-R over 65,536 of config 2's docs in
    bf16 into an int8 IVF store (nlist 128, block-aligned: K1), recall@5 >=
@@ -184,7 +184,8 @@ Phases (each prints its seconds and the card's name and power limit):
    jieba, which the port refuses), bigbird-roberta-base (BigBird:
    ``block_sparse``, block 64, 3 random blocks, 4096 positions, a seeded
    50,358-piece Unigram in ``BigBirdConverter``'s pipeline) and
-   efficient_mlm_m0.40 (RoBERTa-PreLayerNorm at RoBERTa-large widths).
+   efficient_mlm_m0.40 (RoBERTa-PreLayerNorm at RoBERTa-large widths);
+   RoFormer and RoBERTa-PreLayerNorm ``CHECK_DEPTH`` layers deep.
    Each as an RM and as a reranker on the card against the CPU in f32
    (BigBird at the 256- and 512-token buckets; within 1e-4, scores within
    1e-4 * (1 + |s|)), bf16 against f32 for the RMs (smallest cosine >=
@@ -204,10 +205,11 @@ Phases (each prints its seconds and the card's name and power limit):
    embeddings): bart-base (BART, 6 + 6 layers at 768, RM),
    bart-large (12 + 12 at 1024) and mbart-large-cc25 (mBART, pre-LN,
    250,027 pieces, ``scale_embedding``), each a 1-label classifier serving
-   as RM and reranker, pegasus-large (16 + 16, sinusoidal positions, ReLU),
-   blenderbot-400M-distill (2 + 12 at 1280, 128 positions) and
-   blenderbot_small-90M (8 + 8 at 512, the slow tokenizer's ``vocab.json``
-   / ``merges.txt``), RMs only; tokenizers seeded in their converters'
+   as RM and reranker, pegasus-large (sinusoidal positions, ReLU),
+   blenderbot-400M-distill (1280 wide, 128 positions) and
+   blenderbot_small-90M (512 wide, the slow tokenizer's ``vocab.json``
+   / ``merges.txt``), RMs only, the last three ``CHECK_DEPTH`` layers deep a
+   stack (2 + 2); tokenizers seeded in their converters'
    layouts (mBART's template set from ``src_lang``).  Each RM (and
    reranker) on the card against the CPU in f32 (32 docs, 16 for the models
    of 24 layers or more; within 1e-4, scores within 1e-4 * (1 + |s|)), bf16
@@ -221,14 +223,39 @@ Phases (each prints its seconds and the card's name and power limit):
    through ids, >= 0.98 through K2 at d 1024, K2 held to its plain version
    on the call's inputs and timed beside its bound, the mBART reranker over
    16 x 100 pairs.  The encoder-decoder's bound counts both stacks and the
-   cross-attention (``seq2seq_pairs``).  The files are deleted after.
+   cross-attention (``seq2seq_pairs``).  The files are deleted after;
+30. the decoder-only RMs the Flax auto class loads, under
+   ``build/lotus_tpu_torch/smoke_decoders`` (``write_decoder``: weights drawn
+   on the card and written in bf16; tokenizers seeded in their converters'
+   layouts: GPT-2's byte-level BPE with ``<|endoftext|>`` as its pad
+   token, ``LlamaTokenizerFast``'s and ``GemmaTokenizerFast``'s
+   sentencepiece BPE with byte fallback, left-padded).  30a: gpt2,
+   gpt-neo-1.3B (global / local layers, window 256), gpt-j-6B (``rotary_dim``
+   64), Llama-2-7b, Mistral-7B-v0.1 and gemma-2b (one KV head of 256) at
+   their published widths, 2 layers deep, each as an RM on the card against
+   the CPU in f32 (16 docs in four buckets, a share of their words outside
+   the seeded vocabularies: within 1e-5), bf16 against f32 (smallest cosine
+   >= 0.99), and with its tokenizer read without a pad token, which must
+   raise ``ValueError`` as the reference does; 30b: Mistral-7B-v0.1 at full
+   width and depth (32 layers, 7.24 B parameters) written as bf16 shards
+   with ``model.safetensors.index.json`` (the free disk and host memory
+   printed first), loaded in bf16 tensor by tensor onto the card (seconds,
+   host peak RSS), 4,096 of config 2's docs at max_seq_length 512 into an
+   int8 IVF store (nlist 8, block-aligned: K1), recall@5 >= 0.95 over 512
+   queries, K1 held to its plain version on the call's inputs; 30c: GPT-2
+   at gpt2-base widths and depth in f32 over 4,096 of config 1's passages
+   (the 512-token bucket) into a Flat store: recall@10 1.0 through ids,
+   >= 0.98 through K2 at d 768, K2 held to its plain version on the call's
+   inputs and timed beside its bound.  A decoder's bound counts its causal
+   s(s+1)/2 pairs a layer (``decoder_attention``).  The files are deleted
+   after.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after: K1 over phases 5-8 (calibration included), in each
 rank over phase 12's sharded search, over phase 13 and over each K1 store of
-phase 15 and over phase 25's, 27's, 28's and 29's stores; K2 over phase
-10, over phases 20-21, over phase 15's Flat store and over phase 24's,
-27's, 28's and 29's;
+phase 15 and over phase 25's, 27's, 28's, 29's and 30's stores; K2 over
+phase 10, over phases 20-21, over phase 15's Flat store and over phase
+24's, 27's, 28's, 29's and 30's;
 each must have launched its kernel, and each phase prints its count.
 The last three lines are the kernel table (K1, whose launches add the
 ranks', and K2, then the variants later slices added, each with its own
@@ -1697,13 +1724,14 @@ def synth_texts(vocab: list[str], n: int, lo: int, hi: int, seed: int, per_topic
 
 def forward_weights(enc) -> int:
     """The parameters a token's forward multiplies by: every non-embedding
-    one (an encoder-decoder's ``shared`` tokens and position tables are
-    gathers), but ALBERT's shared groups once for each layer that runs
-    them."""
-    groups = getattr(enc.encoder, "albert_layer_groups", None)
+    one (an encoder-decoder's ``shared`` tokens, a decoder's ``wte``,
+    ``wpe`` or ``embed_tokens`` and position tables are gathers), but
+    ALBERT's shared groups once for each layer that runs them."""
+    groups = getattr(getattr(enc, "encoder", None), "albert_layer_groups", None)
     if groups is None:
         return sum(p.numel() for name, p in enc.named_parameters()
-                   if not name.startswith(("embeddings.", "shared.")) and "embed_positions" not in name)
+                   if not name.startswith(("embeddings.", "shared.", "wte.", "wpe.", "embed_tokens."))
+                   and "embed_positions" not in name)
     cfg = enc.config
     sizes = [sum(p.numel() for p in g.parameters()) for g in groups]
     runs = [int(i / (cfg.num_hidden_layers / cfg.num_hidden_groups)) for i in range(cfg.num_hidden_layers)]
@@ -1729,6 +1757,18 @@ def seq2seq_pairs(cfg, s):
     return cfg.encoder_layers * s * s + cfg.decoder_layers * (s * (s + 1) / 2 + s * s)
 
 
+def decoder_attention(cfg) -> tuple[int, int] | None:
+    """A decoder's (layers, query heads x head size), or None for an
+    encoder or an encoder-decoder."""
+    if hasattr(cfg, "n_layer"):  # GPT-2, GPT-J
+        return cfg.n_layer, cfg.n_embd
+    if hasattr(cfg, "head_size"):  # Llama, Mistral, Gemma
+        return cfg.num_hidden_layers, cfg.num_attention_heads * cfg.head_size
+    if hasattr(cfg, "attention_types"):  # GPT-Neo
+        return cfg.num_layers, cfg.hidden_size
+    return None
+
+
 def encode_split(rm, texts: list[str]):
     """``rm(texts)``, what ``sem_index`` calls, and its time split: host
     seconds in the tokenizer, device ms of the encoder's forwards (CUDA
@@ -1736,12 +1776,15 @@ def encode_split(rm, texts: list[str]):
     tokens; the forwards' operations (2 x ``forward_weights`` a token, plus
     attention's 4 * L * h a scored pair, ``attention_pairs``; an
     encoder-decoder's 4 * d_model a pair of ``seq2seq_pairs``, both stacks
-    and the cross-attention) over the padded tokens, and over the real ones
-    alone (s each text's own length).  Returns (embeddings, figures)."""
+    and the cross-attention; a decoder's 4 * L * heads * head size a causal
+    pair, s * (s + 1) / 2 a sequence, which Mistral's 4096-token window
+    leaves whole at these lengths) over the padded tokens, and over the real
+    ones alone (s each text's own length).  Returns (embeddings, figures)."""
     import torch
 
     enc, cfg = rm.encoder, rm.encoder.config
     weights = forward_weights(enc)
+    decoder = decoder_attention(cfg)
     fig = dict(tokenize_s=0.0, padded=0, flops=0.0)
     events, real, real_flops = [], [], []
     encode = rm.tokenizer.encode
@@ -1758,7 +1801,11 @@ def encode_split(rm, texts: list[str]):
         fig["padded"] += b * s
         lens = mask.sum(1).double()
         real.append(mask.sum())
-        if hasattr(cfg, "decoder_layers"):
+        if decoder is not None:
+            layers, width = decoder
+            fig["flops"] += 2.0 * weights * b * s + 4.0 * layers * width * (s * (s + 1) / 2) * b
+            real_flops.append(2.0 * weights * lens.sum() + 4.0 * layers * width * (lens * (lens + 1) / 2).sum())
+        elif hasattr(cfg, "decoder_layers"):
             fig["flops"] += 2.0 * weights * b * s + 4.0 * cfg.d_model * seq2seq_pairs(cfg, s) * b
             real_flops.append(2.0 * weights * lens.sum() + 4.0 * cfg.d_model * seq2seq_pairs(cfg, lens).sum())
         else:
@@ -2151,9 +2198,15 @@ FAMILY_DIR = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_families")
 _XLMR = dict(model_type="xlm-roberta", num_hidden_layers=12, hidden_size=768, num_attention_heads=12,
              intermediate_size=3072, vocab_size=250_002, max_position_embeddings=514, type_vocab_size=1,
              layer_norm_eps=1e-5, pad_token_id=1, tokenizer="unigram")
-# Each model's published config.json widths, with seeded weights;
-# max_seq_length is the reference's default (flax_rm.py:48), but 128 for
-# all-roberta-large-v1, its model card's truncation length.
+# The depth of the models phases 27-29 only hold to the CPU (no ingest or
+# rerank rate reads them): depth adds seconds to that check, not coverage,
+# and the whole script must stay near half its time limit (their published
+# depths are 12, 12, 24, 16 + 16, 2 + 12 and 8 + 8 layers).
+CHECK_DEPTH = 2
+# Each model's published config.json widths, with seeded weights (the
+# check-only models CHECK_DEPTH layers deep); max_seq_length is the
+# reference's default (flax_rm.py:48), but 128 for all-roberta-large-v1,
+# its model card's truncation length.
 FAMILY_MODELS = {
     "multilingual-e5-base": dict(_XLMR, max_seq_length=512),
     "bge-reranker-base": dict(_XLMR, num_labels=1, max_seq_length=512),
@@ -2164,10 +2217,10 @@ FAMILY_MODELS = {
     "msmarco-distilbert-base-v4": dict(model_type="distilbert", n_layers=6, dim=768, n_heads=12, hidden_dim=3072,
                                        vocab_size=VOCAB_SIZE, max_position_embeddings=512, tokenizer="wordpiece",
                                        max_seq_length=512),
-    "ms-marco-electra-base": dict(model_type="electra", num_hidden_layers=12, hidden_size=768, num_attention_heads=12,
-                                  intermediate_size=3072, embedding_size=768, vocab_size=VOCAB_SIZE,
-                                  max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12,
-                                  tokenizer="wordpiece", num_labels=1, max_seq_length=512),
+    "ms-marco-electra-base": dict(model_type="electra", num_hidden_layers=CHECK_DEPTH, hidden_size=768,
+                                  num_attention_heads=12, intermediate_size=3072, embedding_size=768,
+                                  vocab_size=VOCAB_SIZE, max_position_embeddings=512, type_vocab_size=2,
+                                  layer_norm_eps=1e-12, tokenizer="wordpiece", num_labels=1, max_seq_length=512),
 }
 # The seeded XLM-R tokenizer's charsmap: full-width letters, circled digits,
 # the ideographic space, a multi-character replacement and key.
@@ -2311,10 +2364,13 @@ def bpe_spec(words: list[str], size: int, flavor: str = "roberta") -> dict:
     word in the seeded order, then the bare words) until the vocabulary is
     full, each merge's result in the vocabulary, and ``<mask>`` last.  The
     ``blenderbot`` flavor is ``BlenderbotConverter``'s: ``<pad> <s> </s>
-    <unk>`` first, a prefix space, and ``A </s>``."""
+    <unk>`` first, a prefix space, and ``A </s>``; the ``gpt2`` flavor
+    ``GPT2Converter``'s: no special token but ``<|endoftext|>`` last, and
+    the ``ByteLevel`` post-processor, which adds none."""
     from lotus_tpu_torch.models.bpe import bytes_to_unicode
 
-    heads = {"roberta": ("<s>", "<pad>", "</s>", "<unk>"), "blenderbot": ("<pad>", "<s>", "</s>", "<unk>")}
+    heads = {"roberta": ("<s>", "<pad>", "</s>", "<unk>"), "blenderbot": ("<pad>", "<s>", "</s>", "<unk>"),
+             "gpt2": ()}
     vocab = {t: i for i, t in enumerate(heads[flavor])}
     for c in bytes_to_unicode().values():
         vocab.setdefault(c, len(vocab))
@@ -2327,10 +2383,12 @@ def bpe_spec(words: list[str], size: int, flavor: str = "roberta") -> dict:
             if form[: k + 1] not in vocab:
                 merges.append([form[:k], form[k]])
                 vocab[form[: k + 1]] = len(vocab)
-    vocab["<mask>"] = len(vocab)
+    vocab["<|endoftext|>" if flavor == "gpt2" else "<mask>"] = len(vocab)
     assert len(vocab) == size
-    specials = [(t, vocab[t]) for t in ("<s>", "<pad>", "</s>", "<unk>", "<mask>")]
-    if flavor == "blenderbot":
+    specials = [(t, vocab[t]) for t in ("<s>", "<pad>", "</s>", "<unk>", "<mask>", "<|endoftext|>") if t in vocab]
+    if flavor == "gpt2":
+        post = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False, "use_regex": True}
+    elif flavor == "blenderbot":
         post = suffix_template(["</s>"], vocab)
     else:
         post = {"type": "RobertaProcessing", "sep": ["</s>", 2], "cls": ["<s>", 0], "trim_offsets": True,
@@ -2751,8 +2809,9 @@ LATE_MODELS = {
                                        num_attention_heads=12, intermediate_size=3072, vocab_size=30_000,
                                        max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12,
                                        hidden_act="gelu_new", tokenizer="albert", num_labels=1, max_seq_length=512),
-    "roformer_chinese_base": dict(model_type="roformer", num_hidden_layers=12, hidden_size=768, num_attention_heads=12,
-                                  intermediate_size=3072, vocab_size=50_000, max_position_embeddings=1536,
+    "roformer_chinese_base": dict(model_type="roformer", num_hidden_layers=CHECK_DEPTH, hidden_size=768,
+                                  num_attention_heads=12, intermediate_size=3072, vocab_size=50_000,
+                                  max_position_embeddings=1536,
                                   type_vocab_size=2, layer_norm_eps=1e-12, hidden_act="gelu", rotary_value=False,
                                   tokenizer="wordpiece-50k", num_labels=1, max_seq_length=512),
     "bigbird-roberta-base": dict(model_type="big_bird", num_hidden_layers=12, hidden_size=768, num_attention_heads=12,
@@ -2760,7 +2819,7 @@ LATE_MODELS = {
                                  type_vocab_size=2, layer_norm_eps=1e-12, hidden_act="gelu_new",
                                  attention_type="block_sparse", block_size=64, num_random_blocks=3, pad_token_id=0,
                                  tokenizer="spm", num_labels=1, max_seq_length=4096),
-    "efficient_mlm_m0.40": dict(model_type="roberta-prelayernorm", num_hidden_layers=24, hidden_size=1024,
+    "efficient_mlm_m0.40": dict(model_type="roberta-prelayernorm", num_hidden_layers=CHECK_DEPTH, hidden_size=1024,
                                 num_attention_heads=16, intermediate_size=4096, vocab_size=50_265,
                                 max_position_embeddings=514, type_vocab_size=1, layer_norm_eps=1e-5, pad_token_id=1,
                                 tokenizer="bpe", num_labels=1, max_seq_length=512),
@@ -2768,10 +2827,10 @@ LATE_MODELS = {
 BIGBIRD_BATCH = 16  # BigBird's max_batch_size at 4096 tokens
 
 
-def check_rm(dev, name: str, model_type: str, kw: dict, docs: list[str], width: int) -> list[int]:
+def check_rm(dev, name: str, model_type: str, kw: dict, docs: list[str], width: int, tol: float = 1e-4) -> list[int]:
     """``TorchSentenceEncoderRM(**kw)`` on the card against the CPU in f32
-    (within 1e-4) and bf16 against f32 on the card (smallest cosine at least
-    0.99) over ``docs``.  Returns the sequence buckets the docs took."""
+    (within ``tol``) and bf16 against f32 on the card (smallest cosine at
+    least 0.99) over ``docs``.  Returns the sequence buckets the docs took."""
     import numpy as np
     import torch
 
@@ -2786,13 +2845,14 @@ def check_rm(dev, name: str, model_type: str, kw: dict, docs: list[str], width: 
     err = float(np.abs(got - want).max())
     cos = float(np.sum(bf16 * got, axis=1).min())
     seq = kw["max_seq_length"]
-    buckets = sorted({a.shape[1] for _, a, _ in bucketed_batches(card_rm.tokenizer, docs, None, 16, seq, "cpu")})
+    buckets = sorted({a.shape[1] for _, a, _ in bucketed_batches(card_rm.tokenizer, docs, None, kw["max_batch_size"],
+                                                                 seq, "cpu")})
     say(f"  {name} ({model_type}, TorchSentenceEncoderRM, f32, buckets {buckets}): {got.shape} "
-        f"embeddings on the card vs the CPU: max abs err {err!r} (tol 1e-4) -> {'OK' if err <= 1e-4 else 'MISMATCH'}"
+        f"embeddings on the card vs the CPU: max abs err {err!r} (tol {tol:g}) -> {'OK' if err <= tol else 'MISMATCH'}"
         f"; bf16 on the card vs f32 on the card: smallest cosine {cos!r} (must reach 0.99); "
         f"{time.perf_counter() - t0:.2f} s [{GPU}]")
     assert got.shape == (len(docs), width) and bool(np.isfinite(got).all())
-    assert err <= 1e-4, f"{name}: the card's embeddings differ from the CPU's"
+    assert err <= tol, f"{name}: the card's embeddings differ from the CPU's"
     assert cos >= 0.99, f"{name}: bf16 embeddings drift from f32 (cosine {cos})"
     return buckets
 
@@ -2954,12 +3014,12 @@ SEQ2SEQ_MODELS = {
                            tokenizer="bpe", num_labels=1),
     "mbart-large-cc25": _seq2seq("mbart", 1024, (12, 12), 16, 4096, 250_027, 1024, (1, 0, 2), tokenizer="mbart",
                                  num_labels=1),
-    "pegasus-large": _seq2seq("pegasus", 1024, (16, 16), 16, 4096, 96_103, 1024, (0, None, 1, 0),
-                              activation_function="relu", tokenizer="pegasus"),
-    "blenderbot-400M-distill": _seq2seq("blenderbot", 1280, (2, 12), 32, 5120, 8008, 128, (0, 1, 2, 1),
+    "pegasus-large": _seq2seq("pegasus", 1024, (CHECK_DEPTH, CHECK_DEPTH), 16, 4096, 96_103, 1024,
+                              (0, None, 1, 0), activation_function="relu", tokenizer="pegasus"),
+    "blenderbot-400M-distill": _seq2seq("blenderbot", 1280, (2, CHECK_DEPTH), 32, 5120, 8008, 128, (0, 1, 2, 1),
                                         tokenizer="blenderbot", max_seq_length=128),
-    "blenderbot_small-90M": _seq2seq("blenderbot-small", 512, (8, 8), 16, 2048, 54_944, 512, (0, 1, 2, 1),
-                                     tokenizer="blenderbot-small"),
+    "blenderbot_small-90M": _seq2seq("blenderbot-small", 512, (CHECK_DEPTH, CHECK_DEPTH), 16, 2048, 54_944, 512,
+                                     (0, 1, 2, 1), tokenizer="blenderbot-small"),
 }
 SEQ2SEQ_RERANK_PAIRS = (16, 100)  # queries x candidates each reranker scores in 29b and 29c
 
@@ -3193,9 +3253,414 @@ def seq2seq_phases(dev, vocab: list[str]) -> tuple[int, int]:
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the decoder-only RMs the Flax auto class loads, from text
+# ---------------------------------------------------------------------------
+
+DECODER_DIR = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_decoders")
+# Each model's published config.json widths (2 layers deep in 30a), with
+# seeded weights written in bf16; max_seq_length is the reference's default
+# (flax_rm.py:48).  Each tokenizer is seeded in its converter's layout.
+DECODER_MODELS = {
+    "gpt2": dict(model_type="gpt2", n_embd=768, n_layer=2, n_head=12, n_positions=1024, vocab_size=50_257,
+                 activation_function="gelu_new", layer_norm_epsilon=1e-5, tokenizer="gpt2"),
+    "gpt-neo-1.3B": dict(model_type="gpt_neo", hidden_size=2048, num_layers=2, num_heads=16,
+                         attention_types=[[["global", "local"], 1]], window_size=256, max_position_embeddings=2048,
+                         vocab_size=50_257, activation_function="gelu_new", layer_norm_epsilon=1e-5, tokenizer="gpt2"),
+    "gpt-j-6B": dict(model_type="gptj", n_embd=4096, n_layer=2, n_head=16, rotary_dim=64, n_positions=2048,
+                     vocab_size=50_400, activation_function="gelu_new", layer_norm_epsilon=1e-5, tokenizer="gpt2"),
+    "Llama-2-7b": dict(model_type="llama", hidden_size=4096, num_hidden_layers=2, num_attention_heads=32,
+                       num_key_value_heads=32, intermediate_size=11_008, max_position_embeddings=4096,
+                       rms_norm_eps=1e-5, vocab_size=32_000, hidden_act="silu", tokenizer="llama"),
+    "Mistral-7B-v0.1": dict(model_type="mistral", hidden_size=4096, num_hidden_layers=2, num_attention_heads=32,
+                            num_key_value_heads=8, intermediate_size=14_336, max_position_embeddings=32_768,
+                            rms_norm_eps=1e-5, sliding_window=4096, rope_theta=10_000.0, vocab_size=32_000,
+                            hidden_act="silu", tokenizer="llama"),
+    "gemma-2b": dict(model_type="gemma", hidden_size=2048, num_hidden_layers=2, num_attention_heads=8,
+                     num_key_value_heads=1, head_dim=256, intermediate_size=16_384, max_position_embeddings=8192,
+                     rms_norm_eps=1e-6, vocab_size=256_000, hidden_act="gelu", hidden_activation=None,
+                     tokenizer="gemma"),
+}
+MISTRAL_LAYERS = 32  # Mistral-7B-v0.1's depth, phase 30b's
+GPT2_LAYERS = 12  # gpt2-base's depth, phase 30c's
+SHARD_BYTES = 5 << 30  # save_pretrained's default max_shard_size ("5GB")
+
+
+def write_bf16_safetensors(path: str, tensors: dict) -> None:
+    """``tensors`` (on any device) as a bf16 ``.safetensors`` file, one
+    tensor at a time through the host (header padded to 8 bytes)."""
+    import struct
+
+    import torch
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [offset, offset + 2 * t.numel()]}
+        offset += 2 * t.numel()
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.detach().to(torch.bfloat16).contiguous().view(torch.int16).cpu().numpy().data)
+
+
+def write_sharded(path: str, tensors: dict, shard_bytes: int = SHARD_BYTES) -> list[str]:
+    """``tensors`` as bf16 shards of at most ``shard_bytes`` (one tensor may
+    pass it alone), ``model-0000k-of-0000n.safetensors``, and the
+    ``model.safetensors.index.json`` that names them, as ``save_pretrained``
+    writes a large model.  Returns the shard names."""
+    groups, size = [[]], 0
+    for name, t in tensors.items():
+        if groups[-1] and size + 2 * t.numel() > shard_bytes:
+            groups.append([])
+            size = 0
+        groups[-1].append(name)
+        size += 2 * t.numel()
+    names = [f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors" for i in range(len(groups))]
+    for shard, group in zip(names, groups):
+        write_bf16_safetensors(os.path.join(path, shard), {n: tensors[n] for n in group})
+    index = {"metadata": {"total_size": sum(2 * t.numel() for t in tensors.values())},
+             "weight_map": {n: shard for shard, group in zip(names, groups) for n in group}}
+    with open(os.path.join(path, "model.safetensors.index.json"), "w", encoding="utf-8") as f:
+        json.dump(index, f)
+    return names
+
+
+def sp_bpe_spec(words: list[str], size: int, flavor: str = "llama") -> dict:
+    """A sentencepiece BPE ``tokenizer.json`` with byte fallback and ``size``
+    tokens, in ``LlamaConverter``'s layout (``<unk> <s> </s>``, the 256
+    ``<0xXX>`` tokens, then the pieces; ``Prepend("▁")`` and ``Replace(" ",
+    "▁")``, no pre-tokenizer) or, for ``gemma``, ``GemmaConverter``'s
+    (``<pad> <eos> <bos> <unk>``; ``Replace`` and ``Split(" ",
+    merged_with_previous)``): the letters, digits, punctuation and ``▁``,
+    then the merges that build ``▁`` + each word left to right until the
+    vocabulary is full (Gemma's past the words filled with ``<unusedN>``);
+    other characters fall back to bytes.  ``<unk>`` fused."""
+    import string
+
+    specials = ["<pad>", "<eos>", "<bos>", "<unk>"] if flavor == "gemma" else ["<unk>", "<s>", "</s>"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    for c in "▁" + string.ascii_letters + string.digits + string.punctuation:
+        vocab.setdefault(c, len(vocab))
+    merges = []
+    for form in ["▁" + w for w in words]:
+        for k in range(1, len(form)):
+            if len(vocab) >= size:
+                break
+            if form[: k + 1] not in vocab:
+                merges.append([form[:k], form[k]])
+                vocab[form[: k + 1]] = len(vocab)
+    while len(vocab) < size:
+        vocab[f"<unused{len(vocab)}>"] = len(vocab)
+    added = _added([(t, vocab[t]) for t in specials])
+    if flavor == "gemma":
+        normalizer = {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}
+        pre = {"type": "Split", "pattern": {"String": " "}, "behavior": "MergedWithPrevious", "invert": False}
+    else:
+        normalizer = {"type": "Sequence", "normalizers": [{"type": "Prepend", "prepend": "▁"},
+                                                           {"type": "Replace", "pattern": {"String": " "},
+                                                            "content": "▁"}]}
+        pre = None
+    bos = specials[2] if flavor == "gemma" else "<s>"
+
+    def part(kind: str, name: str, type_id: int) -> dict:
+        return {kind: {"id": name, "type_id": type_id}}
+
+    single = [part("SpecialToken", bos, 0), part("Sequence", "A", 0)]
+    post = {"type": "TemplateProcessing", "single": single,
+            "pair": [*single, part("SpecialToken", bos, 1), part("Sequence", "B", 1)],
+            "special_tokens": {bos: {"id": bos, "ids": [vocab[bos]], "tokens": [bos]}}}
+    return {
+        "version": "1.0", "added_tokens": added, "normalizer": normalizer, "pre_tokenizer": pre,
+        "post_processor": post,
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>", "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+def decoder_tokenizer_files(words: list[str], kind: str, size: int) -> dict:
+    """``tokenizer.json`` and ``tokenizer_config.json`` of a decoder's
+    seeded tokenizer: GPT-2's byte-level BPE (``bpe_spec``'s ``gpt2``
+    flavor, ``<|endoftext|>`` also the pad token, as embedders set it),
+    ``LlamaTokenizerFast``'s (pad ``</s>``, left padding by the class) or
+    ``GemmaTokenizerFast``'s (its own ``<pad>``)."""
+    if kind == "gpt2":
+        return {"tokenizer.json": bpe_spec(words, size, "gpt2"),
+                "tokenizer_config.json": {"tokenizer_class": "GPT2Tokenizer", "pad_token": "<|endoftext|>"}}
+    if kind == "gemma":
+        return {"tokenizer.json": sp_bpe_spec(words, size, "gemma"),
+                "tokenizer_config.json": {"tokenizer_class": "GemmaTokenizer", "pad_token": "<pad>",
+                                          "bos_token": "<bos>", "eos_token": "<eos>", "add_bos_token": True}}
+    return {"tokenizer.json": sp_bpe_spec(words, size),
+            "tokenizer_config.json": {"tokenizer_class": "LlamaTokenizer", "pad_token": "</s>", "add_bos_token": True,
+                                      "add_eos_token": False}}
+
+
+def write_decoder(path: str, shape: dict, words: list[str], dev, seed: int, shard_bytes: int | None = None) -> int:
+    """A decoder checkpoint directory: ``config.json``, the seeded
+    tokenizer's files and the weights, drawn on ``dev`` in bf16 as the
+    initialiser draws them (N(0, 0.02); each norm's weight 1, Gemma's 0;
+    biases 0) and written in bf16: ``model.safetensors``, or shards of at
+    most ``shard_bytes`` with their index.  Returns the parameters written."""
+    import torch
+
+    from lotus_tpu_torch.models.checkpoint import encoder_config, new_module
+
+    os.makedirs(path, exist_ok=True)
+    config = {k: v for k, v in shape.items() if k != "tokenizer"}
+    files = {"config.json": config, **decoder_tokenizer_files(words, shape["tokenizer"], shape["vocab_size"])}
+    for fname, obj in files.items():
+        with open(os.path.join(path, fname), "w", encoding="utf-8") as f:
+            json.dump(obj, f)
+    with torch.device("meta"):
+        module = new_module(encoder_config(config)).to(torch.bfloat16)
+    module = module.to_empty(device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for pname, p in module.named_parameters():
+            if "norm" in pname or "ln_" in pname:
+                p.fill_(0.0 if pname.endswith("bias") or shape["model_type"] == "gemma" else 1.0)
+            elif pname.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(0.02 * torch.randn(p.shape, generator=g, device=dev))
+    state = module.state_dict()
+    if shard_bytes is None:
+        write_bf16_safetensors(os.path.join(path, "model.safetensors"), state)
+    else:
+        write_sharded(path, state, shard_bytes)
+    return sum(t.numel() for t in state.values())
+
+
+def param_count(shape: dict) -> int:
+    """The parameters of the decoder ``shape`` describes (built on the meta
+    device)."""
+    import torch
+
+    from lotus_tpu_torch.models.checkpoint import encoder_config, new_module
+
+    with torch.device("meta"):
+        return sum(p.numel() for p in new_module(encoder_config(shape)).parameters())
+
+
+def host_rss() -> int:
+    """The process's resident bytes now (``VmRSS``)."""
+    with open("/proc/self/status", encoding="utf-8") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS"))
+
+
+def host_peak_during(fn):
+    """``fn()`` and the most resident bytes the process held while it ran,
+    sampled every 10 ms (the card machine refuses to reset ``VmHWM``).
+    Returns (its result, the peak)."""
+    import threading
+
+    peak, done = [host_rss()], threading.Event()
+
+    def sample():
+        while not done.wait(0.01):
+            peak.append(host_rss())
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        sampler.join()
+    return out, max(peak + [host_rss()])
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def decoders_check_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 16) -> None:
+    """Phase 30a: each decoder as an RM through its entry point on the card
+    and on the CPU in f32 (``n_docs`` docs of mixed length, 4 a batch, in
+    four sequence buckets): embeddings within 1e-5; bf16 against f32 on the
+    card: smallest cosine at least 0.99 (``check_rm``).  Then the same RM
+    with its tokenizer read without a pad token (as GPT-2's, Llama-2's and
+    Mistral's are published) must raise ``ValueError`` when it pads, as
+    ``padding=True`` does in the reference."""
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+    from lotus_tpu_torch.models.tokenizer_json import JsonTokenizer, read_tokenizer_config
+
+    quarter = n_docs // 4
+    docs = [t for i, (lo, hi) in enumerate(((3, 10), (11, 24), (25, 50), (51, 100)))
+            for t in synth_texts(vocab, quarter, lo, hi, 300 + i)]
+    docs = multilingual(docs, 305)  # characters the seeded vocabularies lack: byte fallback
+    for name, d in dirs.items():
+        shape = DECODER_MODELS[name]
+        kw = dict(model=d, max_batch_size=4, max_seq_length=512)
+        width = shape.get("hidden_size", shape.get("n_embd"))
+        check_rm(dev, name, shape["model_type"], kw, docs, width, tol=1e-5)
+        rm = TorchSentenceEncoderRM(device=dev, **kw)
+        with open(os.path.join(d, "tokenizer.json"), encoding="utf-8") as f:
+            spec = json.load(f)
+        config = {k: v for k, v in read_tokenizer_config(d).items() if k != "pad_token"}
+        rm.tokenizer = JsonTokenizer(spec, config)
+        try:
+            rm(docs[:2])
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        say(f"    {name} without a pad token ({config['tokenizer_class']}, padding side "
+            f"{rm.tokenizer.padding_side}): {raised!r}")
+        assert raised is not None and "no padding token" in raised, f"{name}: no ValueError without a pad token"
+        del rm
+
+
+def mistral_phase(dev, vocab: list[str], n: int = 4096, nq: int = 512, nlist: int = 8, layers: int = MISTRAL_LAYERS,
+                  root: str = DECODER_DIR) -> int:
+    """Phase 30b, Mistral-7B-v0.1 at full width and ``layers`` deep (32, its
+    own) in bf16: the checkpoint written on the card in bf16 as shards of at
+    most 5 GiB with ``model.safetensors.index.json`` (the free disk and host
+    memory printed first), loaded by ``TorchSentenceEncoderRM(dtype=bf16)``
+    tensor by tensor onto the card (seconds, the host's resident bytes
+    before and at their peak during the load); ``n`` of
+    config 2's docs (8-48 words, drawn from the words the seeded 32,000-piece
+    vocabulary holds whole) at max_batch_size 64 and max_seq_length 512,
+    left-padded by the seeded ``LlamaTokenizerFast`` layout, into an
+    int8 IVF store (nlist 8, block-aligned: K1) through ``ivf_text_store``:
+    recall@5 at least 0.95 over ``nq`` queries, K1 held to its plain version
+    on the call's own inputs.  The checkpoint is deleted after.  Returns K1's
+    launches."""
+    import torch
+
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+
+    path = os.path.join(root, "Mistral-7B-v0.1")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    disk = shutil.disk_usage(path)
+    with open("/proc/meminfo", encoding="utf-8") as f:
+        mem = {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+    say(f"  before the checkpoint: disk free {disk.free / 1e9:.1f} GB of {disk.total / 1e9:.1f}; host memory "
+        f"available {mem['MemAvailable'] / 1e9:.1f} GB of {mem['MemTotal'] / 1e9:.1f}; card free "
+        f"{torch.cuda.mem_get_info()[0] / 1e9:.1f} GB")
+    shape = dict(DECODER_MODELS["Mistral-7B-v0.1"], num_hidden_layers=layers)
+    need = 2 * param_count(shape)
+    assert disk.free > 2 * need, f"{disk.free / 1e9:.1f} GB of free disk for a {need / 1e9:.1f} GB checkpoint"
+    words = [w for w in vocab if w.isalpha() and not w.startswith("[")]
+    t0 = time.perf_counter()
+    written = write_decoder(path, shape, words, dev, seed=60, shard_bytes=SHARD_BYTES)
+    shards = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    say(f"  Mistral-7B-v0.1 ({layers} layers, {written:,} parameters) written in bf16 in "
+        f"{time.perf_counter() - t0:.2f} s: {dir_bytes(path) / 1e9:.3f} GB in {len(shards)} shards {shards} + "
+        f"model.safetensors.index.json")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = host_rss()
+    t0 = time.perf_counter()
+    rm, rss1 = host_peak_during(lambda: TorchSentenceEncoderRM(model=path, max_batch_size=CONFIG2_BATCH,
+                                                               max_seq_length=512, dtype=torch.bfloat16, device=dev))
+    sync(dev)
+    load_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in rm.encoder.parameters())
+    dtypes = {p.dtype for p in rm.encoder.parameters()}
+    say(f"  loaded in {load_s:.2f} s: {params:,} parameters, {dtypes}, on {next(rm.encoder.parameters()).device}; "
+        f"card allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB (peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}); "
+        f"host resident {rss0 / 1e9:.3f} GB before the load, its peak during the load {rss1 / 1e9:.3f} GB [{GPU}]")
+    assert dtypes == {torch.bfloat16} and params == written and len(shards) > 1, "Mistral-7B did not load whole in bf16"
+    assert rm.tokenizer.padding_side == "left"
+    k = 5
+    t0 = time.perf_counter()
+    with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
+        pieces = json.load(f)["model"]["vocab"]
+    whole = [w for w in words if "▁" + w in pieces]  # a 32,000-piece vocabulary holds these words whole
+    right = synth_texts(whole, n, 8, 48, 311, per_topic=k)
+    left = synth_texts(whole, n, 8, 48, 310, per_topic=k)[:nq]
+    say(f"  {n:,} docs + {nq:,} queries of 8-48 words, drawn from the {len(whole):,} words the seeded vocabulary "
+        f"holds whole (as a real one holds common words), made in {time.perf_counter() - t0:.2f} s")
+    right_emb, fig = encode_split(rm, right)
+    print_split(f"Mistral-7B-v0.1 ({layers} layers) bf16, max_batch_size {CONFIG2_BATCH}", n, fig, BF16_OPS_PER_S,
+                "989 TFLOP/s bf16")
+    print_tokenizer("sentencepiece BPE (byte fallback)", right, fig)
+    left_emb = rm(left)
+    say(f"    card peak during the ingest {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del rm
+    torch.cuda.empty_cache()
+    launches, _, index_dir = ivf_text_store(dev, "Mistral-7B", right, right_emb, left_emb, k, nlist,
+                                            shape["hidden_size"])
+    shutil.rmtree(index_dir, ignore_errors=True)
+    shutil.rmtree(path, ignore_errors=True)
+    return launches
+
+
+def gpt2_phase(dev, vocab: list[str], n: int = 4096, nq: int = 256, layers: int = GPT2_LAYERS,
+               root: str = DECODER_DIR) -> int:
+    """Phase 30c, GPT-2 at gpt2-base widths and depth (``layers``, 12) in
+    f32, ``<|endoftext|>`` its pad token: ``n`` of config 1's passages
+    (150-300 words, the 512-token bucket) into a Flat store through
+    ``flat_text_store`` (recall@10 1.0 through ids, at least 0.98 through
+    K2 at d 768, K2 held to its plain version on the call's own inputs and
+    timed beside its bound).  Returns K2's launches."""
+    import numpy as np
+
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+
+    path = os.path.join(root, "gpt2-base")
+    shutil.rmtree(path, ignore_errors=True)
+    words = [w for w in vocab if w.isalpha() and not w.startswith("[")]
+    write_decoder(path, dict(DECODER_MODELS["gpt2"], n_layer=layers), words, dev, seed=61)
+    t0 = time.perf_counter()
+    passages = synth_texts(vocab, n, 150, 300, 50, per_topic=K)
+    queries = [" ".join(np.random.default_rng(51 + i).choice(passages[j].split()[:40], 12))
+               for i, j in enumerate(np.random.default_rng(52).integers(0, n, nq))]
+    say(f"  {n:,} passages of 150-300 words, {nq} queries of 12 words from a passage's first 40; made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rm = TorchSentenceEncoderRM(model=path, max_batch_size=CONFIG2_BATCH, max_seq_length=512, device=dev)
+    emb, fig = encode_split(rm, passages)
+    print_split(f"gpt2-base f32, max_batch_size {CONFIG2_BATCH}", n, fig, F32_OPS_PER_S, "67 TFLOP/s f32")
+    print_tokenizer("byte-level BPE", passages, fig)
+    launches, _ = flat_text_store(dev, "GPT-2", rm, passages, emb, queries, 100, DECODER_MODELS["gpt2"]["n_embd"])
+    shutil.rmtree(path, ignore_errors=True)
+    return launches
+
+
+def decoder_phases(dev, vocab: list[str]) -> tuple[int, int]:
+    """Phase 30: the six decoders at published widths 2 layers deep, card
+    against CPU; Mistral-7B at full width and depth through K1; GPT-2 at
+    gpt2-base through K2; the files deleted.  Returns K1's and K2's
+    launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with Phase("the decoder-only RMs (GPT-2, GPT-Neo, GPT-J, Llama, Mistral, Gemma) at published widths, 2 layers "
+               "(seeded weights): card against CPU, bf16 against f32, no pad token"):
+        t0 = time.perf_counter()
+        shutil.rmtree(DECODER_DIR, ignore_errors=True)
+        words = [w for w in vocab if w.isalpha() and not w.startswith("[")]
+        dirs = {}
+        for i, (name, shape) in enumerate(DECODER_MODELS.items()):
+            dirs[name] = os.path.join(DECODER_DIR, name)
+            write_decoder(dirs[name], shape, words, dev, seed=50 + i)
+        say(f"  {len(dirs)} checkpoints ({dir_bytes(DECODER_DIR) / 1e9:.3f} GB: bf16 model.safetensors, config.json, "
+            f"tokenizer files) written in {time.perf_counter() - t0:.2f} s under {os.path.relpath(DECODER_DIR, REPO)}")
+        decoders_check_phase(dev, vocab, dirs)
+        shutil.rmtree(DECODER_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    with Phase("Mistral-7B-v0.1 at full width and depth in bf16 from a sharded checkpoint: IVF int8, K1"):
+        k1 = mistral_phase(dev, vocab)
+    torch.cuda.empty_cache()
+    with Phase("GPT-2 (gpt2-base) in f32 from text: Flat, K2 at d 768"):
+        k2 = gpt2_phase(dev, vocab)
+    shutil.rmtree(DECODER_DIR, ignore_errors=True)
+    say(f"  phase 30: {time.perf_counter() - t_phase:.1f} s wall; card peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{GPU}]")
+    return k1, k2
+
+
 def text_phases(dev) -> tuple[int, int, int, tuple]:
-    """Phases 23-29 (the models, configs 1-2 from text, profiling, the
-    families past BERT, the encoder-decoders).  Returns K1's and K2's launches on their main
+    """Phases 23-30 (the models, configs 1-2 from text, profiling, the
+    families past BERT, the encoder-decoders, the decoders).  Returns K1's and K2's launches on their main
     paths, phase 27's K2 launches and K2's figures at d 1024."""
     with Phase("models at published widths (seeded weights): card against CPU, bf16 against f32"):
         t0 = time.perf_counter()
@@ -3217,8 +3682,9 @@ def text_phases(dev) -> tuple[int, int, int, tuple]:
     fam_k1, fam_k2, k2_d1024 = families_phases(dev, vocab)
     late_k1, late_k2 = late_phases(dev, vocab)
     s2s_k1, s2s_k2 = seq2seq_phases(dev, vocab)
+    dec_k1, dec_k2 = decoder_phases(dev, vocab)
     shutil.rmtree(TEXT_INDEX_DIR, ignore_errors=True)
-    return k1 + fam_k1 + late_k1 + s2s_k1, k2 + fam_k2 + late_k2 + s2s_k2, fam_k2, k2_d1024
+    return k1 + fam_k1 + late_k1 + s2s_k1 + dec_k1, k2 + fam_k2 + late_k2 + s2s_k2 + dec_k2, fam_k2, k2_d1024
 
 
 def config4_paths(dev) -> dict:

@@ -2,12 +2,14 @@
 FlaxAutoModel loads that the port runs (BERT, RoBERTa, XLM-RoBERTa,
 DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird, RoBERTa-PreLayerNorm) and
 its encoder-decoder families (BART and mBART, also as rerankers; Pegasus,
-Blenderbot and Blenderbot-Small as RMs) in PyTorch, with their own
-tokenizers (WordPiece, byte-level BPE, Unigram and sentencepiece BPE, read
-from ``tokenizer.json`` or the older vocab files, and Blenderbot-Small's
-slow BPE) and checkpoint readers (safetensors, ``pytorch_model.bin``, Flax
-msgpack), so no ``transformers``, ``tokenizers``, ``safetensors`` or
-``msgpack`` is needed."""
+Blenderbot and Blenderbot-Small as RMs) and its decoder-only families
+(GPT-2, GPT-Neo, GPT-J, Llama, Mistral and Gemma as RMs) in PyTorch, with
+their own tokenizers (WordPiece, byte-level BPE, Unigram and sentencepiece
+BPE with byte fallback, read from ``tokenizer.json`` or the older vocab
+files, and Blenderbot-Small's slow BPE) and checkpoint readers
+(safetensors, ``pytorch_model.bin``, either sharded, and Flax msgpack), so
+no ``transformers``, ``tokenizers``, ``safetensors`` or ``msgpack`` is
+needed."""
 
 from lotus_tpu_torch.models.albert import AlbertConfig, AlbertForSequenceClassification, AlbertModel
 from lotus_tpu_torch.models.auto import load_encoder, load_tokenizer
@@ -22,7 +24,13 @@ from lotus_tpu_torch.models.checkpoint import (
 )
 from lotus_tpu_torch.models.distilbert import DistilBertConfig, DistilBertForSequenceClassification, DistilBertModel
 from lotus_tpu_torch.models.electra import ElectraConfig, ElectraForSequenceClassification, ElectraModel
+from lotus_tpu_torch.models.gemma import GemmaConfig
+from lotus_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+from lotus_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
+from lotus_tpu_torch.models.gptj import GPTJConfig, GPTJModel
+from lotus_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from lotus_tpu_torch.models.mbart import MBartConfig, MBartForSequenceClassification, MBartModel
+from lotus_tpu_torch.models.mistral import MistralConfig
 from lotus_tpu_torch.models.msgpack import read_flax_msgpack
 from lotus_tpu_torch.models.pegasus import PegasusConfig, PegasusModel
 from lotus_tpu_torch.models.reranker import Reranker
@@ -43,7 +51,9 @@ __all__ = [
     "BigBirdConfig", "BigBirdForSequenceClassification", "BigBirdModel", "BlenderbotConfig", "BlenderbotSmallConfig",
     "BlenderbotSmallModel", "BlenderbotSmallTokenizer", "DistilBertConfig", "DistilBertForSequenceClassification",
     "DistilBertModel", "ElectraConfig", "ElectraForSequenceClassification", "ElectraModel", "EncoderConfig",
-    "JsonTokenizer", "MBartConfig", "MBartForSequenceClassification", "MBartModel", "PegasusConfig", "PegasusModel",
+    "GPT2Config", "GPT2Model", "GPTJConfig", "GPTJModel", "GPTNeoConfig", "GPTNeoModel", "GemmaConfig",
+    "JsonTokenizer", "LlamaConfig", "LlamaModel", "MBartConfig", "MBartForSequenceClassification", "MBartModel",
+    "MistralConfig", "PegasusConfig", "PegasusModel",
     "Reranker", "RoFormerConfig", "RoFormerForSequenceClassification", "RoFormerModel", "RobertaConfig",
     "RobertaForSequenceClassification", "RobertaModel", "RobertaPreLayerNormConfig",
     "RobertaPreLayerNormForSequenceClassification", "RobertaPreLayerNormModel", "TorchCrossEncoderReranker",

@@ -5,11 +5,15 @@ local checkpoint directory.
 ``load_encoder`` dispatches on ``config.json``'s ``model_type`` to the
 families in ``checkpoint.FAMILIES`` (bert, roberta, xlm-roberta,
 distilbert, electra, albert, roformer, big_bird, roberta-prelayernorm;
-bart and mbart, also as sequence classifiers; pegasus, blenderbot and
-blenderbot-small as encoders only, where a classifier raises
-``ValueError`` as the reference's auto class does); any other type raises
+bart and mbart, also as sequence classifiers; pegasus, blenderbot,
+blenderbot-small and the decoders gpt2, gpt_neo, gptj, llama, mistral and
+gemma as encoders only, where a classifier raises ``ValueError`` as the
+reference's auto class does); any other type raises
 ``NotImplementedError`` naming it: of the types ``FlaxAutoModel`` maps,
-marian, t5 and its kin, the decoders and the vision and audio models.
+marian and gpt-sw3 (whose tokenizers are sentencepiece's slow ones), bloom,
+xglm, t5 and its kin, and the vision and audio models.  It places each
+tensor on the target device as it is read, and casts the model there: a 7B
+checkpoint never sits whole on the host.
 ``load_tokenizer`` builds the class ``AutoTokenizer`` would
 (``tokenizer_json.read_tokenizer_config``): Blenderbot-Small's slow tokenizer from
 ``vocab.json`` and ``merges.txt`` (``blenderbot_small_tokenizer.py``), and
@@ -27,21 +31,26 @@ import torch
 from torch import nn
 
 from lotus_tpu_torch.models.blenderbot_small_tokenizer import BlenderbotSmallTokenizer
-from lotus_tpu_torch.models.checkpoint import fit_state_dict, load_state_dict, new_module, read_config
+from lotus_tpu_torch.models.checkpoint import fit_state_dict, iter_state_dict, new_module, read_config
 from lotus_tpu_torch.models.tokenizer_json import JsonTokenizer, read_tokenizer_config
 
 
-def load_encoder(model_dir: str, classifier: bool = False) -> nn.Module:
+def load_encoder(model_dir: str, classifier: bool = False, dtype: torch.dtype = torch.float32,
+                 device: str | torch.device = "cpu") -> nn.Module:
     """The encoder (without a pooler) or, with ``classifier``, the sequence
-    classifier of a checkpoint directory, in f32 on the CPU."""
+    classifier of a checkpoint directory, in ``dtype`` on ``device``: each
+    tensor goes to ``device`` in its file's dtype as it is read, and the
+    parameters are cast to ``dtype`` there, one at a time."""
     if not os.path.isdir(model_dir):
         raise FileNotFoundError(f"{model_dir!r} is not a checkpoint directory: the port reads local files and "
                                 f"downloads nothing")
     config = read_config(model_dir)
-    state = {k: t.float() if t.is_floating_point() else t for k, t in load_state_dict(model_dir).items()}
+    state = {k: t.to(device) for k, t in iter_state_dict(model_dir)}
     with torch.device("meta"):  # no initialisation: the checkpoint's tensors become the parameters
         module = new_module(config, classifier)
-    return fit_state_dict(module, state).eval()
+    module = fit_state_dict(module, state)
+    del state  # the parameters hold the only references, so each cast frees its source
+    return module.to(dtype=dtype).eval()
 
 
 def load_tokenizer(model_dir: str) -> JsonTokenizer:

@@ -33,9 +33,11 @@ import torch.nn.functional as F
 from torch import nn
 
 # Flax's ACT2FN for the activations the port runs: "gelu" is the exact erf
-# form, "gelu_new" the tanh form (nn.gelu(approximate=True)); "relu" is
-# Pegasus's.
-ACTIVATIONS = {"gelu": F.gelu, "gelu_new": partial(F.gelu, approximate="tanh"), "relu": F.relu}
+# form, "gelu_new" and "gelu_pytorch_tanh" (Gemma's) the tanh form
+# (nn.gelu(approximate=True)); "relu" is Pegasus's, "silu" (x * sigmoid(x))
+# Llama's and Mistral's.
+ACTIVATIONS = {"gelu": F.gelu, "gelu_new": partial(F.gelu, approximate="tanh"), "relu": F.relu,
+               "gelu_pytorch_tanh": partial(F.gelu, approximate="tanh"), "silu": F.silu}
 
 
 class EncoderConfig:
@@ -55,7 +57,8 @@ class EncoderConfig:
         model_type = cfg.get("model_type", cls.model_types[0])
         if model_type not in cls.model_types:
             raise NotImplementedError(f"model_type {model_type!r}: {cls.__name__} reads {', '.join(cls.model_types)}")
-        act = cfg.get(cls.activation_key, "gelu")
+        field = cls.__dataclass_fields__.get(cls.activation_key)
+        act = cfg.get(cls.activation_key, "gelu" if field is None else field.default)
         if act not in ACTIVATIONS:
             raise NotImplementedError(f"{cls.activation_key} {act!r}: the port runs {', '.join(map(repr, ACTIVATIONS))}")
         if cfg.get("position_embedding_type", "absolute") != "absolute":

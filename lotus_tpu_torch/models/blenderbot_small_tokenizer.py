@@ -65,6 +65,7 @@ class BlenderbotSmallTokenizer(JsonTokenizer):
         self.unk_id = self.vocab[names["unk_token"]]
         self.pad_id = self.vocab[names["pad_token"]]
         self.single, self.pair = [("A", 0)], [("A", 0), ("B", 1)]
+        self.padding_side = "right"
         self.word_ids = vocab  # vocab.json's own, which tokens are looked up in lowercased
         self._memo: dict[str, list[str]] = {}
 

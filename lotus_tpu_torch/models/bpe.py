@@ -11,10 +11,12 @@ The parts of the ``tokenizers`` library that ``RobertaTokenizerFast`` runs:
   categories (``L*`` and ``N*``), and ``\\s`` is Unicode's White_Space
   property, as the library's regex engine reads it;
 - the ``BPE`` model: a word's characters (with the continuing-subword prefix
-  and end-of-word suffix where set) become ids, unknown characters the unknown
-  token (fused where ``fuse_unk``) or nothing, and merges apply lowest rank
-  first, leftmost first among equals, as the library's priority queue
-  applies them.
+  and end-of-word suffix where set) become ids; an unknown character becomes
+  its UTF-8 bytes' ``<0xXX>`` tokens under ``byte_fallback`` (sentencepiece
+  BPE: Llama, Mistral, Gemma) where the vocabulary holds all of them, else
+  the unknown token (fused where ``fuse_unk``) or nothing; merges apply
+  lowest rank first, leftmost first among equals, as the library's priority
+  queue applies them.
 """
 
 from __future__ import annotations
@@ -112,8 +114,6 @@ class BPE:
                  continuing_subword_prefix: str | None = None, end_of_word_suffix: str | None = None,
                  fuse_unk: bool = False, byte_fallback: bool = False, ignore_merges: bool = False,
                  dropout: float | None = None):
-        if byte_fallback:
-            raise NotImplementedError("BPE byte_fallback: the port's BPE has no byte fallback")
         if dropout:
             raise NotImplementedError("BPE dropout: the port encodes deterministically")
         self.vocab = vocab
@@ -121,6 +121,7 @@ class BPE:
         self.prefix = continuing_subword_prefix or ""
         self.suffix = end_of_word_suffix or ""
         self.fuse_unk = fuse_unk
+        self.byte_fallback = byte_fallback
         self.ignore_merges = ignore_merges
         self.merges: dict[tuple[int, int], tuple[int, int]] = {}  # (left, right) -> (rank, merged id)
         for rank, (a, b) in enumerate(merges):
@@ -150,6 +151,10 @@ class BPE:
                     out.append(unk)
                     unk = None
                 out.append(got)
+            elif self.byte_fallback and all(f"<0x{b:02X}>" in self.vocab for b in s.encode("utf-8")):
+                # As the library does it: the bytes go in without flushing a
+                # pending unknown run, which lands after them.
+                out += [self.vocab[f"<0x{b:02X}>"] for b in s.encode("utf-8")]
             elif self.unk_id is not None:
                 if unk is not None and not self.fuse_unk:
                     out.append(unk)

@@ -1,20 +1,27 @@
-"""Checkpoint directories of the encoder families without ``transformers``,
-``safetensors`` or ``msgpack``.
+"""Checkpoint directories of the encoder, encoder-decoder and decoder
+families without ``transformers``, ``safetensors`` or ``msgpack``.
 
 A directory holds ``config.json`` and its weights in ``model.safetensors``
 (read here: an 8-byte little-endian header length, a JSON header, raw
-little-endian buffers), ``pytorch_model.bin`` (``torch.load`` with
-``weights_only=True``) or ``flax_model.msgpack`` (``msgpack.py``, its leaves
-renamed by ``flax_state_dict``), in that order.  ``FAMILIES`` maps each
+little-endian buffers, one tensor read at a time), in the shards that
+``model.safetensors.index.json`` names (as every published 7B checkpoint
+is), ``pytorch_model.bin`` (``torch.load`` with ``weights_only=True``,
+memory-mapped unless it is in the legacy pre-zip format), the shards of ``pytorch_model.bin.index.json`` or
+``flax_model.msgpack`` (``msgpack.py``, its leaves renamed by
+``flax_state_dict``), in that order (``iter_state_dict``).  The reference's
+``from_pretrained`` reads all of these but sharded safetensors, on which
+Flax raises ``NotImplementedError``; the port reads them.  ``FAMILIES`` maps each
 ``model_type`` the port runs to its config and modules; ``fit_state_dict``
 loads any of the three by name, with or without the family's prefix
 (``bert.``, ``roberta.``, ``distilbert.``, ``electra.``, ``albert.``,
 ``roformer.``, ``roberta_prelayernorm.``; BigBird's is ``bert.``, the
-encoder-decoders' ``model.``), and drops the heads the module has no place
+encoder-decoders' and Llama's, Mistral's and Gemma's ``model.``, GPT-2's,
+GPT-Neo's and GPT-J's ``transformer.``), and drops the heads the module has no place
 for (a pretraining head, as most public Flax files carry: ``lm_head``,
 ``cls``, ``discriminator_predictions``, ALBERT's ``predictions`` and
 ``sop_classifier``; a ``*ForConditionalGeneration``'s ``lm_head`` and
-``final_logits_bias``).  The encoder-decoders' token embeddings are
+``final_logits_bias``; a ``*ForCausalLM``'s ``lm_head``, old rotary
+``inv_freq`` and causal-mask buffers).  The encoder-decoders' token embeddings are
 ``shared``: a checkpoint that carries ``encoder.embed_tokens`` /
 ``decoder.embed_tokens`` beside it or in its place loads as well
 (``bart._tie_embeddings``).  The families' torch and
@@ -30,7 +37,8 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any
+import zipfile
+from typing import Any, Iterator
 
 import numpy as np
 import torch
@@ -44,7 +52,13 @@ from lotus_tpu_torch.models.blenderbot import BlenderbotConfig
 from lotus_tpu_torch.models.blenderbot_small import BlenderbotSmallConfig, BlenderbotSmallModel
 from lotus_tpu_torch.models.distilbert import DistilBertConfig, DistilBertForSequenceClassification, DistilBertModel
 from lotus_tpu_torch.models.electra import ElectraConfig, ElectraForSequenceClassification, ElectraModel
+from lotus_tpu_torch.models.gemma import GemmaConfig
+from lotus_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+from lotus_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
+from lotus_tpu_torch.models.gptj import GPTJConfig, GPTJModel
+from lotus_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from lotus_tpu_torch.models.mbart import MBartConfig, MBartForSequenceClassification, MBartModel
+from lotus_tpu_torch.models.mistral import MistralConfig
 from lotus_tpu_torch.models.msgpack import read_flax_msgpack
 from lotus_tpu_torch.models.pegasus import PegasusConfig, PegasusModel
 from lotus_tpu_torch.models.roberta import RobertaConfig, RobertaForSequenceClassification, RobertaModel
@@ -53,7 +67,12 @@ from lotus_tpu_torch.models.roberta_prelayernorm import (
 )
 from lotus_tpu_torch.models.roformer import RoFormerConfig, RoFormerForSequenceClassification, RoFormerModel
 
-SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16, "I64": torch.int64}
+SAFETENSORS_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+                      "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+                      "BOOL": torch.bool}
+# The weight files of a directory, in the order they are looked for.
+WEIGHT_FILES = ("model.safetensors", "model.safetensors.index.json", "pytorch_model.bin",
+                "pytorch_model.bin.index.json", "flax_model.msgpack")
 # model_type -> (config, encoder, sequence classifier): the families
 # FlaxAutoModel and FlaxAutoModelForSequenceClassification load that the
 # port runs; None where the sequence-classification auto class does not map
@@ -74,7 +93,16 @@ FAMILIES: dict[str, tuple[type[EncoderConfig], type[nn.Module], type[nn.Module] 
     "pegasus": (PegasusConfig, PegasusModel, None),
     "blenderbot": (BlenderbotConfig, BartModel, None),
     "blenderbot-small": (BlenderbotSmallConfig, BlenderbotSmallModel, None),
+    "gpt2": (GPT2Config, GPT2Model, None),
+    "gpt_neo": (GPTNeoConfig, GPTNeoModel, None),
+    "gptj": (GPTJConfig, GPTJModel, None),
+    "llama": (LlamaConfig, LlamaModel, None),
+    "mistral": (MistralConfig, LlamaModel, None),
+    "gemma": (GemmaConfig, LlamaModel, None),
 }
+# What FlaxAutoModel maps that the port refuses, named in the refusal.
+REFUSED = ("marian (its tokenizer is sentencepiece's slow one)", "gpt-sw3 (the same)", "bloom", "xglm",
+           "t5 and its kin (mt5, longt5)", "the vision and audio types")
 # The encoders that carry a pooler unless told not to.
 _POOLED = (BertModel, RobertaModel, AlbertModel, BigBirdModel, RobertaPreLayerNormModel)
 
@@ -85,7 +113,8 @@ def encoder_config(cfg: dict) -> EncoderConfig:
     model_type = cfg.get("model_type", "bert")
     if model_type not in FAMILIES:
         raise NotImplementedError(f"model_type {model_type!r}: the port runs {', '.join(sorted(FAMILIES))} "
-                                  f"checkpoints")
+                                  f"checkpoints; of the other types FlaxAutoModel maps it refuses "
+                                  f"{', '.join(REFUSED)}")
     return FAMILIES[model_type][0].from_dict(cfg)
 
 
@@ -107,41 +136,63 @@ def new_module(config: EncoderConfig, classifier: bool = False, pooler: bool = F
     return encoder(config, add_pooling_layer=pooler) if encoder in _POOLED else encoder(config)
 
 
-def read_safetensors(path: str) -> dict[str, torch.Tensor]:
-    """Every tensor of a ``.safetensors`` file, on the CPU."""
+def iter_safetensors(path: str) -> Iterator[tuple[str, torch.Tensor]]:
+    """Each tensor of a ``.safetensors`` file, on the CPU, read from the file
+    one at a time (each in a buffer of its own)."""
     with open(path, "rb") as f:
         (header_len,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(header_len))
-        data = bytearray(os.path.getsize(path) - 8 - header_len)
-        f.readinto(data)
-    out = {}
-    for name, entry in header.items():
-        if name == "__metadata__":
-            continue
-        dtype = SAFETENSORS_DTYPES.get(entry["dtype"])
-        if dtype is None:
-            raise ValueError(f"{path}: tensor {name!r} has dtype {entry['dtype']}; the reader takes "
-                             f"{sorted(SAFETENSORS_DTYPES)}")
-        lo, hi = entry["data_offsets"]
-        count = (hi - lo) // torch.empty((), dtype=dtype).element_size()
-        flat = torch.frombuffer(data, dtype=dtype, count=count, offset=lo) if count else torch.empty(0, dtype=dtype)
-        out[name] = flat.reshape(entry["shape"])
-    return out
+        for name, entry in header.items():
+            if name == "__metadata__":
+                continue
+            dtype = SAFETENSORS_DTYPES.get(entry["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: tensor {name!r} has dtype {entry['dtype']}; the reader takes "
+                                 f"{sorted(SAFETENSORS_DTYPES)}")
+            lo, hi = entry["data_offsets"]
+            data = bytearray(hi - lo)
+            f.seek(8 + header_len + lo)
+            if f.readinto(data) != hi - lo:
+                raise ValueError(f"{path}: tensor {name!r} runs past the end of the file")
+            flat = torch.frombuffer(data, dtype=dtype) if data else torch.empty(0, dtype=dtype)
+            yield name, flat.reshape(entry["shape"])
+
+
+def read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """Every tensor of a ``.safetensors`` file, on the CPU."""
+    return dict(iter_safetensors(path))
+
+
+def weight_files(model_dir: str) -> list[str]:
+    """The weight files of a checkpoint directory: the first of
+    WEIGHT_FILES it holds, or the shards its index names (in the order the
+    index first names them)."""
+    name = next((n for n in WEIGHT_FILES if os.path.exists(os.path.join(model_dir, n))), None)
+    if name is None:
+        raise FileNotFoundError(f"{model_dir}: no {', '.join(WEIGHT_FILES)}")
+    if not name.endswith(".index.json"):
+        return [os.path.join(model_dir, name)]
+    with open(os.path.join(model_dir, name), encoding="utf-8") as f:
+        shards = dict.fromkeys(json.load(f)["weight_map"].values())
+    return [os.path.join(model_dir, shard) for shard in shards]
+
+
+def iter_state_dict(model_dir: str) -> Iterator[tuple[str, torch.Tensor]]:
+    """The weights of a checkpoint directory, one tensor at a time, by their
+    names in the file (a Flax checkpoint's renamed as the port's,
+    ``flax_state_dict``)."""
+    for path in weight_files(model_dir):
+        if path.endswith(".safetensors"):
+            yield from iter_safetensors(path)
+        elif path.endswith(".bin"):  # the legacy (pre-zip) format cannot be memory-mapped
+            yield from torch.load(path, map_location="cpu", weights_only=True, mmap=zipfile.is_zipfile(path)).items()
+        else:
+            yield from flax_state_dict(read_flax_msgpack(path)).items()
 
 
 def load_state_dict(model_dir: str) -> dict[str, torch.Tensor]:
-    """The weights of a checkpoint directory, by their names in the file
-    (a Flax checkpoint's renamed as the port's, ``flax_state_dict``)."""
-    st = os.path.join(model_dir, "model.safetensors")
-    if os.path.exists(st):
-        return read_safetensors(st)
-    pt = os.path.join(model_dir, "pytorch_model.bin")
-    if os.path.exists(pt):
-        return torch.load(pt, map_location="cpu", weights_only=True)
-    fx = os.path.join(model_dir, "flax_model.msgpack")
-    if os.path.exists(fx):
-        return flax_state_dict(read_flax_msgpack(fx))
-    raise FileNotFoundError(f"{model_dir}: no model.safetensors, pytorch_model.bin or flax_model.msgpack")
+    """The weights of a checkpoint directory on the CPU (``iter_state_dict``)."""
+    return dict(iter_state_dict(model_dir))
 
 
 def fit_state_dict(module: nn.Module, state: dict[str, torch.Tensor]) -> nn.Module:

@@ -82,7 +82,7 @@ def sinusoidal_positions(n_pos: int, dim: int) -> torch.Tensor:
 def check_table(table: torch.Tensor, cfg: RoFormerConfig) -> None:
     """A checkpoint's ``embed_positions.weight`` must be the computed table."""
     want = sinusoidal_positions(cfg.max_position_embeddings, cfg.hidden_size // cfg.num_attention_heads)
-    if table.shape != want.shape or not torch.allclose(table.float(), want, atol=TABLE_ATOL):
+    if table.shape != want.shape or not torch.allclose(table.float(), want.to(table.device), atol=TABLE_ATOL):
         raise ValueError(f"the checkpoint's embed_positions.weight {tuple(table.shape)} is not the sinusoid table "
                          f"{tuple(want.shape)} Flax RoFormer computes")
 

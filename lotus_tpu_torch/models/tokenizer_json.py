@@ -11,13 +11,18 @@ One text goes through, in order:
    tokens are split out of them;
 2. the normalizer: ``Sequence``, ``BertNormalizer``, ``NFC`` / ``NFD`` /
    ``NFKC`` / ``NFKD``, ``Lowercase``, ``Strip``, ``StripAccents``,
-   ``Replace`` (a string or a ``Regex``) and ``Precompiled``
+   ``Replace`` (a string or a ``Regex``), ``Prepend`` (Llama's and
+   Mistral's ``▁`` before a non-empty piece) and ``Precompiled``
    (``charsmap.py``);
 3. the pre-tokenizer: ``Sequence``, ``BertPreTokenizer``, ``ByteLevel``
    (``bpe.py``), ``Metaspace`` (``prepend_scheme`` ``always`` / ``first`` /
-   ``never``, or the older ``add_prefix_space``) and ``WhitespaceSplit``;
-4. the model, on each word, memoised: ``WordPiece`` (``wordpiece.py``'s),
-   ``BPE`` (``bpe.py``) or ``Unigram`` (``unigram.py``);
+   ``never``, or the older ``add_prefix_space``), ``WhitespaceSplit`` and
+   ``Split`` on a string, merged with the previous piece (Gemma's; a
+   ``Regex`` pattern, as bloom's, is refused);
+4. the model, on each word, memoised below 256 characters (a sentencepiece
+   BPE without a pre-tokenizer takes each piece whole): ``WordPiece``
+   (``wordpiece.py``'s), ``BPE`` (``bpe.py``, with byte fallback) or
+   ``Unigram`` (``unigram.py``);
 5. the post-processor: ``BertProcessing``, ``RobertaProcessing``,
    ``TemplateProcessing`` or ``ByteLevel`` (which adds nothing), after
    truncation, which counts the special tokens it adds (``longest_first``
@@ -28,7 +33,13 @@ Any other component raises ``NotImplementedError`` naming it.  What
 applied too: ``do_lower_case``, ``strip_accents`` and
 ``tokenize_chinese_chars`` on a ``BertNormalizer``, ``add_prefix_space`` on
 a ``ByteLevel`` pre-tokenizer.  Padding uses the tokenizer's own
-``pad_token`` (1 for RoBERTa and XLM-R).  A directory without
+``pad_token`` (1 for RoBERTa and XLM-R), on the side ``padding_side``
+names: ``tokenizer_config.json``'s, else the direction of
+``tokenizer.json``'s ``padding``, else the class's (left for
+``LlamaTokenizerFast`` and ``GemmaTokenizerFast``, right for the others).
+A tokenizer without a pad token (GPT-2's, Llama-2's and Mistral's as
+published) raises ``ValueError`` when it pads, as ``padding=True`` does in
+``transformers``.  A directory without
 ``tokenizer.json`` gives the tokenizer that ``transformers`` converts its
 vocabulary files into: ``from_vocab_txt`` (BERT's WordPiece) and
 ``from_vocab_merges`` (RoBERTa's byte-level BPE).  Encodings are int64
@@ -36,7 +47,7 @@ numpy arrays.
 
 The tokenizer class is the one ``AutoTokenizer`` would build: named by
 ``tokenizer_config.json``, else by ``config.json``, else the model type's
-(``TYPE_TOKENIZERS``).  Two classes change what the file says:
+(``TYPE_TOKENIZERS``).  Three classes change what the file says:
 
 - ``MBartTokenizerFast`` replaces the file's template at load time with
   ``$A </s> <src_lang>`` and ``$A $B </s> <src_lang>`` (a pair has one
@@ -44,6 +55,13 @@ The tokenizer class is the one ``AutoTokenizer`` would build: named by
   (``tokenization_mbart_fast.py:121-124``, ``:219-232``);
   ``MBart50TokenizerFast`` with ``<src_lang> $A </s>`` and ``<src_lang> $A
   $B </s>``;
+- ``LlamaTokenizerFast`` (Llama and Mistral) and ``GemmaTokenizerFast``
+  replace it with ``<bos> $A <eos>`` and ``<bos> $A <eos> <bos>:1 $B:1
+  <eos>:1``, each special token there only under ``add_bos_token`` (true by
+  default) / ``add_eos_token`` (false) of ``tokenizer_config.json``
+  (``tokenization_llama_fast.py:180-192``); an ``add_prefix_space`` there
+  is refused, as it sends ``transformers`` to the sentencepiece model file
+  the port does not read;
 - ``RoFormerTokenizer`` is refused with ``NotImplementedError``:
   ``RoFormerTokenizerFast`` cuts words with jieba (a custom
   ``JiebaPreTokenizer`` over ``rjieba``) that ``tokenizer.json`` does not
@@ -72,6 +90,7 @@ from lotus_tpu_torch.models.unigram import Unigram
 from lotus_tpu_torch.models.wordpiece import bert_normalize, lowercase, split_punctuation, wordpiece
 
 MEMO_LIMIT = 1 << 20  # words memoised before the memo starts over
+MEMO_CHARS = 256  # longer words are not memoised (the library's BPE cache takes shorter ones only)
 # Pre-tokenizers that cut only inside whitespace-separated chunks, each as
 # its cut of one chunk: a chunk's ids are memoised whole.
 CHUNK_LOCAL: dict[str, Callable[[str], list[str]]] = {"BertPreTokenizer": split_punctuation,
@@ -130,10 +149,13 @@ def normalizer(spec: dict | None) -> Callable[[str], str] | None:
         return _strip_accents
     if kind == "Replace":
         return _replace(spec)
+    if kind == "Prepend":
+        prefix = spec["prepend"]
+        return lambda text: prefix + text if text else text
     if kind == "Precompiled":
         return Charsmap(base64.b64decode(spec["precompiled_charsmap"])).normalize
     raise NotImplementedError(f"normalizer {kind!r}: the port reads Sequence, BertNormalizer, NFC, NFD, NFKC, "
-                              f"NFKD, Lowercase, Strip, StripAccents, Replace and Precompiled")
+                              f"NFKD, Lowercase, Strip, StripAccents, Replace, Prepend and Precompiled")
 
 
 # ---- pre-tokenizers ----------------------------------------------------------
@@ -189,6 +211,40 @@ def _metaspace(spec: dict) -> Callable[[Piece], list[Piece]]:
     return split
 
 
+def _split(spec: dict) -> Callable[[Piece], list[Piece]]:
+    """``Split`` on a string, each match joined to the piece before it
+    (``MergedWithPrevious``, Gemma's): a match with no piece before it, or
+    right after another match, stands alone, as in the ``tokenizers``
+    library."""
+    pattern = spec["pattern"]
+    if "String" not in pattern or spec["behavior"] != "MergedWithPrevious" or spec.get("invert"):
+        raise NotImplementedError(f"pre-tokenizer Split {pattern!r} {spec['behavior']} (invert "
+                                  f"{spec.get('invert', False)}): the port reads Split on a string, MergedWithPrevious, "
+                                  f"not inverted (Gemma's); a Regex pattern (bloom's) waits for its reader")
+    needle = pattern["String"]
+
+    def split(piece: Piece) -> list[Piece]:
+        text, at_start = piece
+        cuts: list[list[int]] = []  # [start, end] of each piece
+        done, follows_text = 0, False
+        at = text.find(needle) if needle else -1
+        while at >= 0:
+            if done < at:
+                cuts.append([done, at])
+                follows_text = True
+            if follows_text:
+                cuts[-1][1] = at + len(needle)
+            else:
+                cuts.append([at, at + len(needle)])
+            done, follows_text = at + len(needle), False
+            at = text.find(needle, done)
+        if done < len(text):
+            cuts.append([done, len(text)])
+        return [(text[a:b], at_start and a == 0) for a, b in cuts]
+
+    return split
+
+
 def pre_tokenizer(spec: dict | None) -> Callable[[Piece], list[Piece]]:
     """The pre-tokenizer ``spec`` describes, as a function from one piece
     of normalized text to its words."""
@@ -206,8 +262,10 @@ def pre_tokenizer(spec: dict | None) -> Callable[[Piece], list[Piece]]:
         return _byte_level(spec)
     if kind == "Metaspace":
         return _metaspace(spec)
+    if kind == "Split":
+        return _split(spec)
     raise NotImplementedError(f"pre-tokenizer {kind!r}: the port reads Sequence, BertPreTokenizer, ByteLevel, "
-                              f"Metaspace and WhitespaceSplit")
+                              f"Metaspace, WhitespaceSplit and Split")
 
 
 # ---- models ------------------------------------------------------------------
@@ -368,15 +426,28 @@ class JsonTokenizer:
         self._cut = None if pre is None else CHUNK_LOCAL.get(pre["type"])
         self.vocab = {**vocab, **{t["content"]: t["id"] for t in added}}
         self.single, self.pair = post_processor(spec.get("post_processor"))
-        mbart = MBART_TEMPLATES.get(str(config.get("tokenizer_class", "")).removesuffix("Fast"))
-        if mbart is not None:  # ids as convert_tokens_to_ids gives them: the unknown token's if missing
-            unk = self.vocab.get(special_token(config.get("unk_token", "<unk>")))
-            self.single, self.pair = mbart(*(self.vocab.get(special_token(config.get(k, v)), unk)
-                                             for k, v in (("src_lang", "en_XX"), ("eos_token", "</s>"))))
-        pad = config.get("pad_token")
-        if pad is None and spec.get("padding"):
-            pad = spec["padding"].get("pad_token")
+        cls = str(config.get("tokenizer_class", "")).removesuffix("Fast")
+        unk = self.vocab.get(special_token(config.get("unk_token", "<unk>")))
+
+        def token_id(key: str, default: str) -> int | None:  # as convert_tokens_to_ids: the unknown token's if missing
+            return self.vocab.get(special_token(config.get(key, default)), unk)
+
+        if cls in MBART_TEMPLATES:
+            self.single, self.pair = MBART_TEMPLATES[cls](token_id("src_lang", "en_XX"), token_id("eos_token", "</s>"))
+        if cls in BOS_EOS_TOKENS:
+            if config.get("add_prefix_space") is not None:
+                raise NotImplementedError(f"{cls}Fast with add_prefix_space={config['add_prefix_space']!r} rebuilds "
+                                          f"its tokenizer from the sentencepiece model file, which the port does not "
+                                          f"read; drop the key to read tokenizer.json")
+            bos, eos = BOS_EOS_TOKENS[cls]
+            bos_id = config.get("add_bos_token", True) and token_id("bos_token", bos)
+            self.single, self.pair = bos_eos_templates(bos_id, config.get("add_eos_token", False)
+                                                       and token_id("eos_token", eos))
+        padding = spec.get("padding") or {}
+        pad = config.get("pad_token", padding.get("pad_token"))
         self.pad_id = None if pad is None else self.vocab.get(special_token(pad))
+        side = config.get("padding_side") or str(padding.get("direction", "")).lower()
+        self.padding_side = side or ("left" if cls in LEFT_PADDED else "right")
         self._memo: dict[str, list[int]] = {}
 
     @classmethod
@@ -455,6 +526,9 @@ class JsonTokenizer:
         memo = self._memo
         words = _chunks(piece[0]) if self._cut is not None else [w for w, _ in self.pre_tokenize(piece)]
         for word in words:
+            if len(word) >= MEMO_CHARS:
+                ids += self._word_ids(word)
+                continue
             got = memo.get(word)
             if got is None:
                 if len(memo) >= MEMO_LIMIT:
@@ -507,15 +581,17 @@ class JsonTokenizer:
 
     def pad(self, encoded: list[list[int]], length: int) -> tuple[np.ndarray, np.ndarray]:
         """``(input_ids, attention_mask)``, each (len(encoded), length)
-        int64, padded on the right with ``pad_id``."""
+        int64, padded with ``pad_id`` on the ``padding_side``."""
         if self.pad_id is None:
-            raise ValueError("the tokenizer has no padding token")
+            raise ValueError("the tokenizer has no padding token: set pad_token in tokenizer_config.json (as "
+                             "transformers raises for padding=True)")
         n = len(encoded)
         ids = np.full((n, length), self.pad_id, np.int64)
         mask = np.zeros((n, length), np.int64)
         for r, a in enumerate(encoded):
-            ids[r, : len(a)] = a
-            mask[r, : len(a)] = 1
+            at = slice(length - len(a), length) if self.padding_side == "left" else slice(0, len(a))
+            ids[r, at] = a
+            mask[r, at] = 1
         return ids, mask
 
     def __call__(self, texts: Sequence[str], text_pair: Sequence[str] | None = None, *,
@@ -536,7 +612,8 @@ class JsonTokenizer:
         ids, mask = self.pad([a for a, _ in rows], length)
         types = np.zeros_like(ids)
         for r, (_, t) in enumerate(rows):
-            types[r, : len(t)] = t
+            start = length - len(t) if self.padding_side == "left" else 0
+            types[r, start : start + len(t)] = t
         return {"input_ids": ids, "token_type_ids": types, "attention_mask": mask}
 
 
@@ -545,7 +622,8 @@ JIEBA_TOKENIZERS = ("RoFormerTokenizer", "RoFormerTokenizerFast")
 # (TOKENIZER_MAPPING_NAMES), for the types whose class changes what the port
 # reads.
 TYPE_TOKENIZERS = {"roformer": "RoFormerTokenizer", "mbart": "MBartTokenizer",
-                   "blenderbot-small": "BlenderbotSmallTokenizer"}
+                   "blenderbot-small": "BlenderbotSmallTokenizer", "llama": "LlamaTokenizer",
+                   "mistral": "LlamaTokenizer", "gemma": "GemmaTokenizer"}
 
 
 def _mbart(lang: int, eos: int) -> tuple[Template, Template]:
@@ -559,6 +637,21 @@ def _mbart50(lang: int, eos: int) -> tuple[Template, Template]:
 # The (single, pair) templates the mBART fast tokenizers set at load time,
 # from the ids of src_lang and of the eos token.
 MBART_TEMPLATES = {"MBartTokenizer": _mbart, "MBart50Tokenizer": _mbart50}
+# The classes that rebuild the template from add_bos_token / add_eos_token
+# at load time, with their default bos and eos tokens.
+BOS_EOS_TOKENS = {"LlamaTokenizer": ("<s>", "</s>"), "GemmaTokenizer": ("<bos>", "<eos>")}
+LEFT_PADDED = ("LlamaTokenizer", "GemmaTokenizer")  # the classes whose padding_side is "left"
+
+
+def bos_eos_templates(bos: int | None | bool, eos: int | None | bool) -> tuple[Template, Template]:
+    """``LlamaTokenizerFast.update_post_processor``'s templates: ``bos $A
+    eos`` and ``bos $A eos bos:1 $B:1 eos:1``, each token left out where it
+    is False (its flag off)."""
+    def part(tok, type_id):
+        return [] if tok is False else [([tok], type_id)]
+
+    single = [*part(bos, 0), ("A", 0), *part(eos, 0)]
+    return single, [*single, *part(bos, 1), ("B", 1), *part(eos, 1)]
 
 
 def _read_json(path: str, name: str) -> dict:

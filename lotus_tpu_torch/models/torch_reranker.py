@@ -45,7 +45,7 @@ class TorchCrossEncoderReranker(Reranker):
         self.model_name = model
         self.max_batch_size = int(max_batch_size)
         self.max_seq_length = int(max_seq_length)
-        self.model = load_encoder(model, classifier=True).to(self.device, dtype or torch.float32)
+        self.model = load_encoder(model, classifier=True, dtype=dtype or torch.float32, device=self.device)
         self.tokenizer = load_tokenizer(model)
 
     def score_pairs(self, query: str, docs: list[str]) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Sentence-embedding RM on the card: an encoder (BERT, RoBERTa, XLM-R,
-DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird or RoBERTa-PreLayerNorm) or
-an encoder-decoder (BART, mBART, Pegasus, Blenderbot or Blenderbot-Small)
-in PyTorch.
+DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird or RoBERTa-PreLayerNorm), an
+encoder-decoder (BART, mBART, Pegasus, Blenderbot or Blenderbot-Small) or a
+decoder (GPT-2, GPT-Neo, GPT-J, Llama, Mistral or Gemma) in PyTorch.
 
 The port of ``JaxSentenceEncoderRM`` (``lotus_tpu/models/flax_rm.py:32-127``),
 which fills the role of the reference's ``SentenceTransformersRM``.  It
@@ -9,12 +9,18 @@ reads a local checkpoint directory with the port's own tokenizer and
 checkpoint reader (``auto.load_tokenizer``, ``auto.load_encoder``), and
 calls the model with ids and mask only, as the reference does (so token
 types are the family's default: 0, but 1 for ELECTRA; DistilBERT and the
-encoder-decoders have none).  An encoder-decoder's hidden states are its
-decoder's, run on the shifted ids (``bart.py``).  Where the reference
+encoder-decoders and decoders have none).  An encoder-decoder's hidden
+states are its decoder's, run on the shifted ids (``bart.py``); a decoder's
+are its causal states at positions ``arange(seq)`` whatever the padding,
+which Llama's and Gemma's tokenizers put on the left (so ``[CLS]`` pooling
+takes a padded row's first pad, as in the reference).  A tokenizer without
+a pad token raises ``ValueError`` when a batch pads, as the reference's
+``padding=True`` does.  Where the reference
 fails on a bucket, the port raises before it runs the bucket: BigBird's
 block-sparse attention on one that is not whole blocks or holds fewer than
 4 (``big_bird.check_blocks``), an encoder-decoder on one longer than its
-``max_position_embeddings`` (``bart.check_length``).  It keeps the
+``max_position_embeddings``, a decoder on one longer than its positions
+(``bart.check_length``).  It keeps the
 reference's buckets: the batch pads to ``max_batch_size`` with ``""`` and
 the tokens to the next power of two of at least 16, capped at
 ``max_seq_length``, so padding rows ride an all-zero attention mask and are
@@ -72,9 +78,10 @@ class TorchSentenceEncoderRM(RM):
     ``model`` is a local checkpoint directory of a family ``load_encoder``
     runs (``config.json``; ``tokenizer.json``, ``vocab.txt`` or
     ``vocab.json`` + ``merges.txt``; ``model.safetensors``,
-    ``pytorch_model.bin`` or ``flax_model.msgpack``).
+    ``pytorch_model.bin``, either sharded, or ``flax_model.msgpack``).
     ``dtype`` (a torch dtype, f32 by default) holds the parameters and runs
-    the forward; outputs are always float32.  ``device=None`` takes the card
+    the forward, each tensor placed on the device as it is read; outputs are
+    always float32.  ``device=None`` takes the card
     and raises without one.
     """
 
@@ -96,7 +103,7 @@ class TorchSentenceEncoderRM(RM):
         self.normalize_embeddings = normalize_embeddings
         self.pooling = pooling
         self.max_seq_length = int(max_seq_length)
-        self.encoder = load_encoder(model).to(self.device, dtype or torch.float32)
+        self.encoder = load_encoder(model, dtype=dtype or torch.float32, device=self.device)
         self.tokenizer = load_tokenizer(model)
 
     def _pool(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

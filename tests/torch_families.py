@@ -22,7 +22,12 @@ made here from a seed).
   that the files parametrised over it do not grow): ``write_seq2seq`` and
   ``write_seq2seq_tokenizer`` (BART's and Blenderbot's byte-level BPE,
   mBART's and Pegasus's Unigram in their converters' layouts,
-  Blenderbot-Small's slow BPE files, ``blenderbot_small_files``).
+  Blenderbot-Small's slow BPE files, ``blenderbot_small_files``);
+- the decoder-only families (``DECODERS``, kept out of ``FAMILIES`` too):
+  ``write_decoder`` and ``write_decoder_tokenizer`` (GPT-2's byte-level BPE
+  with ``<|endoftext|>``; ``sp_bpe_tokenizer``, the sentencepiece BPE with
+  byte fallback that ``LlamaConverter`` and ``GemmaConverter`` build, over
+  seeded merges).
 """
 
 from __future__ import annotations
@@ -67,16 +72,20 @@ def seeded_texts(seed: int, n: int, words: list[str], lo: int = 0, hi: int = 30)
     return [" ".join(rng.choice(pool, rng.integers(lo, hi + 1))) for _ in range(n)]
 
 
-def write_bpe_files(path: str, seed: int = 0, vocab_size: int = 600) -> None:
-    """A byte-level BPE ``vocab.json`` / ``merges.txt`` with RoBERTa's special
-    tokens, trained by ``tokenizers`` on seeded text."""
+ROBERTA_SPECIALS = ("<s>", "<pad>", "</s>", "<unk>", "<mask>")
+
+
+def write_bpe_files(path: str, seed: int = 0, vocab_size: int = 600,
+                    specials: tuple[str, ...] = ROBERTA_SPECIALS) -> None:
+    """A byte-level BPE ``vocab.json`` / ``merges.txt`` with ``specials``
+    (RoBERTa's by default) first, trained by ``tokenizers`` on seeded text."""
     from tokenizers import ByteLevelBPETokenizer
 
     os.makedirs(path, exist_ok=True)
     bpe = ByteLevelBPETokenizer()
     corpus = seeded_texts(seed, 400, seeded_words(seed, 300), 3, 20)
-    bpe.train_from_iterator(corpus, vocab_size=vocab_size, min_frequency=2,
-                            special_tokens=["<s>", "<pad>", "</s>", "<unk>", "<mask>"], show_progress=False)
+    bpe.train_from_iterator(corpus, vocab_size=vocab_size, min_frequency=2, special_tokens=list(specials),
+                            show_progress=False)
     bpe.save_model(path)
 
 
@@ -389,6 +398,133 @@ def write_seq2seq(path: str, family: str, *, num_labels: int | None = None, seed
     auto = transformers.AutoModel if num_labels is None else transformers.AutoModelForSequenceClassification
     torch.manual_seed(seed)
     model = auto.from_config(cfg).eval()
+    model.save_pretrained(path)
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        assert json.load(f)["model_type"] == family
+    return model
+
+
+# ---- the decoder-only families ---------------------------------------------------
+
+DECODERS = ("gpt2", "gpt_neo", "gptj", "llama", "mistral", "gemma")
+GPT2_EOS = "<|endoftext|>"
+SP_SPECIALS = {"llama": ("<unk>", "<s>", "</s>"), "gemma": ("<pad>", "<eos>", "<bos>", "<unk>")}
+
+
+def sp_bpe_tokenizer(seed: int = 0, flavor: str = "llama", vocab_size: int = 500,
+                     missing_bytes: tuple[int, ...] = (), legacy: bool = True) -> Tokenizer:
+    """A sentencepiece BPE with byte fallback as ``LlamaConverter``
+    (``flavor`` llama: ``<unk> <s> </s>``, the normalizer ``Prepend("▁")``,
+    ``Replace(" ", "▁")`` and no pre-tokenizer; with ``legacy`` False no
+    normalizer and ``Metaspace`` (first, unsplit)) or ``GemmaConverter``
+    (``gemma``: ``<pad> <eos> <bos> <unk>``, ``Replace(" ", "▁")``,
+    ``Split(" ", merged_with_previous)``) writes it: the specials, the 256
+    ``<0xXX>`` byte tokens but ``missing_bytes``, then pieces and merges
+    trained by ``tokenizers`` on seeded text within ``▁`` words, over an
+    alphabet cut to 40 characters (so accents, CJK and emoji fall back to
+    bytes); ``<unk>`` fused."""
+    from tokenizers import trainers
+
+    specials = SP_SPECIALS[flavor]
+    if flavor == "gemma":
+        norm, pre = normalizers.Replace(" ", "▁"), pre_tokenizers.Split(" ", "merged_with_previous")
+    elif legacy:
+        norm, pre = normalizers.Sequence([normalizers.Prepend("▁"), normalizers.Replace(" ", "▁")]), None
+    else:
+        norm, pre = None, pre_tokenizers.Metaspace(replacement="▁", prepend_scheme="first", split=False)
+    trainee = Tokenizer(models.BPE(unk_token="<unk>"))
+    trainee.normalizer = normalizers.Sequence([normalizers.Prepend("▁"), normalizers.Replace(" ", "▁")])
+    trainee.pre_tokenizer = pre_tokenizers.Metaspace(replacement="▁", prepend_scheme="never", split=True)
+    corpus = seeded_texts(seed, 400, seeded_words(seed, 300), 3, 20)
+    trainee.train_from_iterator(corpus, trainers.BpeTrainer(vocab_size=vocab_size, min_frequency=2, limit_alphabet=40,
+                                                            special_tokens=list(specials), show_progress=False))
+    trained = json.loads(trainee.to_str())["model"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        if b not in missing_bytes:
+            vocab[f"<0x{b:02X}>"] = len(vocab)
+    for t in trained["vocab"]:
+        vocab.setdefault(t, len(vocab))
+    merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m) for m in trained["merges"]]
+    tok = Tokenizer(models.BPE(vocab, merges, unk_token="<unk>", fuse_unk=True, byte_fallback=True))
+    if norm is not None:
+        tok.normalizer = norm
+    if pre is not None:
+        tok.pre_tokenizer = pre
+    tok.decoder = decoders.Sequence([decoders.Replace("▁", " "), decoders.ByteFallback(), decoders.Fuse()])
+    return tok
+
+
+def write_decoder_tokenizer(path: str, family: str, seed: int = 0, pad: str | None = "default", **kw):
+    """The family's tokenizer as ``AutoTokenizer`` builds it, saved in
+    ``path``: ``GPT2TokenizerFast`` over seeded byte-level BPE files with
+    ``<|endoftext|>`` for gpt2, gpt_neo and gptj; ``LlamaTokenizerFast`` over
+    ``sp_bpe_tokenizer`` for llama and mistral; ``GemmaTokenizerFast`` over
+    its gemma flavor.  ``pad`` is the pad token: by default ``<|endoftext|>``,
+    ``</s>`` (as fine-tuned embedders set it) and Gemma's own ``<pad>``;
+    None leaves none, as GPT-2's, Llama-2's and Mistral's published
+    tokenizers have none.  ``kw`` go to the class (``add_bos_token``,
+    ``add_eos_token``, ``padding_side``).  Returns it."""
+    os.makedirs(path, exist_ok=True)
+    if family in ("gpt2", "gpt_neo", "gptj"):
+        write_bpe_files(path, seed, specials=(GPT2_EOS,))
+        pad = GPT2_EOS if pad == "default" else pad
+        tok = transformers.GPT2TokenizerFast(vocab_file=os.path.join(path, "vocab.json"),
+                                             merges_file=os.path.join(path, "merges.txt"), pad_token=pad, **kw)
+    elif family == "gemma":
+        pad = "<pad>" if pad == "default" else pad
+        tok = transformers.GemmaTokenizerFast(tokenizer_object=sp_bpe_tokenizer(seed, "gemma"), pad_token=pad, **kw)
+    else:
+        pad = "</s>" if pad == "default" else pad
+        legacy = kw.pop("legacy", True)
+        tok = transformers.LlamaTokenizerFast(tokenizer_object=sp_bpe_tokenizer(seed, "llama", legacy=legacy),
+                                              pad_token=pad, legacy=legacy, **kw)
+    tok.save_pretrained(path)
+    return tok
+
+
+def decoder_config(family: str, vocab_size: int, *, init_range: float = 0.02, max_position_embeddings: int = 128,
+                   **kw):
+    """A tiny config of ``family``: width 32, 2 layers, 4 heads, FFN 64,
+    128 positions; Llama's and Mistral's 2 KV heads, Gemma's one KV head of
+    ``head_dim`` 16 (not 32 / 4) and its ``hidden_activation`` unset;
+    GPT-Neo's global and local layers with a 4-token window; GPT-J's
+    ``rotary_dim`` 4 of 8."""
+    pos = max_position_embeddings
+    if family == "gpt2":
+        fields = dict(n_positions=pos, n_embd=32, n_layer=2, n_head=4, n_inner=64)
+    elif family == "gpt_neo":
+        fields = dict(max_position_embeddings=pos, hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+                      attention_types=[[["global", "local"], 1]], window_size=4)
+    elif family == "gptj":
+        fields = dict(n_positions=pos, n_embd=32, n_layer=2, n_head=4, n_inner=64, rotary_dim=4)
+    else:
+        fields = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=pos, bos_token_id=1, eos_token_id=2)
+        if family == "gemma":
+            fields.update(num_key_value_heads=1, head_dim=16, hidden_activation=None, pad_token_id=0,
+                          bos_token_id=2, eos_token_id=1)
+    fields.update(kw)
+    cls = {"gpt2": transformers.GPT2Config, "gpt_neo": transformers.GPTNeoConfig, "gptj": transformers.GPTJConfig,
+           "llama": transformers.LlamaConfig, "mistral": transformers.MistralConfig,
+           "gemma": transformers.GemmaConfig}[family]
+    return cls(vocab_size=vocab_size, initializer_range=init_range, **fields)
+
+
+def write_decoder(path: str, family: str, *, seed: int = 0, init_range: float = 0.02,
+                  tokenizer_kw: dict | None = None, **cfg_kw):
+    """A ``family`` checkpoint in ``path``: its tokenizer and the base model
+    drawn with weights of standard deviation ``init_range`` (norm weights
+    too, so Gemma's 1 + weight is not 1), saved with ``save_pretrained``
+    (``model.safetensors``).  Returns the torch model."""
+    tok = write_decoder_tokenizer(path, family, seed, **(tokenizer_kw or {}))
+    cfg = decoder_config(family, len(tok), init_range=init_range, **cfg_kw)
+    torch.manual_seed(seed)
+    model = transformers.AutoModel.from_config(cfg).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name or "ln_" in name:
+                p.normal_(1.0 if family != "gemma" and name.endswith("weight") else 0.0, init_range)
     model.save_pretrained(path)
     with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
         assert json.load(f)["model_type"] == family
