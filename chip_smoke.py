@@ -248,14 +248,30 @@ Phases (each prints its seconds and the card's name and power limit):
    >= 0.98 through K2 at d 768, K2 held to its plain version on the call's
    inputs and timed beside its bound.  A decoder's bound counts its causal
    s(s+1)/2 pairs a layer (``decoder_attention``).  The files are deleted
-   after.
+   after;
+31. BLOOM and XGLM, under ``build/lotus_tpu_torch/smoke_alibi`` (weights
+   drawn on the card and written in bf16; BLOOM's byte-level BPE behind its
+   ``Split`` on a ``Regex``, left-padded, and XGLM's Unigram with ``</s>
+   $A``).  31a: bloom-560m, bloom-7b1 (``n_embed``), xglm-564M and
+   xglm-7.5B at their published widths, 2 layers deep, each on the card
+   against the CPU in f32 (16 docs in four buckets, left-padded rows for
+   BLOOM, words outside the vocabularies: within 2e-6), bf16 against f32
+   (smallest cosine >= 0.999), and without a pad token, which must raise;
+   31b: BLOOM-7b1 at full width and depth (30 layers, 7,069,016,064
+   parameters) from bf16 shards, loaded tensor by tensor onto the card,
+   4,096 of config 2's docs into an int8 IVF store (nlist 8, block-aligned:
+   K1), recall@5 >= 0.95, K1 held to its plain version on the call's
+   inputs and timed beside its bound; 31c: XGLM-564M at full width and
+   depth in bf16 over 4,096 of config 1's passages into a Flat store:
+   recall@10 1.0 through ids, >= 0.98 through K2 at d 1024, K2 held to its
+   plain version on the call's inputs.  The files are deleted after.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after: K1 over phases 5-8 (calibration included), in each
 rank over phase 12's sharded search, over phase 13 and over each K1 store of
-phase 15 and over phase 25's, 27's, 28's, 29's and 30's stores; K2 over
-phase 10, over phases 20-21, over phase 15's Flat store and over phase
-24's, 27's, 28's, 29's and 30's;
+phase 15 and over phase 25's, 27's, 28's, 29's, 30's and 31's stores; K2
+over phase 10, over phases 20-21, over phase 15's Flat store and over phase
+24's, 27's, 28's, 29's, 30's and 31's;
 each must have launched its kernel, and each phase prints its count.
 The last three lines are the kernel table (K1, whose launches add the
 ranks', and K2, then the variants later slices added, each with its own
@@ -1725,12 +1741,14 @@ def synth_texts(vocab: list[str], n: int, lo: int, hi: int, seed: int, per_topic
 def forward_weights(enc) -> int:
     """The parameters a token's forward multiplies by: every non-embedding
     one (an encoder-decoder's ``shared`` tokens, a decoder's ``wte``,
-    ``wpe`` or ``embed_tokens`` and position tables are gathers), but
+    ``wpe``, ``embed_tokens`` or ``word_embeddings`` and position tables are
+    gathers), but
     ALBERT's shared groups once for each layer that runs them."""
     groups = getattr(getattr(enc, "encoder", None), "albert_layer_groups", None)
     if groups is None:
         return sum(p.numel() for name, p in enc.named_parameters()
-                   if not name.startswith(("embeddings.", "shared.", "wte.", "wpe.", "embed_tokens."))
+                   if not name.startswith(("embeddings.", "shared.", "wte.", "wpe.", "embed_tokens.",
+                                           "word_embeddings."))
                    and "embed_positions" not in name)
     cfg = enc.config
     sizes = [sum(p.numel() for p in g.parameters()) for g in groups]
@@ -1760,12 +1778,14 @@ def seq2seq_pairs(cfg, s):
 def decoder_attention(cfg) -> tuple[int, int] | None:
     """A decoder's (layers, query heads x head size), or None for an
     encoder or an encoder-decoder."""
-    if hasattr(cfg, "n_layer"):  # GPT-2, GPT-J
-        return cfg.n_layer, cfg.n_embd
+    if hasattr(cfg, "n_layer"):  # GPT-2, GPT-J, BLOOM
+        return cfg.n_layer, cfg.hidden_size
     if hasattr(cfg, "head_size"):  # Llama, Mistral, Gemma
         return cfg.num_hidden_layers, cfg.num_attention_heads * cfg.head_size
     if hasattr(cfg, "attention_types"):  # GPT-Neo
         return cfg.num_layers, cfg.hidden_size
+    if hasattr(cfg, "attention_heads"):  # XGLM
+        return cfg.num_layers, cfg.d_model
     return None
 
 
@@ -2024,7 +2044,8 @@ def k2_store_compare(label: str, store, qv, top: int) -> list:
 def k1_store_compare(label: str, store, queries, k: int) -> None:
     """K1 against its plain version on the inputs an IVF store's call gives
     it: the same call once more, the grouped probe folding through a
-    recorder (bit for bit where the dot is int8)."""
+    recorder (bit for bit where the dot is int8); each call timed beside
+    its bound (``k1_bound``)."""
     from lotus_tpu_torch.ops import ivf_probe
 
     record, calls = recording(ivf_probe.probe_fold_reference)
@@ -2036,10 +2057,14 @@ def k1_store_compare(label: str, store, queries, k: int) -> None:
         ivf_probe.ivf_search_grouped_probe = grouped
     assert calls, f"{label}: the store did not call K1's wrapper"
     for args, kw in calls:
-        compare(f"{label}: the IVF store's {args[1].dtype} rows (bl {kw['bl']}, {args[1].shape[0]:,} storage rows), "
-                f"{len(queries):,} {args[0].dtype} queries, {'int8' if kw['int8_dot'] else 'float'} dot, "
-                f"{'packed' if kw['packed'] else 'unpacked'}", args, exact=kw["int8_dot"],
-                tol=2e-3 if kw["packed"] else 1e-4, reps=5, **kw)
+        _, ms, _ = compare(f"{label}: the IVF store's {args[1].dtype} rows (bl {kw['bl']}, {args[1].shape[0]:,} "
+                           f"storage rows), {len(queries):,} {args[0].dtype} queries, "
+                           f"{'int8' if kw['int8_dot'] else 'float'} dot, {'packed' if kw['packed'] else 'unpacked'}",
+                           args, exact=kw["int8_dot"], tol=2e-3 if kw["packed"] else 1e-4, reps=5, **kw)
+        bound, by, n_live, _, _ = k1_bound(args[0], args[1], args[4], args[6], int8_dot=kw["int8_dot"],
+                                           packed=kw["packed"], top1=kw.get("top1", False))
+        say(f"    bound {bound:.4f} ms ({by}; {n_live} live chunks, each probed list read once), K1 at "
+            f"{100 * bound / ms:.1f}% of it [{GPU}]")
 
 
 def config2_text_phase(dev, vocab: list[str], dirs: dict, n: int = 100_000, nq: int = 1000,
@@ -2255,6 +2280,8 @@ def _template(cls_tok: str, cls_id: int, sep_tok: str, sep_id: int, double_sep: 
                                for t, i in ((cls_tok, cls_id), (sep_tok, sep_id))}}
 
 
+# BLOOM's pre-tokenizer pattern, as its tokenizer.json writes it (Oniguruma's syntax).
+BLOOM_SPLIT = " ?[^(\\s|[.,!?…。，、।۔،])]+"
 # MBartConverter's language codes, after the pieces, and PegasusConverter's
 # head of the vocabulary (offset 103).
 MBART_LANGS = ("ar_AR", "cs_CZ", "de_DE", "en_XX", "es_XX", "et_EE", "fi_FI", "fr_XX", "gu_IN", "hi_IN", "it_IT",
@@ -2292,8 +2319,10 @@ def unigram_spec(words: list[str], size: int, seed: int, flavor: str = "xlm-robe
     and ``<mask>`` last; ``SpmConverter``'s normalizer; ``A </s> en_XX``) or
     ``pegasus`` (``PegasusConverter``: ``<pad> </s> <mask_1> <mask_2>``,
     ``<unk_2>`` .. ``<unk_102>`` and ``<unk>`` first; ``SpmConverter``'s
-    normalizer; ``WhitespaceSplit`` before ``Metaspace``; ``A </s>``);
-    ``Metaspace`` for all."""
+    normalizer; ``WhitespaceSplit`` before ``Metaspace``; ``A </s>``) or
+    ``xglm`` (``XGLMConverter``: ``<s> <pad> </s> <unk>`` first and the
+    seven ``<madeupwordN>`` last; ``SpmConverter``'s normalizer; ``</s>
+    A`` / ``</s> A </s> </s> B``); ``Metaspace`` for all."""
     import base64
     import string
 
@@ -2317,6 +2346,8 @@ def unigram_spec(words: list[str], size: int, seed: int, flavor: str = "xlm-robe
             head, tail, mask = ["<s>", "<pad>", "</s>", "<unk>"], [*MBART_LANGS, "<mask>"], "<mask>"
         elif flavor == "pegasus":
             head, tail, mask = list(PEGASUS_HEAD), [], "<mask_2>"
+        elif flavor == "xglm":
+            head, tail, mask = ["<s>", "<pad>", "</s>", "<unk>"], [f"<madeupword{i}>" for i in range(7)], ""
         else:
             head, tail, mask = ["<pad>", "<s>", "</s>", "<unk>", "[CLS]", "[SEP]", "[MASK]"], [], "[MASK]"
     rng = np.random.default_rng(seed)
@@ -2346,6 +2377,11 @@ def unigram_spec(words: list[str], size: int, seed: int, flavor: str = "xlm-robe
     elif flavor == "pegasus":
         template = suffix_template(["</s>"], ids)
         pre = {"type": "Sequence", "pretokenizers": [{"type": "WhitespaceSplit"}, pre]}
+    elif flavor == "xglm":
+        eos = {"SpecialToken": {"id": "</s>", "type_id": 0}}
+        a, b = ({"Sequence": {"id": x, "type_id": 0}} for x in ("A", "B"))
+        template = {"type": "TemplateProcessing", "single": [eos, a], "pair": [eos, a, eos, eos, b],
+                    "special_tokens": {t: {"id": t, "ids": [ids[t]], "tokens": [t]} for t in ("<s>", "</s>")}}
     else:
         template = _template("[CLS]", ids["[CLS]"], "[SEP]", ids["[SEP]"], double_sep=False)
     return {
@@ -2366,37 +2402,49 @@ def bpe_spec(words: list[str], size: int, flavor: str = "roberta") -> dict:
     ``blenderbot`` flavor is ``BlenderbotConverter``'s: ``<pad> <s> </s>
     <unk>`` first, a prefix space, and ``A </s>``; the ``gpt2`` flavor
     ``GPT2Converter``'s: no special token but ``<|endoftext|>`` last, and
-    the ``ByteLevel`` post-processor, which adds none."""
+    the ``ByteLevel`` post-processor, which adds none; the ``bloom`` flavor
+    BLOOM's file's: ``<unk> <s> </s> <pad>`` first, the capitalised words
+    built too (as far as ``size`` goes), nothing last, ``Split`` on
+    ``BLOOM_SPLIT`` (isolated) before ``ByteLevel`` without its own regex,
+    and the ``ByteLevel`` post-processor."""
     from lotus_tpu_torch.models.bpe import bytes_to_unicode
 
     heads = {"roberta": ("<s>", "<pad>", "</s>", "<unk>"), "blenderbot": ("<pad>", "<s>", "</s>", "<unk>"),
-             "gpt2": ()}
+             "gpt2": (), "bloom": ("<unk>", "<s>", "</s>", "<pad>")}
+    last = {"gpt2": "<|endoftext|>", "bloom": None}.get(flavor, "<mask>")
     vocab = {t: i for i, t in enumerate(heads[flavor])}
     for c in bytes_to_unicode().values():
         vocab.setdefault(c, len(vocab))
     merges = []
     forms = ["Ġ" + w for w in words] + list(words)
+    if flavor == "bloom":
+        forms += ["Ġ" + w.capitalize() for w in words] + [w.capitalize() for w in words]
     for form in forms:
         for k in range(1, len(form)):
-            if len(vocab) >= size - 1:
+            if len(vocab) >= size - (last is not None):
                 break
             if form[: k + 1] not in vocab:
                 merges.append([form[:k], form[k]])
                 vocab[form[: k + 1]] = len(vocab)
-    vocab["<|endoftext|>" if flavor == "gpt2" else "<mask>"] = len(vocab)
+    if last is not None:
+        vocab[last] = len(vocab)
     assert len(vocab) == size
     specials = [(t, vocab[t]) for t in ("<s>", "<pad>", "</s>", "<unk>", "<mask>", "<|endoftext|>") if t in vocab]
-    if flavor == "gpt2":
+    pre = {"type": "ByteLevel", "add_prefix_space": flavor == "blenderbot", "trim_offsets": True, "use_regex": True}
+    if flavor in ("gpt2", "bloom"):
         post = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False, "use_regex": True}
     elif flavor == "blenderbot":
         post = suffix_template(["</s>"], vocab)
     else:
         post = {"type": "RobertaProcessing", "sep": ["</s>", 2], "cls": ["<s>", 0], "trim_offsets": True,
                 "add_prefix_space": False}
+    if flavor == "bloom":
+        pre = {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": BLOOM_SPLIT}, "behavior": "Isolated", "invert": False},
+            {**pre, "use_regex": False}]}
     return {
         "version": "1.0", "added_tokens": _added(specials, lstrip="<mask>"), "normalizer": None,
-        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": flavor == "blenderbot", "trim_offsets": True,
-                          "use_regex": True},
+        "pre_tokenizer": pre,
         "post_processor": post,
         "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
                   "end_of_word_suffix": "", "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
@@ -2827,10 +2875,12 @@ LATE_MODELS = {
 BIGBIRD_BATCH = 16  # BigBird's max_batch_size at 4096 tokens
 
 
-def check_rm(dev, name: str, model_type: str, kw: dict, docs: list[str], width: int, tol: float = 1e-4) -> list[int]:
+def check_rm(dev, name: str, model_type: str, kw: dict, docs: list[str], width: int, tol: float = 1e-4,
+             min_cos: float = 0.99) -> list[int]:
     """``TorchSentenceEncoderRM(**kw)`` on the card against the CPU in f32
     (within ``tol``) and bf16 against f32 on the card (smallest cosine at
-    least 0.99) over ``docs``.  Returns the sequence buckets the docs took."""
+    least ``min_cos``) over ``docs``.  Returns the sequence buckets the docs
+    took."""
     import numpy as np
     import torch
 
@@ -2849,11 +2899,11 @@ def check_rm(dev, name: str, model_type: str, kw: dict, docs: list[str], width: 
                                                                  seq, "cpu")})
     say(f"  {name} ({model_type}, TorchSentenceEncoderRM, f32, buckets {buckets}): {got.shape} "
         f"embeddings on the card vs the CPU: max abs err {err!r} (tol {tol:g}) -> {'OK' if err <= tol else 'MISMATCH'}"
-        f"; bf16 on the card vs f32 on the card: smallest cosine {cos!r} (must reach 0.99); "
+        f"; bf16 on the card vs f32 on the card: smallest cosine {cos!r} (must reach {min_cos:g}); "
         f"{time.perf_counter() - t0:.2f} s [{GPU}]")
     assert got.shape == (len(docs), width) and bool(np.isfinite(got).all())
     assert err <= tol, f"{name}: the card's embeddings differ from the CPU's"
-    assert cos >= 0.99, f"{name}: bf16 embeddings drift from f32 (cosine {cos})"
+    assert cos >= min_cos, f"{name}: bf16 embeddings drift from f32 (cosine {cos})"
     return buckets
 
 
@@ -3386,11 +3436,21 @@ def decoder_tokenizer_files(words: list[str], kind: str, size: int) -> dict:
     """``tokenizer.json`` and ``tokenizer_config.json`` of a decoder's
     seeded tokenizer: GPT-2's byte-level BPE (``bpe_spec``'s ``gpt2``
     flavor, ``<|endoftext|>`` also the pad token, as embedders set it),
-    ``LlamaTokenizerFast``'s (pad ``</s>``, left padding by the class) or
-    ``GemmaTokenizerFast``'s (its own ``<pad>``)."""
+    ``LlamaTokenizerFast``'s (pad ``</s>``, left padding by the class),
+    ``GemmaTokenizerFast``'s (its own ``<pad>``), BLOOM's (``bpe_spec``'s
+    ``bloom`` flavor, ``<pad>``, left padding as its files say) or XGLM's
+    (``unigram_spec``'s ``xglm`` flavor, ``<pad>``)."""
     if kind == "gpt2":
         return {"tokenizer.json": bpe_spec(words, size, "gpt2"),
                 "tokenizer_config.json": {"tokenizer_class": "GPT2Tokenizer", "pad_token": "<|endoftext|>"}}
+    if kind == "bloom":
+        return {"tokenizer.json": bpe_spec(words, size, "bloom"),
+                "tokenizer_config.json": {"tokenizer_class": "BloomTokenizerFast", "pad_token": "<pad>",
+                                          "padding_side": "left", "add_prefix_space": False, "unk_token": "<unk>",
+                                          "bos_token": "<s>", "eos_token": "</s>"}}
+    if kind == "xglm":
+        return {"tokenizer.json": unigram_spec(words, size, 31, "xglm"),
+                "tokenizer_config.json": {"tokenizer_class": "XGLMTokenizer", "pad_token": "<pad>"}}
     if kind == "gemma":
         return {"tokenizer.json": sp_bpe_spec(words, size, "gemma"),
                 "tokenizer_config.json": {"tokenizer_class": "GemmaTokenizer", "pad_token": "<pad>",
@@ -3479,11 +3539,13 @@ def dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
 
 
-def decoders_check_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 16) -> None:
-    """Phase 30a: each decoder as an RM through its entry point on the card
-    and on the CPU in f32 (``n_docs`` docs of mixed length, 4 a batch, in
-    four sequence buckets): embeddings within 1e-5; bf16 against f32 on the
-    card: smallest cosine at least 0.99 (``check_rm``).  Then the same RM
+def decoders_check_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 16, models: dict | None = None,
+                         tol: float = 1e-5, min_cos: float = 0.99) -> None:
+    """Phase 30a (31a with ``models`` ALIBI_MODELS): each decoder as an RM
+    through its entry point on the card and on the CPU in f32 (``n_docs``
+    docs of mixed length, 4 a batch, in four sequence buckets): embeddings
+    within ``tol``; bf16 against f32 on the card: smallest cosine at least
+    ``min_cos`` (``check_rm``).  Then the same RM
     with its tokenizer read without a pad token (as GPT-2's, Llama-2's and
     Mistral's are published) must raise ``ValueError`` when it pads, as
     ``padding=True`` does in the reference."""
@@ -3495,10 +3557,10 @@ def decoders_check_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 16) ->
             for t in synth_texts(vocab, quarter, lo, hi, 300 + i)]
     docs = multilingual(docs, 305)  # characters the seeded vocabularies lack: byte fallback
     for name, d in dirs.items():
-        shape = DECODER_MODELS[name]
+        shape = (models or DECODER_MODELS)[name]
         kw = dict(model=d, max_batch_size=4, max_seq_length=512)
-        width = shape.get("hidden_size", shape.get("n_embd"))
-        check_rm(dev, name, shape["model_type"], kw, docs, width, tol=1e-5)
+        width = next(shape[k] for k in ("hidden_size", "n_embd", "n_embed", "d_model") if k in shape)
+        check_rm(dev, name, shape["model_type"], kw, docs, width, tol=tol, min_cos=min_cos)
         rm = TorchSentenceEncoderRM(device=dev, **kw)
         with open(os.path.join(d, "tokenizer.json"), encoding="utf-8") as f:
             spec = json.load(f)
@@ -3515,26 +3577,25 @@ def decoders_check_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 16) ->
         del rm
 
 
-def mistral_phase(dev, vocab: list[str], n: int = 4096, nq: int = 512, nlist: int = 8, layers: int = MISTRAL_LAYERS,
-                  root: str = DECODER_DIR) -> int:
-    """Phase 30b, Mistral-7B-v0.1 at full width and ``layers`` deep (32, its
-    own) in bf16: the checkpoint written on the card in bf16 as shards of at
-    most 5 GiB with ``model.safetensors.index.json`` (the free disk and host
-    memory printed first), loaded by ``TorchSentenceEncoderRM(dtype=bf16)``
-    tensor by tensor onto the card (seconds, the host's resident bytes
-    before and at their peak during the load); ``n`` of
-    config 2's docs (8-48 words, drawn from the words the seeded 32,000-piece
-    vocabulary holds whole) at max_batch_size 64 and max_seq_length 512,
-    left-padded by the seeded ``LlamaTokenizerFast`` layout, into an
-    int8 IVF store (nlist 8, block-aligned: K1) through ``ivf_text_store``:
-    recall@5 at least 0.95 over ``nq`` queries, K1 held to its plain version
-    on the call's own inputs.  The checkpoint is deleted after.  Returns K1's
-    launches."""
+def sharded_decoder_phase(dev, vocab: list[str], name: str, shape: dict, *, seed: int, doc_seed: int,
+                          marker: str, tokenizer_label: str, n: int, nq: int, nlist: int, root: str) -> int:
+    """A decoder checkpoint of ``shape`` at full width and depth in bf16: the
+    checkpoint written on the card in bf16 as shards of at most 5 GiB with
+    ``model.safetensors.index.json`` (the free disk and host memory printed
+    first), loaded by ``TorchSentenceEncoderRM(dtype=bf16)`` tensor by tensor
+    onto the card (seconds, the host's resident bytes before and at their
+    peak during the load); ``n`` of config 2's docs (8-48 words, drawn from
+    the words the seeded vocabulary holds whole: ``marker`` + the word is a
+    piece) at max_batch_size 64 and max_seq_length 512, left-padded, into an
+    int8 IVF store (nlist ``nlist``, block-aligned: K1) through
+    ``ivf_text_store``: recall@5 at least 0.95 over ``nq`` queries, K1 held
+    to its plain version on the call's own inputs.  The checkpoint is
+    deleted after.  Returns K1's launches."""
     import torch
 
     from lotus_tpu_torch.models import TorchSentenceEncoderRM
 
-    path = os.path.join(root, "Mistral-7B-v0.1")
+    path = os.path.join(root, name)
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
     disk = shutil.disk_usage(path)
@@ -3543,14 +3604,14 @@ def mistral_phase(dev, vocab: list[str], n: int = 4096, nq: int = 512, nlist: in
     say(f"  before the checkpoint: disk free {disk.free / 1e9:.1f} GB of {disk.total / 1e9:.1f}; host memory "
         f"available {mem['MemAvailable'] / 1e9:.1f} GB of {mem['MemTotal'] / 1e9:.1f}; card free "
         f"{torch.cuda.mem_get_info()[0] / 1e9:.1f} GB")
-    shape = dict(DECODER_MODELS["Mistral-7B-v0.1"], num_hidden_layers=layers)
     need = 2 * param_count(shape)
     assert disk.free > 2 * need, f"{disk.free / 1e9:.1f} GB of free disk for a {need / 1e9:.1f} GB checkpoint"
     words = [w for w in vocab if w.isalpha() and not w.startswith("[")]
+    layers = next(shape[k] for k in ("num_hidden_layers", "n_layer") if k in shape)
     t0 = time.perf_counter()
-    written = write_decoder(path, shape, words, dev, seed=60, shard_bytes=SHARD_BYTES)
+    written = write_decoder(path, shape, words, dev, seed=seed, shard_bytes=SHARD_BYTES)
     shards = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
-    say(f"  Mistral-7B-v0.1 ({layers} layers, {written:,} parameters) written in bf16 in "
+    say(f"  {name} ({layers} layers, {written:,} parameters) written in bf16 in "
         f"{time.perf_counter() - t0:.2f} s: {dir_bytes(path) / 1e9:.3f} GB in {len(shards)} shards {shards} + "
         f"model.safetensors.index.json")
     torch.cuda.empty_cache()
@@ -3567,30 +3628,42 @@ def mistral_phase(dev, vocab: list[str], n: int = 4096, nq: int = 512, nlist: in
         f"card allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB (peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}); "
         f"host resident {rss0 / 1e9:.3f} GB before the load, its peak during the load {rss1 / 1e9:.3f} GB [{GPU}]")
-    assert dtypes == {torch.bfloat16} and params == written and len(shards) > 1, "Mistral-7B did not load whole in bf16"
+    assert dtypes == {torch.bfloat16} and params == written and len(shards) > 1, f"{name} did not load whole in bf16"
     assert rm.tokenizer.padding_side == "left"
     k = 5
     t0 = time.perf_counter()
     with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
         pieces = json.load(f)["model"]["vocab"]
-    whole = [w for w in words if "▁" + w in pieces]  # a 32,000-piece vocabulary holds these words whole
-    right = synth_texts(whole, n, 8, 48, 311, per_topic=k)
-    left = synth_texts(whole, n, 8, 48, 310, per_topic=k)[:nq]
+    whole = [w for w in words if marker + w in pieces]  # the seeded vocabulary holds these words whole
+    right = synth_texts(whole, n, 8, 48, doc_seed + 1, per_topic=k)
+    left = synth_texts(whole, n, 8, 48, doc_seed, per_topic=k)[:nq]
     say(f"  {n:,} docs + {nq:,} queries of 8-48 words, drawn from the {len(whole):,} words the seeded vocabulary "
         f"holds whole (as a real one holds common words), made in {time.perf_counter() - t0:.2f} s")
     right_emb, fig = encode_split(rm, right)
-    print_split(f"Mistral-7B-v0.1 ({layers} layers) bf16, max_batch_size {CONFIG2_BATCH}", n, fig, BF16_OPS_PER_S,
+    print_split(f"{name} ({layers} layers) bf16, max_batch_size {CONFIG2_BATCH}", n, fig, BF16_OPS_PER_S,
                 "989 TFLOP/s bf16")
-    print_tokenizer("sentencepiece BPE (byte fallback)", right, fig)
+    print_tokenizer(tokenizer_label, right, fig)
     left_emb = rm(left)
     say(f"    card peak during the ingest {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    width = rm.encoder.config.hidden_size
     del rm
     torch.cuda.empty_cache()
-    launches, _, index_dir = ivf_text_store(dev, "Mistral-7B", right, right_emb, left_emb, k, nlist,
-                                            shape["hidden_size"])
+    launches, _, index_dir = ivf_text_store(dev, name, right, right_emb, left_emb, k, nlist, width)
     shutil.rmtree(index_dir, ignore_errors=True)
     shutil.rmtree(path, ignore_errors=True)
     return launches
+
+
+def mistral_phase(dev, vocab: list[str], n: int = 4096, nq: int = 512, nlist: int = 8, layers: int = MISTRAL_LAYERS,
+                  root: str = DECODER_DIR) -> int:
+    """Phase 30b, Mistral-7B-v0.1 at full width and ``layers`` deep (32, its
+    own) in bf16 through ``sharded_decoder_phase``, its docs drawn from the
+    words the seeded 32,000-piece vocabulary holds whole, left-padded by the
+    seeded ``LlamaTokenizerFast`` layout.  Returns K1's launches."""
+    return sharded_decoder_phase(dev, vocab, "Mistral-7B-v0.1",
+                                 dict(DECODER_MODELS["Mistral-7B-v0.1"], num_hidden_layers=layers), seed=60,
+                                 doc_seed=310, marker="▁", tokenizer_label="sentencepiece BPE (byte fallback)", n=n,
+                                 nq=nq, nlist=nlist, root=root)
 
 
 def gpt2_phase(dev, vocab: list[str], n: int = 4096, nq: int = 256, layers: int = GPT2_LAYERS,
@@ -3658,9 +3731,112 @@ def decoder_phases(dev, vocab: list[str]) -> tuple[int, int]:
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: BLOOM and XGLM, from text
+# ---------------------------------------------------------------------------
+
+ALIBI_DIR = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_alibi")
+# Each model's published config.json (bigscience/bloom-560m, bigscience/bloom-7b1
+# with its n_embed and num_attention_heads, facebook/xglm-564M, facebook/xglm-7.5B),
+# CHECK_DEPTH layers deep in 31a, with seeded weights written in bf16.
+ALIBI_MODELS = {
+    "bloom-560m": dict(model_type="bloom", hidden_size=1024, n_layer=CHECK_DEPTH, n_head=16, vocab_size=250_880,
+                       layer_norm_epsilon=1e-5, apply_residual_connection_post_layernorm=False, tokenizer="bloom"),
+    "bloom-7b1": dict(model_type="bloom", n_embed=4096, n_layer=CHECK_DEPTH, num_attention_heads=32,
+                      vocab_size=250_880, layer_norm_epsilon=1e-5, apply_residual_connection_post_layernorm=False,
+                      tokenizer="bloom"),
+    "xglm-564M": dict(model_type="xglm", d_model=1024, num_layers=CHECK_DEPTH, attention_heads=16, ffn_dim=4096,
+                      vocab_size=256_008, max_position_embeddings=2048, scale_embedding=True,
+                      activation_function="gelu", tokenizer="xglm"),
+    "xglm-7.5B": dict(model_type="xglm", d_model=4096, num_layers=CHECK_DEPTH, attention_heads=32, ffn_dim=16_384,
+                      vocab_size=256_008, max_position_embeddings=2048, scale_embedding=True,
+                      activation_function="gelu", tokenizer="xglm"),
+}
+BLOOM_LAYERS = 30  # bloom-7b1's depth, phase 31b's
+XGLM_LAYERS = 24  # xglm-564M's depth, phase 31c's
+
+
+def bloom_phase(dev, vocab: list[str], n: int = 4096, nq: int = 512, nlist: int = 8, layers: int = BLOOM_LAYERS,
+                root: str = ALIBI_DIR) -> int:
+    """Phase 31b, BLOOM-7b1 at full width and ``layers`` deep (30, its own)
+    in bf16 through ``sharded_decoder_phase``, its docs drawn from the words
+    the seeded 250,880-token byte-level BPE holds whole (``Ġ`` + the word),
+    left-padded as BLOOM's files say.  Returns K1's launches."""
+    return sharded_decoder_phase(dev, vocab, "bloom-7b1", dict(ALIBI_MODELS["bloom-7b1"], n_layer=layers), seed=70,
+                                 doc_seed=320, marker="Ġ", tokenizer_label="byte-level BPE behind a Regex Split",
+                                 n=n, nq=nq, nlist=nlist, root=root)
+
+
+def xglm_phase(dev, vocab: list[str], n: int = 4096, nq: int = 256, layers: int = XGLM_LAYERS,
+               root: str = ALIBI_DIR) -> int:
+    """Phase 31c, XGLM at xglm-564M's widths and depth (``layers``, 24) in
+    bf16: ``n`` of config 1's passages (150-300 words, the 512-token bucket)
+    into a Flat store through ``flat_text_store`` (recall@10 1.0 through
+    ids, at least 0.98 through K2 at d 1024, K2 held to its plain version
+    on the call's own inputs and timed beside its bound).  Returns K2's
+    launches."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+
+    path = os.path.join(root, "xglm-564M")
+    shutil.rmtree(path, ignore_errors=True)
+    words = [w for w in vocab if w.isalpha() and not w.startswith("[")]
+    written = write_decoder(path, dict(ALIBI_MODELS["xglm-564M"], num_layers=layers), words, dev, seed=71)
+    t0 = time.perf_counter()
+    passages = synth_texts(vocab, n, 150, 300, 53, per_topic=K)
+    queries = [" ".join(np.random.default_rng(54 + i).choice(passages[j].split()[:40], 12))
+               for i, j in enumerate(np.random.default_rng(55).integers(0, n, nq))]
+    say(f"  xglm-564M ({layers} layers, {written:,} parameters); {n:,} passages of 150-300 words, {nq} queries of 12 "
+        f"words from a passage's first 40; made in {time.perf_counter() - t0:.2f} s")
+    rm = TorchSentenceEncoderRM(model=path, max_batch_size=CONFIG2_BATCH, max_seq_length=512, dtype=torch.bfloat16,
+                                device=dev)
+    emb, fig = encode_split(rm, passages)
+    print_split(f"xglm-564M bf16, max_batch_size {CONFIG2_BATCH}", n, fig, BF16_OPS_PER_S, "989 TFLOP/s bf16")
+    print_tokenizer("Unigram + charsmap", passages, fig)
+    launches, _ = flat_text_store(dev, "XGLM", rm, passages, emb, queries, 100, ALIBI_MODELS["xglm-564M"]["d_model"])
+    shutil.rmtree(path, ignore_errors=True)
+    return launches
+
+
+def alibi_phases(dev, vocab: list[str]) -> tuple[int, int]:
+    """Phase 31: BLOOM and XGLM at published widths 2 layers deep, card
+    against CPU; BLOOM-7b1 at full width and depth through K1; XGLM-564M
+    through K2; the files deleted.  Returns K1's and K2's launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with Phase("BLOOM and XGLM at published widths, 2 layers (seeded weights): card against CPU, bf16 against f32, "
+               "no pad token"):
+        t0 = time.perf_counter()
+        shutil.rmtree(ALIBI_DIR, ignore_errors=True)
+        words = [w for w in vocab if w.isalpha() and not w.startswith("[")]
+        dirs = {}
+        for i, (name, shape) in enumerate(ALIBI_MODELS.items()):
+            dirs[name] = os.path.join(ALIBI_DIR, name)
+            write_decoder(dirs[name], shape, words, dev, seed=65 + i)
+        say(f"  {len(dirs)} checkpoints ({dir_bytes(ALIBI_DIR) / 1e9:.3f} GB: bf16 model.safetensors, config.json, "
+            f"tokenizer files) written in {time.perf_counter() - t0:.2f} s under {os.path.relpath(ALIBI_DIR, REPO)}")
+        decoders_check_phase(dev, vocab, dirs, models=ALIBI_MODELS, tol=2e-6, min_cos=0.999)
+        shutil.rmtree(ALIBI_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    with Phase("BLOOM-7b1 at full width and depth in bf16 from a sharded checkpoint: IVF int8, K1"):
+        k1 = bloom_phase(dev, vocab)
+    torch.cuda.empty_cache()
+    with Phase("XGLM (xglm-564M) in bf16 from text: Flat, K2 at d 1024"):
+        k2 = xglm_phase(dev, vocab)
+    shutil.rmtree(ALIBI_DIR, ignore_errors=True)
+    say(f"  phase 31: {time.perf_counter() - t_phase:.1f} s wall; card peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{GPU}]")
+    return k1, k2
+
+
 def text_phases(dev) -> tuple[int, int, int, tuple]:
-    """Phases 23-30 (the models, configs 1-2 from text, profiling, the
-    families past BERT, the encoder-decoders, the decoders).  Returns K1's and K2's launches on their main
+    """Phases 23-31 (the models, configs 1-2 from text, profiling, the
+    families past BERT, the encoder-decoders, the decoders, BLOOM and
+    XGLM).  Returns K1's and K2's launches on their main
     paths, phase 27's K2 launches and K2's figures at d 1024."""
     with Phase("models at published widths (seeded weights): card against CPU, bf16 against f32"):
         t0 = time.perf_counter()
@@ -3683,8 +3859,10 @@ def text_phases(dev) -> tuple[int, int, int, tuple]:
     late_k1, late_k2 = late_phases(dev, vocab)
     s2s_k1, s2s_k2 = seq2seq_phases(dev, vocab)
     dec_k1, dec_k2 = decoder_phases(dev, vocab)
+    alibi_k1, alibi_k2 = alibi_phases(dev, vocab)
     shutil.rmtree(TEXT_INDEX_DIR, ignore_errors=True)
-    return k1 + fam_k1 + late_k1 + s2s_k1 + dec_k1, k2 + fam_k2 + late_k2 + s2s_k2 + dec_k2, fam_k2, k2_d1024
+    return (k1 + fam_k1 + late_k1 + s2s_k1 + dec_k1 + alibi_k1, k2 + fam_k2 + late_k2 + s2s_k2 + dec_k2 + alibi_k2,
+            fam_k2, k2_d1024)
 
 
 def config4_paths(dev) -> dict:

@@ -3,10 +3,11 @@ FlaxAutoModel loads that the port runs (BERT, RoBERTa, XLM-RoBERTa,
 DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird, RoBERTa-PreLayerNorm) and
 its encoder-decoder families (BART and mBART, also as rerankers; Pegasus,
 Blenderbot and Blenderbot-Small as RMs) and its decoder-only families
-(GPT-2, GPT-Neo, GPT-J, Llama, Mistral and Gemma as RMs) in PyTorch, with
-their own tokenizers (WordPiece, byte-level BPE, Unigram and sentencepiece
-BPE with byte fallback, read from ``tokenizer.json`` or the older vocab
-files, and Blenderbot-Small's slow BPE) and checkpoint readers
+(GPT-2, GPT-Neo, GPT-J, Llama, Mistral, Gemma, BLOOM and XGLM as RMs) in
+PyTorch, with their own tokenizers (WordPiece, byte-level BPE, Unigram and
+sentencepiece BPE with byte fallback, read from ``tokenizer.json`` or the
+older vocab files, its regular expressions read as Oniguruma reads them,
+and Blenderbot-Small's slow BPE) and checkpoint readers
 (safetensors, ``pytorch_model.bin``, either sharded, and Flax msgpack), so
 no ``transformers``, ``tokenizers``, ``safetensors`` or ``msgpack`` is
 needed."""
@@ -19,6 +20,7 @@ from lotus_tpu_torch.models.big_bird import BigBirdConfig, BigBirdForSequenceCla
 from lotus_tpu_torch.models.blenderbot import BlenderbotConfig
 from lotus_tpu_torch.models.blenderbot_small import BlenderbotSmallConfig, BlenderbotSmallModel
 from lotus_tpu_torch.models.blenderbot_small_tokenizer import BlenderbotSmallTokenizer
+from lotus_tpu_torch.models.bloom import BloomConfig, BloomModel
 from lotus_tpu_torch.models.checkpoint import (
     FAMILIES, encoder_config, fit_state_dict, from_flax_params, load_state_dict, read_safetensors,
 )
@@ -44,12 +46,14 @@ from lotus_tpu_torch.models.tokenizer_json import JsonTokenizer
 from lotus_tpu_torch.models.torch_reranker import TorchCrossEncoderReranker
 from lotus_tpu_torch.models.torch_rm import TorchSentenceEncoderRM
 from lotus_tpu_torch.models.wordpiece import WordPieceTokenizer
+from lotus_tpu_torch.models.xglm import XGLMConfig, XGLMModel
 
 __all__ = [
     "FAMILIES", "RM", "AlbertConfig", "AlbertForSequenceClassification", "AlbertModel", "BartConfig",
     "BartForSequenceClassification", "BartModel", "BertConfig", "BertForSequenceClassification", "BertModel",
     "BigBirdConfig", "BigBirdForSequenceClassification", "BigBirdModel", "BlenderbotConfig", "BlenderbotSmallConfig",
-    "BlenderbotSmallModel", "BlenderbotSmallTokenizer", "DistilBertConfig", "DistilBertForSequenceClassification",
+    "BlenderbotSmallModel", "BlenderbotSmallTokenizer", "BloomConfig", "BloomModel", "DistilBertConfig",
+    "DistilBertForSequenceClassification",
     "DistilBertModel", "ElectraConfig", "ElectraForSequenceClassification", "ElectraModel", "EncoderConfig",
     "GPT2Config", "GPT2Model", "GPTJConfig", "GPTJModel", "GPTNeoConfig", "GPTNeoModel", "GemmaConfig",
     "JsonTokenizer", "LlamaConfig", "LlamaModel", "MBartConfig", "MBartForSequenceClassification", "MBartModel",
@@ -57,6 +61,7 @@ __all__ = [
     "Reranker", "RoFormerConfig", "RoFormerForSequenceClassification", "RoFormerModel", "RobertaConfig",
     "RobertaForSequenceClassification", "RobertaModel", "RobertaPreLayerNormConfig",
     "RobertaPreLayerNormForSequenceClassification", "RobertaPreLayerNormModel", "TorchCrossEncoderReranker",
-    "TorchSentenceEncoderRM", "WordPieceTokenizer", "as_query_matrix", "encoder_config", "fit_state_dict",
-    "from_flax_params", "load_encoder", "load_state_dict", "load_tokenizer", "read_flax_msgpack", "read_safetensors",
+    "TorchSentenceEncoderRM", "WordPieceTokenizer", "XGLMConfig", "XGLMModel", "as_query_matrix", "encoder_config",
+    "fit_state_dict", "from_flax_params", "load_encoder", "load_state_dict", "load_tokenizer", "read_flax_msgpack",
+    "read_safetensors",
 ]

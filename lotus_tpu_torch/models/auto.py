@@ -6,12 +6,12 @@ local checkpoint directory.
 families in ``checkpoint.FAMILIES`` (bert, roberta, xlm-roberta,
 distilbert, electra, albert, roformer, big_bird, roberta-prelayernorm;
 bart and mbart, also as sequence classifiers; pegasus, blenderbot,
-blenderbot-small and the decoders gpt2, gpt_neo, gptj, llama, mistral and
-gemma as encoders only, where a classifier raises ``ValueError`` as the
-reference's auto class does); any other type raises
+blenderbot-small and the decoders gpt2, gpt_neo, gptj, llama, mistral,
+gemma, bloom and xglm as encoders only, where a classifier raises
+``ValueError`` as the reference's auto class does); any other type raises
 ``NotImplementedError`` naming it: of the types ``FlaxAutoModel`` maps,
-marian and gpt-sw3 (whose tokenizers are sentencepiece's slow ones), bloom,
-xglm, t5 and its kin, and the vision and audio models.  It places each
+marian and gpt-sw3 (whose tokenizers are sentencepiece's slow ones), t5 and
+its kin, and the vision and audio models.  It places each
 tensor on the target device as it is read, and casts the model there: a 7B
 checkpoint never sits whole on the host.
 ``load_tokenizer`` builds the class ``AutoTokenizer`` would

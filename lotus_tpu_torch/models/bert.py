@@ -44,16 +44,23 @@ class EncoderConfig:
     """What every family's config shares: it is read from ``config.json``,
     whose ``model_type`` must be one of ``model_types`` and whose activation
     (under ``activation_key``) one of ``ACTIVATIONS``; the dataclass fields
-    are read under their own names, and ``num_labels`` from ``id2label`` (or
-    ``num_labels``, else the family's default)."""
+    are read under their own names, or under the names ``aliases`` maps to
+    them (``transformers``' ``attribute_map``; the alias wins where both are
+    set), and ``num_labels`` from ``id2label`` (or ``num_labels``, else the
+    family's default)."""
 
     model_types: ClassVar[tuple[str, ...]] = ()
     activation_key: ClassVar[str] = "hidden_act"
+    aliases: ClassVar[dict[str, str]] = {}
 
     @classmethod
     def from_dict(cls, cfg: dict):
         """Read a ``config.json``; another model type, an activation outside
         ``ACTIVATIONS`` or relative positions raise ``NotImplementedError``."""
+        cfg = dict(cfg)
+        for alias, name in cls.aliases.items():
+            if cfg.get(alias) is not None:
+                cfg[name] = cfg.pop(alias)
         model_type = cfg.get("model_type", cls.model_types[0])
         if model_type not in cls.model_types:
             raise NotImplementedError(f"model_type {model_type!r}: {cls.__name__} reads {', '.join(cls.model_types)}")

@@ -15,8 +15,8 @@ Flax raises ``NotImplementedError``; the port reads them.  ``FAMILIES`` maps eac
 loads any of the three by name, with or without the family's prefix
 (``bert.``, ``roberta.``, ``distilbert.``, ``electra.``, ``albert.``,
 ``roformer.``, ``roberta_prelayernorm.``; BigBird's is ``bert.``, the
-encoder-decoders' and Llama's, Mistral's and Gemma's ``model.``, GPT-2's,
-GPT-Neo's and GPT-J's ``transformer.``), and drops the heads the module has no place
+encoder-decoders' and Llama's, Mistral's, Gemma's and XGLM's ``model.``,
+GPT-2's, GPT-Neo's, GPT-J's and BLOOM's ``transformer.``), and drops the heads the module has no place
 for (a pretraining head, as most public Flax files carry: ``lm_head``,
 ``cls``, ``discriminator_predictions``, ALBERT's ``predictions`` and
 ``sop_classifier``; a ``*ForConditionalGeneration``'s ``lm_head`` and
@@ -29,7 +29,9 @@ Flax names are the same modulo ``flax_state_dict``'s renames (ALBERT's
 shared ``encoder.albert_layer_groups.<g>.albert_layers.<j>`` and
 RoBERTa-PreLayerNorm's top-level ``LayerNorm`` included); RoFormer's
 ``encoder.embed_positions.weight``, which only torch files carry, is held to
-the computed sinusoid table and not loaded, and so are Pegasus's two.
+the computed sinusoid table and not loaded, and so are Pegasus's two;
+XGLM's ``embed_positions.weights``, which older torch files carry, is
+ignored (Flax computes the table, ``xglm.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from lotus_tpu_torch.models.bert import BertConfig, BertForSequenceClassificatio
 from lotus_tpu_torch.models.big_bird import BigBirdConfig, BigBirdForSequenceClassification, BigBirdModel
 from lotus_tpu_torch.models.blenderbot import BlenderbotConfig
 from lotus_tpu_torch.models.blenderbot_small import BlenderbotSmallConfig, BlenderbotSmallModel
+from lotus_tpu_torch.models.bloom import BloomConfig, BloomModel
 from lotus_tpu_torch.models.distilbert import DistilBertConfig, DistilBertForSequenceClassification, DistilBertModel
 from lotus_tpu_torch.models.electra import ElectraConfig, ElectraForSequenceClassification, ElectraModel
 from lotus_tpu_torch.models.gemma import GemmaConfig
@@ -66,6 +69,7 @@ from lotus_tpu_torch.models.roberta_prelayernorm import (
     RobertaPreLayerNormConfig, RobertaPreLayerNormForSequenceClassification, RobertaPreLayerNormModel,
 )
 from lotus_tpu_torch.models.roformer import RoFormerConfig, RoFormerForSequenceClassification, RoFormerModel
+from lotus_tpu_torch.models.xglm import XGLMConfig, XGLMModel
 
 SAFETENSORS_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
                       "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
@@ -99,10 +103,12 @@ FAMILIES: dict[str, tuple[type[EncoderConfig], type[nn.Module], type[nn.Module] 
     "llama": (LlamaConfig, LlamaModel, None),
     "mistral": (MistralConfig, LlamaModel, None),
     "gemma": (GemmaConfig, LlamaModel, None),
+    "bloom": (BloomConfig, BloomModel, None),
+    "xglm": (XGLMConfig, XGLMModel, None),
 }
 # What FlaxAutoModel maps that the port refuses, named in the refusal.
-REFUSED = ("marian (its tokenizer is sentencepiece's slow one)", "gpt-sw3 (the same)", "bloom", "xglm",
-           "t5 and its kin (mt5, longt5)", "the vision and audio types")
+REFUSED = ("marian (its tokenizer is sentencepiece's slow one)", "gpt-sw3 (the same)", "t5 and its kin (mt5, longt5)",
+           "the vision and audio types")
 # The encoders that carry a pooler unless told not to.
 _POOLED = (BertModel, RobertaModel, AlbertModel, BigBirdModel, RobertaPreLayerNormModel)
 

@@ -11,14 +11,14 @@ One text goes through, in order:
    tokens are split out of them;
 2. the normalizer: ``Sequence``, ``BertNormalizer``, ``NFC`` / ``NFD`` /
    ``NFKC`` / ``NFKD``, ``Lowercase``, ``Strip``, ``StripAccents``,
-   ``Replace`` (a string or a ``Regex``), ``Prepend`` (Llama's and
-   Mistral's ``▁`` before a non-empty piece) and ``Precompiled``
-   (``charsmap.py``);
+   ``Replace`` (a string, or a ``Regex`` read as Oniguruma reads it,
+   ``oniguruma.py``), ``Prepend`` (Llama's and Mistral's ``▁`` before a
+   non-empty piece) and ``Precompiled`` (``charsmap.py``);
 3. the pre-tokenizer: ``Sequence``, ``BertPreTokenizer``, ``ByteLevel``
    (``bpe.py``), ``Metaspace`` (``prepend_scheme`` ``always`` / ``first`` /
    ``never``, or the older ``add_prefix_space``), ``WhitespaceSplit`` and
-   ``Split`` on a string, merged with the previous piece (Gemma's; a
-   ``Regex`` pattern, as bloom's, is refused);
+   ``Split``: on a string, merged with the previous piece (Gemma's), or on
+   a ``Regex`` (``oniguruma.py``), each match isolated (BLOOM's);
 4. the model, on each word, memoised below 256 characters (a sentencepiece
    BPE without a pre-tokenizer takes each piece whole): ``WordPiece``
    (``wordpiece.py``'s), ``BPE`` (``bpe.py``, with byte fallback) or
@@ -32,7 +32,9 @@ Any other component raises ``NotImplementedError`` naming it.  What
 ``transformers`` changes at load time from ``tokenizer_config.json`` is
 applied too: ``do_lower_case``, ``strip_accents`` and
 ``tokenize_chinese_chars`` on a ``BertNormalizer``, ``add_prefix_space`` on
-a ``ByteLevel`` pre-tokenizer.  Padding uses the tokenizer's own
+a ``ByteLevel`` pre-tokenizer (``BloomTokenizerFast`` sets a true one on
+every ``ByteLevel`` inside its ``Sequence``,
+``tokenization_bloom_fast.py:113-122``).  Padding uses the tokenizer's own
 ``pad_token`` (1 for RoBERTa and XLM-R), on the side ``padding_side``
 names: ``tokenizer_config.json``'s, else the direction of
 ``tokenizer.json``'s ``padding``, else the class's (left for
@@ -86,6 +88,7 @@ import numpy as np
 
 from lotus_tpu_torch.models.bpe import BPE, WHITE_SPACE, byte_level_words, read_merges
 from lotus_tpu_torch.models.charsmap import Charsmap
+from lotus_tpu_torch.models.oniguruma import translate
 from lotus_tpu_torch.models.unigram import Unigram
 from lotus_tpu_torch.models.wordpiece import bert_normalize, lowercase, split_punctuation, wordpiece
 
@@ -108,7 +111,7 @@ def _replace(spec: dict) -> Callable[[str], str]:
     pattern, content = spec["pattern"], spec["content"]
     if "String" in pattern:
         return lambda text: text.replace(pattern["String"], content)
-    regex = re.compile(pattern["Regex"])
+    regex = re.compile(translate(pattern["Regex"]))
     return lambda text: regex.sub(lambda _: content, text)
 
 
@@ -211,16 +214,36 @@ def _metaspace(spec: dict) -> Callable[[Piece], list[Piece]]:
     return split
 
 
+def _isolated(regex: re.Pattern, piece: Piece) -> list[Piece]:
+    """``piece`` cut at each match of ``regex``: the text between matches
+    and each match, each its own piece (``Isolated``)."""
+    text, at_start = piece
+    cuts: list[tuple[int, int]] = []
+    done = 0
+    for m in regex.finditer(text):
+        if done < m.start():
+            cuts.append((done, m.start()))
+        cuts.append(m.span())
+        done = m.end()
+    if done < len(text):
+        cuts.append((done, len(text)))
+    return [(text[a:b], at_start and a == 0) for a, b in cuts]
+
+
 def _split(spec: dict) -> Callable[[Piece], list[Piece]]:
-    """``Split`` on a string, each match joined to the piece before it
+    """``Split`` on a ``Regex`` with each match ``Isolated`` (BLOOM's), or on
+    a string with each match joined to the piece before it
     (``MergedWithPrevious``, Gemma's): a match with no piece before it, or
     right after another match, stands alone, as in the ``tokenizers``
     library."""
     pattern = spec["pattern"]
+    if "Regex" in pattern and spec["behavior"] == "Isolated" and not spec.get("invert"):
+        return partial(_isolated, re.compile(translate(pattern["Regex"])))
     if "String" not in pattern or spec["behavior"] != "MergedWithPrevious" or spec.get("invert"):
         raise NotImplementedError(f"pre-tokenizer Split {pattern!r} {spec['behavior']} (invert "
-                                  f"{spec.get('invert', False)}): the port reads Split on a string, MergedWithPrevious, "
-                                  f"not inverted (Gemma's); a Regex pattern (bloom's) waits for its reader")
+                                  f"{spec.get('invert', False)}): the port reads Split on a string, "
+                                  f"MergedWithPrevious, not inverted (Gemma's), and Split on a Regex, Isolated, not "
+                                  f"inverted (BLOOM's)")
     needle = pattern["String"]
 
     def split(piece: Piece) -> list[Piece]:
@@ -332,6 +355,16 @@ def post_processor(spec: dict | None) -> tuple[Template, Template]:
                               f"TemplateProcessing and ByteLevel")
 
 
+def _prefix_space_on(spec):
+    """``spec`` with every ``"add_prefix_space": false`` in it made true, as
+    ``BloomTokenizerFast`` rewrites its pickled pre-tokenizer."""
+    if isinstance(spec, list):
+        return [_prefix_space_on(s) for s in spec]
+    if not isinstance(spec, dict):
+        return spec
+    return {k: True if k == "add_prefix_space" and v is False else _prefix_space_on(v) for k, v in spec.items()}
+
+
 def _added(template: Template) -> int:
     return sum(len(part) for part, _ in template if not isinstance(part, str))
 
@@ -414,19 +447,21 @@ class JsonTokenizer:
         self.raw_tokens = AddedTokens([t for t in added if not t.get("normalized", False)])
         self.norm_tokens = AddedTokens([t for t in added if t.get("normalized", False)])
         norm, pre = spec.get("normalizer"), spec.get("pre_tokenizer")
+        cls = str(config.get("tokenizer_class", "")).removesuffix("Fast")
         if norm is not None and norm["type"] == "BertNormalizer":  # as BertTokenizerFast.__init__ does
             keys = {"do_lower_case": "lowercase", "strip_accents": "strip_accents",
                     "tokenize_chinese_chars": "handle_chinese_chars"}
             norm = {**norm, **{v: config[k] for k, v in keys.items() if k in config}}
         if pre is not None and pre["type"] == "ByteLevel" and "add_prefix_space" in config:  # RobertaTokenizerFast
             pre = {**pre, "add_prefix_space": config["add_prefix_space"]}
+        elif pre is not None and cls == "BloomTokenizer" and config.get("add_prefix_space"):
+            pre = _prefix_space_on(pre)
         self._normalize = normalizer(norm) or (lambda text: text)
         self.pre_tokenize = pre_tokenizer(pre)
         self.model, vocab = model(spec["model"])
         self._cut = None if pre is None else CHUNK_LOCAL.get(pre["type"])
         self.vocab = {**vocab, **{t["content"]: t["id"] for t in added}}
         self.single, self.pair = post_processor(spec.get("post_processor"))
-        cls = str(config.get("tokenizer_class", "")).removesuffix("Fast")
         unk = self.vocab.get(special_token(config.get("unk_token", "<unk>")))
 
         def token_id(key: str, default: str) -> int | None:  # as convert_tokens_to_ids: the unknown token's if missing
@@ -621,7 +656,7 @@ JIEBA_TOKENIZERS = ("RoFormerTokenizer", "RoFormerTokenizerFast")
 # The class AutoTokenizer builds for a model type when no file names one
 # (TOKENIZER_MAPPING_NAMES), for the types whose class changes what the port
 # reads.
-TYPE_TOKENIZERS = {"roformer": "RoFormerTokenizer", "mbart": "MBartTokenizer",
+TYPE_TOKENIZERS = {"roformer": "RoFormerTokenizer", "mbart": "MBartTokenizer", "bloom": "BloomTokenizer",
                    "blenderbot-small": "BlenderbotSmallTokenizer", "llama": "LlamaTokenizer",
                    "mistral": "LlamaTokenizer", "gemma": "GemmaTokenizer"}
 

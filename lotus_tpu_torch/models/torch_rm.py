@@ -1,7 +1,8 @@
 """Sentence-embedding RM on the card: an encoder (BERT, RoBERTa, XLM-R,
 DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird or RoBERTa-PreLayerNorm), an
 encoder-decoder (BART, mBART, Pegasus, Blenderbot or Blenderbot-Small) or a
-decoder (GPT-2, GPT-Neo, GPT-J, Llama, Mistral or Gemma) in PyTorch.
+decoder (GPT-2, GPT-Neo, GPT-J, Llama, Mistral, Gemma, BLOOM or XGLM) in
+PyTorch.
 
 The port of ``JaxSentenceEncoderRM`` (``lotus_tpu/models/flax_rm.py:32-127``),
 which fills the role of the reference's ``SentenceTransformersRM``.  It
@@ -13,7 +14,8 @@ encoder-decoders and decoders have none).  An encoder-decoder's hidden
 states are its decoder's, run on the shifted ids (``bart.py``); a decoder's
 are its causal states at positions ``arange(seq)`` whatever the padding,
 which Llama's and Gemma's tokenizers put on the left (so ``[CLS]`` pooling
-takes a padded row's first pad, as in the reference).  A tokenizer without
+takes a padded row's first pad, as in the reference); BLOOM's ALiBi counts
+positions from each row's first real token.  A tokenizer without
 a pad token raises ``ValueError`` when a batch pads, as the reference's
 ``padding=True`` does.  Where the reference
 fails on a bucket, the port raises before it runs the bucket: BigBird's

@@ -5,7 +5,10 @@ layers) with a WordPiece tokenizer, through ``JaxSentenceEncoderRM._embed``
 and ``JaxCrossEncoderReranker.score_pairs`` on the CPU.  Prints one line a
 type and class: ``runs`` with the output's shape, or the error the
 reference raises.  Not a test (pytest does not collect it): it records
-what a later slice could port.
+what a later slice could port.  Its tiny configs hide faults that other
+widths meet: BLOOM at 2 heads runs, but a head count that is not a power of
+two fails in the reference's Flax code (``jnp.cat``,
+``test_torch_bloom.py::test_non_power_of_two_heads``).
 
     JAX_PLATFORMS=cpu python tests/reference_model_types.py [type ...]
 """

@@ -124,7 +124,7 @@ def test_msgpack_only_and_other_model_types_raise(tmp_path):
             load_state_dict(str(d))
     with pytest.raises(FileNotFoundError):
         load_encoder(str(tmp_path / "absent"))
-    for model_type in ("marian", "bloom", "t5", "deberta-v2"):
+    for model_type in ("marian", "gpt-sw3", "t5", "deberta-v2"):
         (cfg_path / "config.json").write_text(json.dumps({**cfg, "model_type": model_type}))
         with pytest.raises(NotImplementedError, match=model_type):
             load_encoder(str(cfg_path))

@@ -15,8 +15,8 @@
   unknown token, fused), and Gemma's ``Split`` on a space merged with the
   previous piece where spaces remain, each against the ``tokenizers``
   library;
-- the refusals: any other ``Split`` (a ``Regex``, as bloom's; another
-  behaviour; inverted) and ``LlamaTokenizerFast`` with
+- the refusals: any other ``Split`` (another behaviour, on a string or on a
+  ``Regex``; inverted) and ``LlamaTokenizerFast`` with
   ``add_prefix_space`` (which rebuilds from the sentencepiece model) raise
   ``NotImplementedError``.
 """
@@ -135,7 +135,7 @@ def test_split_merged_with_previous():
 
 
 @pytest.mark.parametrize("split", [("  ", "isolated", False), (" ", "merged_with_previous", True),
-                                   (" ", "removed", False), ("regex", "isolated", False)])
+                                   (" ", "removed", False), ("regex", "removed", False)])
 def test_other_splits_are_refused(split):
     pattern, behavior, invert = split
     tok = sp_bpe_tokenizer(0, "gemma")

@@ -27,7 +27,10 @@ made here from a seed).
   ``write_decoder`` and ``write_decoder_tokenizer`` (GPT-2's byte-level BPE
   with ``<|endoftext|>``; ``sp_bpe_tokenizer``, the sentencepiece BPE with
   byte fallback that ``LlamaConverter`` and ``GemmaConverter`` build, over
-  seeded merges).
+  seeded merges); BLOOM's and XGLM's (``ALIBI_DECODERS``, their own files'):
+  ``write_alibi_decoder``, ``bloom_tokenizer`` (byte-level BPE behind
+  BLOOM's ``Split`` on a ``Regex``) and ``xglm_tokenizer`` (``XGLMConverter``'s
+  Unigram, ``</s> $A``).
 """
 
 from __future__ import annotations
@@ -525,6 +528,104 @@ def write_decoder(path: str, family: str, *, seed: int = 0, init_range: float = 
         for name, p in model.named_parameters():
             if "norm" in name or "ln_" in name:
                 p.normal_(1.0 if family != "gemma" and name.endswith("weight") else 0.0, init_range)
+    model.save_pretrained(path)
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        assert json.load(f)["model_type"] == family
+    return model
+
+
+# ---- BLOOM and XGLM --------------------------------------------------------------
+
+ALIBI_DECODERS = ("bloom", "xglm")
+# BLOOM's pre-tokenizer pattern, as its tokenizer.json writes it (Oniguruma's syntax).
+BLOOM_SPLIT = " ?[^(\\s|[.,!?…。，、।۔،])]+"
+BLOOM_SPECIALS = ("<unk>", "<s>", "</s>", "<pad>")
+XGLM_MADEUP = tuple(f"<madeupword{i}>" for i in range(7))
+
+
+def bloom_tokenizer(seed: int = 0, vocab_size: int = 600) -> Tokenizer:
+    """BLOOM's ``tokenizer.json`` layout over byte-level BPE trained by
+    ``tokenizers`` on seeded text: no normalizer, ``Split`` on
+    ``BLOOM_SPLIT`` (isolated) then ``ByteLevel`` without its own regex,
+    ``<unk> <s> </s> <pad>`` first, no unknown token, and the ``ByteLevel``
+    post-processor (which adds nothing)."""
+    from tokenizers import trainers
+
+    tok = Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.Sequence([
+        pre_tokenizers.Split(Regex(BLOOM_SPLIT), "isolated", invert=False),
+        pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)])
+    tok.post_processor = processors.ByteLevel(trim_offsets=False)
+    tok.decoder = decoders.ByteLevel()
+    corpus = seeded_texts(seed, 400, seeded_words(seed, 300), 3, 20)
+    tok.train_from_iterator(corpus, trainers.BpeTrainer(vocab_size=vocab_size, min_frequency=2,
+                                                        special_tokens=list(BLOOM_SPECIALS), show_progress=False,
+                                                        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    return tok
+
+
+def xglm_tokenizer(seed: int = 0, blob: bytes | None = None) -> Tokenizer:
+    """XGLM's fast tokenizer as ``XGLMConverter`` builds it over a seeded
+    Unigram vocabulary: ``<s> <pad> </s> <unk>``, the pieces, the seven
+    ``<madeupwordN>``; ``SpmConverter``'s normalizer and ``Metaspace``; the
+    template ``</s> $A`` / ``</s> $A </s> </s> $B``."""
+    vocab = unigram_vocab(seed, specials=(("<s>", "<pad>", "</s>", "<unk>"), XGLM_MADEUP))
+    template = processors.TemplateProcessing(single="</s> $A", pair="</s> $A </s> </s> $B",
+                                             special_tokens=[("<s>", 0), ("</s>", 2)])
+    return spm_unigram(vocab, "<unk>", blob, template)
+
+
+def write_alibi_decoder_tokenizer(path: str, family: str, seed: int = 0, pad: str | None = "<pad>", **kw):
+    """The family's tokenizer as ``AutoTokenizer`` builds it, saved in
+    ``path``: ``BloomTokenizerFast`` over ``bloom_tokenizer``, padding on
+    the left as BLOOM's ``tokenizer_config.json`` says, or
+    ``XGLMTokenizerFast`` over ``xglm_tokenizer``; ``pad`` None leaves no
+    pad token.  ``kw`` go to the class.  Returns it."""
+    os.makedirs(path, exist_ok=True)
+    if family == "bloom":
+        tok = transformers.BloomTokenizerFast(tokenizer_object=bloom_tokenizer(seed), pad_token=pad, unk_token="<unk>",
+                                              bos_token="<s>", eos_token="</s>", **{"padding_side": "left", **kw})
+    else:
+        tok = transformers.XGLMTokenizerFast(tokenizer_object=xglm_tokenizer(seed, build_charsmap(CHARSMAP)),
+                                             pad_token=pad, **kw)
+    tok.save_pretrained(path)
+    return tok
+
+
+def alibi_decoder_config(family: str, vocab_size: int, *, init_range: float = 0.02,
+                         max_position_embeddings: int = 128, **kw):
+    """A tiny config of ``family``: width 32, 2 layers, 4 heads; XGLM's FFN
+    64 and 128 positions."""
+    if family == "bloom":
+        fields = dict(hidden_size=32, n_layer=2, n_head=4, initializer_range=init_range, pad_token_id=3,
+                      bos_token_id=1, eos_token_id=2)
+        cls = transformers.BloomConfig
+    else:
+        fields = dict(d_model=32, num_layers=2, attention_heads=4, ffn_dim=64, init_std=init_range,
+                      max_position_embeddings=max_position_embeddings)
+        cls = transformers.XGLMConfig
+    fields.update(kw)
+    return cls(vocab_size=vocab_size, **fields)
+
+
+def write_alibi_decoder(path: str, family: str, *, seed: int = 0, init_range: float = 0.02,
+                        tokenizer_kw: dict | None = None, causal_lm: bool = False, **cfg_kw):
+    """A ``family`` checkpoint in ``path``: its tokenizer and the base model
+    (or, with ``causal_lm``, the ``*ForCausalLM`` whose names carry the
+    family's prefix) drawn from a seed with weights of standard deviation
+    ``init_range`` (LayerNorms too, around 1 and 0), saved with
+    ``save_pretrained`` (``model.safetensors``).  Returns the torch model."""
+    tok = write_alibi_decoder_tokenizer(path, family, seed, **(tokenizer_kw or {}))
+    cfg = alibi_decoder_config(family, len(tok), init_range=init_range, **cfg_kw)
+    torch.manual_seed(seed)
+    auto = transformers.AutoModelForCausalLM if causal_lm else transformers.AutoModel
+    model = auto.from_config(cfg).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name or "ln_f" in name:
+                p.normal_(1.0 if name.endswith("weight") else 0.0, init_range)
+            elif name.endswith("bias"):
+                p.normal_(0.0, init_range)
     model.save_pretrained(path)
     with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
         assert json.load(f)["model_type"] == family
