@@ -264,14 +264,32 @@ Phases (each prints its seconds and the card's name and power limit):
    inputs and timed beside its bound; 31c: XGLM-564M at full width and
    depth in bf16 over 4,096 of config 1's passages into a Flat store:
    recall@10 1.0 through ids, >= 0.98 through K2 at d 1024, K2 held to its
-   plain version on the call's inputs.  The files are deleted after.
+   plain version on the call's inputs.  The files are deleted after;
+32. GPT-SW3 and Marian, under ``build/lotus_tpu_torch/smoke_spm`` (weights
+   drawn on the card and written in bf16; their sentencepiece ``.model``
+   files written by ``spm_model_bytes``, a protobuf writer of its own: a
+   seeded Unigram that holds most words whole and splits the rest in two,
+   GPT-SW3's with byte fallback, Marian's behind a charsmap with
+   ``vocab.json`` ids).  32a: gpt-sw3-126m, gpt-sw3-6.7b-v2 and
+   opus-mt-en-de at their published widths, 2 layers deep, each on the
+   card against the CPU in f32 (within 2e-6), bf16 against f32 (smallest
+   cosine >= 0.999), and where the reference fails each must raise
+   ``ValueError``: GPT-SW3 with a pad token its ``spiece.model`` lacks,
+   Marian on a bucket past its 512 positions; 32b: GPT-SW3 6.7B at full
+   width and depth (32 layers) from bf16 shards, 4,096 of config 2's docs
+   into an int8 IVF store (nlist 8: K1), recall@5 >= 0.95, K1 held to its
+   plain version on the call's inputs and timed beside its bound; 32c:
+   opus-mt-en-de at full width and depth (6 + 6 layers) in bf16 over 4,096
+   of config 1's passages into a Flat store: recall@10 1.0 through ids,
+   >= 0.98 through K2 at d 512, K2 held to its plain version on the
+   call's inputs.  The files are deleted after.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after: K1 over phases 5-8 (calibration included), in each
 rank over phase 12's sharded search, over phase 13 and over each K1 store of
-phase 15 and over phase 25's, 27's, 28's, 29's, 30's and 31's stores; K2
-over phase 10, over phases 20-21, over phase 15's Flat store and over phase
-24's, 27's, 28's, 29's, 30's and 31's;
+phase 15 and over phase 25's, 27's, 28's, 29's, 30's, 31's and 32's stores;
+K2 over phase 10, over phases 20-21, over phase 15's Flat store and over
+phase 24's, 27's, 28's, 29's, 30's, 31's and 32's;
 each must have launched its kernel, and each phase prints its count.
 The last three lines are the kernel table (K1, whose launches add the
 ranks', and K2, then the variants later slices added, each with its own
@@ -3461,9 +3479,10 @@ def decoder_tokenizer_files(words: list[str], kind: str, size: int) -> dict:
 
 
 def write_decoder(path: str, shape: dict, words: list[str], dev, seed: int, shard_bytes: int | None = None) -> int:
-    """A decoder checkpoint directory: ``config.json``, the seeded
-    tokenizer's files and the weights, drawn on ``dev`` in bf16 as the
-    initialiser draws them (N(0, 0.02); each norm's weight 1, Gemma's 0;
+    """A decoder (or Marian) checkpoint directory: ``config.json``, the
+    seeded tokenizer's files (``decoder_tokenizer_files``, or
+    ``spm_tokenizer_files`` for GPT-SW3 and Marian) and the weights, drawn on
+    ``dev`` in bf16 as the initialiser draws them (N(0, 0.02); each norm's weight 1, Gemma's 0;
     biases 0) and written in bf16: ``model.safetensors``, or shards of at
     most ``shard_bytes`` with their index.  Returns the parameters written."""
     import torch
@@ -3472,8 +3491,14 @@ def write_decoder(path: str, shape: dict, words: list[str], dev, seed: int, shar
 
     os.makedirs(path, exist_ok=True)
     config = {k: v for k, v in shape.items() if k != "tokenizer"}
-    files = {"config.json": config, **decoder_tokenizer_files(words, shape["tokenizer"], shape["vocab_size"])}
+    kind = shape["tokenizer"]
+    files = {"config.json": config, **(spm_tokenizer_files(words, kind, shape["vocab_size"]) if kind in SPM_KINDS
+                                       else decoder_tokenizer_files(words, kind, shape["vocab_size"]))}
     for fname, obj in files.items():
+        if isinstance(obj, bytes):
+            with open(os.path.join(path, fname), "wb") as f:
+                f.write(obj)
+            continue
         with open(os.path.join(path, fname), "w", encoding="utf-8") as f:
             json.dump(obj, f)
     with torch.device("meta"):
@@ -3578,7 +3603,8 @@ def decoders_check_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 16, mo
 
 
 def sharded_decoder_phase(dev, vocab: list[str], name: str, shape: dict, *, seed: int, doc_seed: int,
-                          marker: str, tokenizer_label: str, n: int, nq: int, nlist: int, root: str) -> int:
+                          marker: str, tokenizer_label: str, n: int, nq: int, nlist: int, root: str,
+                          padding_side: str = "left") -> int:
     """A decoder checkpoint of ``shape`` at full width and depth in bf16: the
     checkpoint written on the card in bf16 as shards of at most 5 GiB with
     ``model.safetensors.index.json`` (the free disk and host memory printed
@@ -3586,7 +3612,8 @@ def sharded_decoder_phase(dev, vocab: list[str], name: str, shape: dict, *, seed
     onto the card (seconds, the host's resident bytes before and at their
     peak during the load); ``n`` of config 2's docs (8-48 words, drawn from
     the words the seeded vocabulary holds whole: ``marker`` + the word is a
-    piece) at max_batch_size 64 and max_seq_length 512, left-padded, into an
+    piece) at max_batch_size 64 and max_seq_length 512, padded on
+    ``padding_side`` (left for Mistral's and BLOOM's tokenizers), into an
     int8 IVF store (nlist ``nlist``, block-aligned: K1) through
     ``ivf_text_store``: recall@5 at least 0.95 over ``nq`` queries, K1 held
     to its plain version on the call's own inputs.  The checkpoint is
@@ -3629,11 +3656,10 @@ def sharded_decoder_phase(dev, vocab: list[str], name: str, shape: dict, *, seed
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}); "
         f"host resident {rss0 / 1e9:.3f} GB before the load, its peak during the load {rss1 / 1e9:.3f} GB [{GPU}]")
     assert dtypes == {torch.bfloat16} and params == written and len(shards) > 1, f"{name} did not load whole in bf16"
-    assert rm.tokenizer.padding_side == "left"
+    assert rm.tokenizer.padding_side == padding_side
     k = 5
     t0 = time.perf_counter()
-    with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
-        pieces = json.load(f)["model"]["vocab"]
+    pieces = rm.tokenizer.vocab
     whole = [w for w in words if marker + w in pieces]  # the seeded vocabulary holds these words whole
     right = synth_texts(whole, n, 8, 48, doc_seed + 1, per_topic=k)
     left = synth_texts(whole, n, 8, 48, doc_seed, per_topic=k)[:nq]
@@ -3833,10 +3859,284 @@ def alibi_phases(dev, vocab: list[str]) -> tuple[int, int]:
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: GPT-SW3 and Marian, behind sentencepiece .model files
+# ---------------------------------------------------------------------------
+
+SPM_DIR = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_spm")
+SPM_KINDS = ("gpt-sw3", "marian")
+# Each model's published config.json (AI-Sweden-Models/gpt-sw3-126m and
+# gpt-sw3-6.7b-v2: model_type gpt2, exact GELU, 2,048 positions, a 64,000-piece
+# spiece.model; Helsinki-NLP/opus-mt-en-de: 6 + 6 layers, swish,
+# scale_embedding, pad and decoder start 58,100, eos 0), CHECK_DEPTH layers deep
+# in 32a, with seeded weights written in bf16.  gpt-sw3-126m is written as
+# model_type gpt-sw3, the type AutoConfig maps to GPT2Config, to run both.
+SPM_MODELS = {
+    "gpt-sw3-126m": dict(model_type="gpt-sw3", n_embd=768, n_layer=CHECK_DEPTH, n_head=12, n_inner=3072,
+                         n_positions=2048, vocab_size=64_000, activation_function="gelu", layer_norm_epsilon=1e-5,
+                         tokenizer="gpt-sw3"),
+    "gpt-sw3-6.7b-v2": dict(model_type="gpt2", n_embd=4096, n_layer=CHECK_DEPTH, n_head=32, n_inner=16_384,
+                            n_positions=2048, vocab_size=64_000, activation_function="gelu", layer_norm_epsilon=1e-5,
+                            tokenizer="gpt-sw3"),
+    "opus-mt-en-de": dict(model_type="marian", d_model=512, encoder_layers=CHECK_DEPTH, decoder_layers=CHECK_DEPTH,
+                          encoder_attention_heads=8, decoder_attention_heads=8, encoder_ffn_dim=2048,
+                          decoder_ffn_dim=2048, vocab_size=58_101, max_position_embeddings=512,
+                          activation_function="swish", scale_embedding=True, pad_token_id=58_100,
+                          decoder_start_token_id=58_100, eos_token_id=0, tokenizer="marian"),
+}
+GPT_SW3_LAYERS = 32  # gpt-sw3-6.7b-v2's depth, phase 32b's
+MARIAN_LAYERS = 6  # opus-mt-en-de's depth, each stack, phase 32c's
+WHOLE_SHARE = 0.7  # the share of words a seeded .model holds whole; the rest it holds as two halves
+
+
+def _pb_varint(v: int) -> bytes:
+    v &= (1 << 64) - 1  # a negative int32 is its 64-bit two's complement, ten bytes
+    out = bytearray()
+    while True:
+        if v < 0x80:
+            return bytes(out + bytes([v]))
+        out.append(v & 0x7F | 0x80)
+        v >>= 7
+
+
+def _pb_field(number: int, value) -> bytes:
+    """One protobuf field: an int or bool as a varint, a float as fixed32,
+    a str or bytes length-delimited."""
+    import struct
+
+    if isinstance(value, float):
+        return _pb_varint(number << 3 | 5) + struct.pack("<f", value)
+    if isinstance(value, int):
+        return _pb_varint(number << 3) + _pb_varint(int(value))
+    raw = value.encode("utf-8") if isinstance(value, str) else bytes(value)
+    return _pb_varint(number << 3 | 2) + _pb_varint(len(raw)) + raw
+
+
+def spm_model_bytes(pieces: list[tuple[str, float, int]], *, model_type: int = 1, byte_fallback: bool = False,
+                    unk_id: int = 0, bos_id: int = 1, eos_id: int = 2, pad_id: int = -1, charsmap: bytes = b"",
+                    name: str = "identity", add_dummy_prefix: bool = True, remove_extra_whitespaces: bool = True,
+                    escape_whitespaces: bool = True) -> bytes:
+    """A sentencepiece ``.model`` file (a serialized ``ModelProto``; the card
+    machine has no protobuf): ``pieces`` (piece, score, type) as field 1
+    (piece 1, score 2, type 3), ``trainer_spec`` 2 (model_type 3,
+    byte_fallback 35, unk_id 40, bos_id 41, eos_id 42, pad_id 43) and
+    ``normalizer_spec`` 3 (name 1, precompiled_charsmap 2, add_dummy_prefix
+    3, remove_extra_whitespaces 4, escape_whitespaces 5)."""
+    out = bytearray()
+    for piece, score, kind in pieces:
+        out += _pb_field(1, _pb_field(1, piece) + _pb_field(2, float(score)) + _pb_field(3, int(kind)))
+    trainer = b"".join(_pb_field(n, v) for n, v in ((3, model_type), (35, byte_fallback), (40, unk_id),
+                                                      (41, bos_id), (42, eos_id), (43, pad_id)))
+    normalizer = _pb_field(1, name) + (_pb_field(2, charsmap) if charsmap else b"") + b"".join(
+        _pb_field(n, v) for n, v in ((3, add_dummy_prefix), (4, remove_extra_whitespaces), (5, escape_whitespaces)))
+    return bytes(out + _pb_field(2, trainer) + _pb_field(3, normalizer))
+
+
+def spm_pieces(words: list[str], size: int, seed: int, head: list[tuple[str, int]],
+               byte_fallback: bool = False) -> list[tuple[str, float, int]]:
+    """A seeded Unigram vocabulary of ``size`` pieces: ``head`` (piece,
+    type), the 256 ``<0xNN>`` BYTE pieces under ``byte_fallback``, then
+    ``▁`` + each word for a WHOLE_SHARE of the words and ``▁`` + its first
+    half and its second half for the rest (each piece scored -8 to -12, so
+    a whole word beats any two pieces and a split one takes its two
+    halves), single characters (-12 to -16), seeded fillers (-10 to -15)
+    until ``size``; cut to ``size`` keeping every character."""
+    import string
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = [(p, 0.0, kind) for p, kind in head] + ([(f"<0x{b:02X}>", 0.0, 6) for b in range(256)]
+                                                 if byte_fallback else [])
+    pieces: dict[str, float] = {}
+    for w in words:
+        if len(w) < 4 or rng.random() < WHOLE_SHARE:
+            pieces.setdefault("▁" + w, -float(rng.uniform(8, 12)))
+        else:
+            half = len(w) // 2
+            pieces.setdefault("▁" + w[:half], -float(rng.uniform(8, 12)))
+            pieces.setdefault(w[half:], -float(rng.uniform(8, 12)))
+    chars = {c: -float(rng.uniform(12, 16)) for c in string.ascii_letters + string.digits + string.punctuation
+             + "▁éïüßÜ日本語中文株式会社" if c not in pieces}
+    room = size - len(out) - len(chars)
+    pieces = dict(list(pieces.items())[:room])
+    letters = np.array(list(string.ascii_lowercase))
+    while len(pieces) < room:
+        filler = ("▁" if rng.random() < 0.5 else "") + "".join(rng.choice(letters, int(rng.integers(2, 8))))
+        if filler not in chars:
+            pieces.setdefault(filler, -float(rng.uniform(10, 15)))
+    out += [(p, sc, 1) for p, sc in {**pieces, **chars}.items()]
+    assert len(out) == size and len({p for p, _, _ in out}) == size
+    return out
+
+
+def spm_tokenizer_files(words: list[str], kind: str, size: int) -> dict:
+    """The tokenizer files of a seeded GPT-SW3 or Marian checkpoint:
+    GPT-SW3's ``spiece.model`` (``<unk> <pad> <s> <|endoftext|>``, the byte
+    pieces, a Unigram with byte fallback, the identity normalizer keeping
+    every space) and ``tokenizer_config.json`` naming ``GPTSw3Tokenizer``;
+    or Marian's ``source.spm`` and ``target.spm`` (``<unk> <s> </s>``, a
+    Unigram behind the seeded charsmap), ``vocab.json`` in opus-mt's layout
+    (``</s>`` 0, ``<unk>`` 1, the pieces, ``<pad>`` last, ``size``
+    entries) and ``tokenizer_config.json`` naming ``MarianTokenizer``."""
+    from lotus_tpu_torch.models.charsmap import build_charsmap
+
+    if kind == "gpt-sw3":
+        head = [("<unk>", 2), ("<pad>", 3), ("<s>", 3), ("<|endoftext|>", 3)]
+        model = spm_model_bytes(spm_pieces(words, size, 80, head, byte_fallback=True), byte_fallback=True,
+                                pad_id=1, bos_id=2, eos_id=3, remove_extra_whitespaces=False)
+        return {"spiece.model": model,
+                "tokenizer_config.json": {"tokenizer_class": "GPTSw3Tokenizer", "do_lower_case": False,
+                                          "remove_space": False, "keep_accents": True, "bos_token": "<s>",
+                                          "eos_token": "<|endoftext|>", "unk_token": "<unk>", "pad_token": "<pad>"}}
+    pieces = spm_pieces(words, size, 81, [("<unk>", 2), ("<s>", 3), ("</s>", 3)])
+    model = spm_model_bytes(pieces, charsmap=build_charsmap(SMOKE_CHARSMAP), name="nmt_nfkc")
+    vocab = {"</s>": 0, "<unk>": 1}
+    for p, _, _ in pieces:
+        if p != "<s>":
+            vocab.setdefault(p, len(vocab))
+    vocab["<pad>"] = len(vocab)
+    assert len(vocab) == size
+    return {"source.spm": model, "target.spm": model, "vocab.json": vocab,
+            "tokenizer_config.json": {"tokenizer_class": "MarianTokenizer", "source_lang": "en", "target_lang": "de"}}
+
+
+def spm_check_phase(dev, vocab: list[str], dirs: dict, n_docs: int = 16) -> None:
+    """Phase 32a: each model as an RM through its entry point on the card and
+    on the CPU in f32 (``n_docs`` docs of mixed length with characters the
+    seeded vocabularies lack, 4 a batch): within 2e-6, bf16 against f32
+    smallest cosine at least 0.999 (``check_rm``), and each one's tokens a
+    word.  Then where the reference fails the port must raise
+    ``ValueError``: GPT-SW3 with a pad token its ``spiece.model`` lacks
+    (the slow class adds it past the 64,000 pieces, where the reference's
+    embeddings are NaN), Marian on a bucket past its 512 positions."""
+    import numpy as np
+
+    from lotus_tpu_torch.models import GPTSw3Tokenizer, TorchSentenceEncoderRM
+
+    quarter = n_docs // 4
+    docs = [t for i, (lo, hi) in enumerate(((3, 10), (11, 24), (25, 50), (51, 100)))
+            for t in synth_texts(vocab, quarter, lo, hi, 330 + i)]
+    docs = multilingual(docs, 335)
+    for name, d in dirs.items():
+        shape = SPM_MODELS[name]
+        kw = dict(model=d, max_batch_size=4, max_seq_length=512)
+        width = shape.get("n_embd", shape.get("d_model"))
+        check_rm(dev, name, shape["model_type"], kw, docs, width, tol=2e-6, min_cos=0.999)
+        rm = TorchSentenceEncoderRM(device=dev, **kw)
+        tokens = sum(map(len, rm.tokenizer.encode(docs)))
+        say(f"    {name} tokenizer ({type(rm.tokenizer).__name__}): {tokens / sum(len(t.split()) for t in docs):.3f} "
+            f"tokens a word over the check docs")
+        if shape["tokenizer"] == "gpt-sw3":
+            rm.tokenizer = GPTSw3Tokenizer(rm.tokenizer.sp, {"pad_token": "<pad-absent>"}, name_or_path=d)
+            label, docs_in = f"pad id {rm.tokenizer.pad_id} past the {len(rm.tokenizer.sp):,} pieces", docs[:2]
+            want = "outside the model's"
+        else:
+            rm = TorchSentenceEncoderRM(device=dev, **{**kw, "max_seq_length": 1024})
+            long_doc = " ".join(np.random.default_rng(336).choice(vocab[1000:], 900))
+            label, docs_in, want = "a 1024-token bucket", [docs[0], long_doc], "longer than max_position_embeddings"
+        try:
+            rm(docs_in)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        say(f"    {name} with {label}: {raised!r}")
+        assert raised is not None and want in raised, f"{name}: no ValueError where the reference fails"
+        del rm
+
+
+def gpt_sw3_phase(dev, vocab: list[str], n: int = 4096, nq: int = 512, nlist: int = 8,
+                  layers: int = GPT_SW3_LAYERS, root: str = SPM_DIR) -> int:
+    """Phase 32b, GPT-SW3 6.7B (gpt-sw3-6.7b-v2) at full width and ``layers``
+    deep (32, its own) in bf16 through ``sharded_decoder_phase``, its docs
+    drawn from the words the seeded 64,000-piece ``spiece.model`` holds
+    whole (``▁`` + the word), padded on the right as the slow class pads.
+    Returns K1's launches."""
+    return sharded_decoder_phase(dev, vocab, "gpt-sw3-6.7b-v2", dict(SPM_MODELS["gpt-sw3-6.7b-v2"], n_layer=layers),
+                                 seed=82, doc_seed=340, marker="▁",
+                                 tokenizer_label="sentencepiece Unigram (spiece.model, byte fallback)", n=n, nq=nq,
+                                 nlist=nlist, root=root, padding_side="right")
+
+
+def marian_phase(dev, vocab: list[str], n: int = 4096, nq: int = 256, layers: int = MARIAN_LAYERS,
+                 root: str = SPM_DIR) -> int:
+    """Phase 32c, Marian at opus-mt-en-de's widths and depth (``layers``, 6
+    a stack) in bf16, its tokenizer ``source.spm`` with ``vocab.json``:
+    ``n`` of config 1's passages (150-300 words, the 512-token bucket) into
+    a Flat store through ``flat_text_store`` (recall@10 1.0 through ids, at
+    least 0.98 through K2 at d 512, K2 held to its plain version on the
+    call's own inputs and timed beside its bound).  Returns K2's launches."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+
+    path = os.path.join(root, "opus-mt-en-de")
+    shutil.rmtree(path, ignore_errors=True)
+    words = [w for w in vocab if w.isalpha() and not w.startswith("[")]
+    shape = dict(SPM_MODELS["opus-mt-en-de"], encoder_layers=layers, decoder_layers=layers)
+    written = write_decoder(path, shape, words, dev, seed=83)
+    t0 = time.perf_counter()
+    passages = synth_texts(vocab, n, 150, 300, 56, per_topic=K)
+    queries = [" ".join(np.random.default_rng(57 + i).choice(passages[j].split()[:40], 12))
+               for i, j in enumerate(np.random.default_rng(58).integers(0, n, nq))]
+    say(f"  opus-mt-en-de ({layers} + {layers} layers, {written:,} parameters); {n:,} passages of 150-300 words, {nq} "
+        f"queries of 12 words from a passage's first 40; made in {time.perf_counter() - t0:.2f} s")
+    rss0 = host_rss()
+    t0 = time.perf_counter()
+    rm, rss1 = host_peak_during(lambda: TorchSentenceEncoderRM(model=path, max_batch_size=CONFIG2_BATCH,
+                                                               max_seq_length=512, dtype=torch.bfloat16, device=dev))
+    sync(dev)
+    say(f"  loaded in {time.perf_counter() - t0:.2f} s; host resident {rss0 / 1e9:.3f} GB before the load, its peak "
+        f"during the load {rss1 / 1e9:.3f} GB [{GPU}]")
+    emb, fig = encode_split(rm, passages)
+    print_split(f"opus-mt-en-de bf16, max_batch_size {CONFIG2_BATCH}", n, fig, BF16_OPS_PER_S, "989 TFLOP/s bf16")
+    print_tokenizer("sentencepiece Unigram + charsmap (source.spm, vocab.json ids)", passages, fig)
+    launches, _ = flat_text_store(dev, "Marian", rm, passages, emb, queries, 100, SPM_MODELS["opus-mt-en-de"]["d_model"])
+    shutil.rmtree(path, ignore_errors=True)
+    return launches
+
+
+def spm_phases(dev, vocab: list[str]) -> tuple[int, int]:
+    """Phase 32: GPT-SW3 and Marian at published widths 2 layers deep, card
+    against CPU, and where the reference fails; GPT-SW3 6.7B at full width
+    and depth through K1; opus-mt-en-de through K2 at d 512; the files
+    deleted.  Returns K1's and K2's launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with Phase("GPT-SW3 and Marian (sentencepiece .model files) at published widths, 2 layers (seeded weights): card "
+               "against CPU, bf16 against f32, where the reference fails"):
+        t0 = time.perf_counter()
+        shutil.rmtree(SPM_DIR, ignore_errors=True)
+        words = [w for w in vocab if w.isalpha() and not w.startswith("[")]
+        dirs = {}
+        for i, (name, shape) in enumerate(SPM_MODELS.items()):
+            dirs[name] = os.path.join(SPM_DIR, name)
+            write_decoder(dirs[name], shape, words, dev, seed=75 + i)
+        say(f"  {len(dirs)} checkpoints ({dir_bytes(SPM_DIR) / 1e9:.3f} GB: bf16 model.safetensors, config.json, "
+            f"spiece.model or source.spm + vocab.json) written in {time.perf_counter() - t0:.2f} s under "
+            f"{os.path.relpath(SPM_DIR, REPO)}")
+        spm_check_phase(dev, vocab, dirs)
+        shutil.rmtree(SPM_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    with Phase("GPT-SW3 6.7B (gpt-sw3-6.7b-v2) at full width and depth in bf16 from a sharded checkpoint: IVF int8, "
+               "K1"):
+        k1 = gpt_sw3_phase(dev, vocab)
+    torch.cuda.empty_cache()
+    with Phase("Marian (opus-mt-en-de) in bf16 from text: Flat, K2 at d 512"):
+        k2 = marian_phase(dev, vocab)
+    shutil.rmtree(SPM_DIR, ignore_errors=True)
+    say(f"  phase 32: {time.perf_counter() - t_phase:.1f} s wall; card peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{GPU}]")
+    return k1, k2
+
+
 def text_phases(dev) -> tuple[int, int, int, tuple]:
-    """Phases 23-31 (the models, configs 1-2 from text, profiling, the
+    """Phases 23-32 (the models, configs 1-2 from text, profiling, the
     families past BERT, the encoder-decoders, the decoders, BLOOM and
-    XGLM).  Returns K1's and K2's launches on their main
+    XGLM, GPT-SW3 and Marian).  Returns K1's and K2's launches on their main
     paths, phase 27's K2 launches and K2's figures at d 1024."""
     with Phase("models at published widths (seeded weights): card against CPU, bf16 against f32"):
         t0 = time.perf_counter()
@@ -3860,9 +4160,10 @@ def text_phases(dev) -> tuple[int, int, int, tuple]:
     s2s_k1, s2s_k2 = seq2seq_phases(dev, vocab)
     dec_k1, dec_k2 = decoder_phases(dev, vocab)
     alibi_k1, alibi_k2 = alibi_phases(dev, vocab)
+    spm_k1, spm_k2 = spm_phases(dev, vocab)
     shutil.rmtree(TEXT_INDEX_DIR, ignore_errors=True)
-    return (k1 + fam_k1 + late_k1 + s2s_k1 + dec_k1 + alibi_k1, k2 + fam_k2 + late_k2 + s2s_k2 + dec_k2 + alibi_k2,
-            fam_k2, k2_d1024)
+    return (k1 + fam_k1 + late_k1 + s2s_k1 + dec_k1 + alibi_k1 + spm_k1,
+            k2 + fam_k2 + late_k2 + s2s_k2 + dec_k2 + alibi_k2 + spm_k2, fam_k2, k2_d1024)
 
 
 def config4_paths(dev) -> dict:

@@ -2,15 +2,18 @@
 FlaxAutoModel loads that the port runs (BERT, RoBERTa, XLM-RoBERTa,
 DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird, RoBERTa-PreLayerNorm) and
 its encoder-decoder families (BART and mBART, also as rerankers; Pegasus,
-Blenderbot and Blenderbot-Small as RMs) and its decoder-only families
-(GPT-2, GPT-Neo, GPT-J, Llama, Mistral, Gemma, BLOOM and XGLM as RMs) in
-PyTorch, with their own tokenizers (WordPiece, byte-level BPE, Unigram and
-sentencepiece BPE with byte fallback, read from ``tokenizer.json`` or the
-older vocab files, its regular expressions read as Oniguruma reads them,
-and Blenderbot-Small's slow BPE) and checkpoint readers
+Blenderbot, Blenderbot-Small and Marian as RMs) and its decoder-only
+families (GPT-2, GPT-SW3, GPT-Neo, GPT-J, Llama, Mistral, Gemma, BLOOM and
+XGLM as RMs) in PyTorch, with their own tokenizers (WordPiece, byte-level
+BPE, Unigram and sentencepiece BPE with byte fallback, read from
+``tokenizer.json`` or the older vocab files, its regular expressions read
+as Oniguruma reads them; Blenderbot-Small's slow BPE; GPT-SW3's and
+Marian's slow tokenizers over sentencepiece ``.model`` files, read and
+encoded without ``sentencepiece`` or ``protobuf``) and checkpoint readers
 (safetensors, ``pytorch_model.bin``, either sharded, and Flax msgpack), so
-no ``transformers``, ``tokenizers``, ``safetensors`` or ``msgpack`` is
-needed."""
+no ``transformers``, ``tokenizers``, ``sentencepiece``, ``protobuf``,
+``safetensors`` or ``msgpack`` is needed.  These are every type the
+reference's ``FlaxAutoModel`` maps and runs."""
 
 from lotus_tpu_torch.models.albert import AlbertConfig, AlbertForSequenceClassification, AlbertModel
 from lotus_tpu_torch.models.auto import load_encoder, load_tokenizer
@@ -29,8 +32,11 @@ from lotus_tpu_torch.models.electra import ElectraConfig, ElectraForSequenceClas
 from lotus_tpu_torch.models.gemma import GemmaConfig
 from lotus_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from lotus_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
+from lotus_tpu_torch.models.gpt_sw3_tokenizer import GPTSw3Tokenizer
 from lotus_tpu_torch.models.gptj import GPTJConfig, GPTJModel
 from lotus_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from lotus_tpu_torch.models.marian import MarianConfig, MarianModel
+from lotus_tpu_torch.models.marian_tokenizer import MarianTokenizer
 from lotus_tpu_torch.models.mbart import MBartConfig, MBartForSequenceClassification, MBartModel
 from lotus_tpu_torch.models.mistral import MistralConfig
 from lotus_tpu_torch.models.msgpack import read_flax_msgpack
@@ -42,6 +48,7 @@ from lotus_tpu_torch.models.roberta_prelayernorm import (
     RobertaPreLayerNormConfig, RobertaPreLayerNormForSequenceClassification, RobertaPreLayerNormModel,
 )
 from lotus_tpu_torch.models.roformer import RoFormerConfig, RoFormerForSequenceClassification, RoFormerModel
+from lotus_tpu_torch.models.sentencepiece import SentencePieceEncoder, read_model
 from lotus_tpu_torch.models.tokenizer_json import JsonTokenizer
 from lotus_tpu_torch.models.torch_reranker import TorchCrossEncoderReranker
 from lotus_tpu_torch.models.torch_rm import TorchSentenceEncoderRM
@@ -55,13 +62,14 @@ __all__ = [
     "BlenderbotSmallModel", "BlenderbotSmallTokenizer", "BloomConfig", "BloomModel", "DistilBertConfig",
     "DistilBertForSequenceClassification",
     "DistilBertModel", "ElectraConfig", "ElectraForSequenceClassification", "ElectraModel", "EncoderConfig",
-    "GPT2Config", "GPT2Model", "GPTJConfig", "GPTJModel", "GPTNeoConfig", "GPTNeoModel", "GemmaConfig",
-    "JsonTokenizer", "LlamaConfig", "LlamaModel", "MBartConfig", "MBartForSequenceClassification", "MBartModel",
-    "MistralConfig", "PegasusConfig", "PegasusModel",
+    "GPT2Config", "GPT2Model", "GPTJConfig", "GPTJModel", "GPTNeoConfig", "GPTNeoModel", "GPTSw3Tokenizer",
+    "GemmaConfig", "JsonTokenizer", "LlamaConfig", "LlamaModel", "MBartConfig", "MBartForSequenceClassification",
+    "MBartModel", "MarianConfig", "MarianModel", "MarianTokenizer", "MistralConfig", "PegasusConfig", "PegasusModel",
     "Reranker", "RoFormerConfig", "RoFormerForSequenceClassification", "RoFormerModel", "RobertaConfig",
     "RobertaForSequenceClassification", "RobertaModel", "RobertaPreLayerNormConfig",
-    "RobertaPreLayerNormForSequenceClassification", "RobertaPreLayerNormModel", "TorchCrossEncoderReranker",
+    "RobertaPreLayerNormForSequenceClassification", "RobertaPreLayerNormModel", "SentencePieceEncoder",
+    "TorchCrossEncoderReranker",
     "TorchSentenceEncoderRM", "WordPieceTokenizer", "XGLMConfig", "XGLMModel", "as_query_matrix", "encoder_config",
     "fit_state_dict", "from_flax_params", "load_encoder", "load_state_dict", "load_tokenizer", "read_flax_msgpack",
-    "read_safetensors",
+    "read_model", "read_safetensors",
 ]

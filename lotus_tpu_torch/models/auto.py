@@ -6,18 +6,21 @@ local checkpoint directory.
 families in ``checkpoint.FAMILIES`` (bert, roberta, xlm-roberta,
 distilbert, electra, albert, roformer, big_bird, roberta-prelayernorm;
 bart and mbart, also as sequence classifiers; pegasus, blenderbot,
-blenderbot-small and the decoders gpt2, gpt_neo, gptj, llama, mistral,
-gemma, bloom and xglm as encoders only, where a classifier raises
-``ValueError`` as the reference's auto class does); any other type raises
-``NotImplementedError`` naming it: of the types ``FlaxAutoModel`` maps,
-marian and gpt-sw3 (whose tokenizers are sentencepiece's slow ones), t5 and
-its kin, and the vision and audio models.  It places each
+blenderbot-small, marian and the decoders gpt2, gpt-sw3, gpt_neo, gptj,
+llama, mistral, gemma, bloom and xglm as encoders only, where a classifier
+raises ``ValueError`` as the reference's auto class does); any other type
+raises ``NotImplementedError`` naming it: of the types ``FlaxAutoModel``
+maps, t5 and its kin, and the vision and audio models, which fail in the
+reference's classes.  It places each
 tensor on the target device as it is read, and casts the model there: a 7B
 checkpoint never sits whole on the host.
 ``load_tokenizer`` builds the class ``AutoTokenizer`` would
-(``tokenizer_json.read_tokenizer_config``): Blenderbot-Small's slow tokenizer from
-``vocab.json`` and ``merges.txt`` (``blenderbot_small_tokenizer.py``), and
-for any other class ``tokenizer.json`` first, then ``vocab.txt``
+(``tokenizer_json.read_tokenizer_config``): the slow-only classes first,
+Blenderbot-Small's from ``vocab.json`` and ``merges.txt``
+(``blenderbot_small_tokenizer.py``), GPT-SW3's from ``spiece.model``
+(``gpt_sw3_tokenizer.py``) and Marian's from ``source.spm`` and
+``vocab.json`` (``marian_tokenizer.py``), each sentencepiece model read by
+the port (``sentencepiece.py``); for any other class ``tokenizer.json`` first, then ``vocab.txt``
 (WordPiece), then ``vocab.json`` + ``merges.txt`` (byte-level BPE); a
 directory whose tokenizer is RoFormer's jieba one is refused
 (``tokenizer_json``).
@@ -32,7 +35,14 @@ from torch import nn
 
 from lotus_tpu_torch.models.blenderbot_small_tokenizer import BlenderbotSmallTokenizer
 from lotus_tpu_torch.models.checkpoint import fit_state_dict, iter_state_dict, new_module, read_config
+from lotus_tpu_torch.models.gpt_sw3_tokenizer import GPTSw3Tokenizer
+from lotus_tpu_torch.models.marian_tokenizer import MarianTokenizer
 from lotus_tpu_torch.models.tokenizer_json import JsonTokenizer, read_tokenizer_config
+
+# The slow-only tokenizer classes, which AutoTokenizer builds whatever else the
+# directory holds, by the class tokenizer_config.json (or the model type) names.
+SLOW_TOKENIZERS = {"BlenderbotSmallTokenizer": BlenderbotSmallTokenizer, "GPTSw3Tokenizer": GPTSw3Tokenizer,
+                   "MarianTokenizer": MarianTokenizer}
 
 
 def load_encoder(model_dir: str, classifier: bool = False, dtype: torch.dtype = torch.float32,
@@ -54,14 +64,16 @@ def load_encoder(model_dir: str, classifier: bool = False, dtype: torch.dtype = 
 
 
 def load_tokenizer(model_dir: str) -> JsonTokenizer:
-    """The tokenizer of a checkpoint directory: Blenderbot-Small's where
-    ``AutoTokenizer`` would build it, else ``tokenizer.json``, else
-    ``vocab.txt``, else ``vocab.json`` and ``merges.txt``."""
+    """The tokenizer of a checkpoint directory: a slow-only class where
+    ``AutoTokenizer`` would build one (``SLOW_TOKENIZERS``), else
+    ``tokenizer.json``, else ``vocab.txt``, else ``vocab.json`` and
+    ``merges.txt``."""
     def has(*names: str) -> bool:
         return all(os.path.exists(os.path.join(model_dir, n)) for n in names)
 
-    if read_tokenizer_config(model_dir).get("tokenizer_class") == "BlenderbotSmallTokenizer":
-        return BlenderbotSmallTokenizer.from_dir(model_dir)
+    slow = SLOW_TOKENIZERS.get(read_tokenizer_config(model_dir).get("tokenizer_class"))
+    if slow is not None:
+        return slow.from_dir(model_dir)
     if has("tokenizer.json"):
         return JsonTokenizer.from_dir(model_dir)
     if has("vocab.txt"):

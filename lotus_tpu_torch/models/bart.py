@@ -220,12 +220,19 @@ class BartDecoder(BartStack):
 
 def _tie_embeddings(module: "BartModel", state: dict, prefix: str, *_) -> None:
     """``encoder.embed_tokens`` and ``decoder.embed_tokens`` are ``shared``:
-    a checkpoint may carry any of the three; only ``shared`` is loaded."""
-    tied = [state.pop(prefix + f"{s}.embed_tokens.weight", None) for s in ("encoder", "decoder")]
+    a checkpoint may carry any of the three; only ``shared`` is loaded, and
+    one that differs from it raises (the reference would drop it unread)."""
+    names = [prefix + f"{s}.embed_tokens.weight" for s in ("encoder", "decoder")]
+    tied = [state.pop(name, None) for name in names]
     if prefix + "shared.weight" not in state:
         found = [t for t in tied if t is not None]
         if found:
             state[prefix + "shared.weight"] = found[0]
+    shared = state.get(prefix + "shared.weight")
+    for name, t in zip(names, tied):
+        if t is not None and not torch.equal(t, shared):
+            raise ValueError(f"the checkpoint's {name} differs from {prefix}shared.weight: the reference builds one "
+                             f"shared embedding for both stacks and cannot tie them")
 
 
 class BartModel(nn.Module):

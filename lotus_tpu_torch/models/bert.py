@@ -35,9 +35,9 @@ from torch import nn
 # Flax's ACT2FN for the activations the port runs: "gelu" is the exact erf
 # form, "gelu_new" and "gelu_pytorch_tanh" (Gemma's) the tanh form
 # (nn.gelu(approximate=True)); "relu" is Pegasus's, "silu" (x * sigmoid(x))
-# Llama's and Mistral's.
+# Llama's and Mistral's, "swish" (the same function in ACT2FN) opus-mt's.
 ACTIVATIONS = {"gelu": F.gelu, "gelu_new": partial(F.gelu, approximate="tanh"), "relu": F.relu,
-               "gelu_pytorch_tanh": partial(F.gelu, approximate="tanh"), "silu": F.silu}
+               "gelu_pytorch_tanh": partial(F.gelu, approximate="tanh"), "silu": F.silu, "swish": F.silu}
 
 
 class EncoderConfig:

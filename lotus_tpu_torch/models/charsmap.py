@@ -8,7 +8,9 @@ of its replacement.  Normalizing follows the ``tokenizers`` library: the
 text is cut into extended grapheme clusters; a cluster shorter than 6 UTF-8
 bytes is looked up whole, and the first key that is a prefix of its bytes
 (the shortest) replaces the whole cluster; otherwise each of its characters
-is looked up alone and kept where no key matches.
+is looked up alone and kept where no key matches.  sentencepiece itself
+(``sentencepiece.py``) takes the longest key at each position instead
+(``Charsmap.longest``).
 
 Grapheme clusters follow Unicode's UAX #29 rules (CR LF, controls, Hangul
 syllable sequences, extending and spacing marks, ZWJ emoji sequences,
@@ -141,10 +143,53 @@ class Charsmap:
                 return None
             pos ^= (unit >> 10) << ((unit & (1 << 9)) >> 6)
             if (unit >> 8) & 1:
-                at = units[pos] & ((1 << 31) - 1)
-                end = self.strings.find(b"\0", at)
-                return self.strings[at : end if end >= 0 else len(self.strings)].decode("utf-8")
+                return self._value(units[pos] & ((1 << 31) - 1))
         return None
+
+    def _value(self, at: int) -> str:
+        end = self.strings.find(b"\0", at)
+        return self.strings[at : end if end >= 0 else len(self.strings)].decode("utf-8")
+
+    def longest(self, text: str, at: int) -> tuple[int, str] | None:
+        """sentencepiece's lookup (``normalizer.cc``, ``NormalizePrefix``):
+        the longest key that is a prefix of ``text[at:]``, as (its length in
+        characters, its replacement), else None."""
+        units = self.units
+        unit = units[0]
+        pos = (unit >> 10) << ((unit & (1 << 9)) >> 6)
+        found = None
+        for k in range(at, len(text)):
+            for byte in text[k].encode("utf-8"):
+                pos ^= byte
+                if byte == 0 or pos >= len(units):
+                    return found
+                unit = units[pos]
+                if unit & ((1 << 31) | 0xFF) != byte:
+                    return found
+                pos ^= (unit >> 10) << ((unit & (1 << 9)) >> 6)
+            if (unit >> 8) & 1:
+                found = (k - at + 1, self._value(units[pos] & ((1 << 31) - 1)))
+        return found
+
+    def ascii_table(self) -> dict[int, str] | None:
+        """The replacement of each ASCII character as ``longest`` finds it,
+        for ``str.translate``, where no key of two or more characters begins
+        with two ASCII characters (so ASCII text maps character by
+        character); else None."""
+        units = self.units
+        table = {}
+        for c in range(1, 128):
+            got = self.longest(chr(c), 0)
+            if got is not None:
+                table[c] = got[1]
+            unit = units[0]
+            pos = (unit >> 10) << ((unit & (1 << 9)) >> 6) ^ c
+            if pos >= len(units) or units[pos] & ((1 << 31) | 0xFF) != c:
+                continue
+            base = pos ^ ((units[pos] >> 10) << ((units[pos] & (1 << 9)) >> 6))
+            if any(base ^ b < len(units) and units[base ^ b] & ((1 << 31) | 0xFF) == b for b in range(1, 128)):
+                return None
+        return table
 
     def _cluster(self, g: str) -> str:
         got = self._memo.get(g)

@@ -24,12 +24,13 @@ for (a pretraining head, as most public Flax files carry: ``lm_head``,
 ``inv_freq`` and causal-mask buffers).  The encoder-decoders' token embeddings are
 ``shared``: a checkpoint that carries ``encoder.embed_tokens`` /
 ``decoder.embed_tokens`` beside it or in its place loads as well
-(``bart._tie_embeddings``).  The families' torch and
+(``bart._tie_embeddings``; each must equal the one loaded).  The families' torch and
 Flax names are the same modulo ``flax_state_dict``'s renames (ALBERT's
 shared ``encoder.albert_layer_groups.<g>.albert_layers.<j>`` and
 RoBERTa-PreLayerNorm's top-level ``LayerNorm`` included); RoFormer's
 ``encoder.embed_positions.weight``, which only torch files carry, is held to
-the computed sinusoid table and not loaded, and so are Pegasus's two;
+the computed sinusoid table and not loaded, and so are Pegasus's two and
+Marian's;
 XGLM's ``embed_positions.weights``, which older torch files carry, is
 ignored (Flax computes the table, ``xglm.py``).
 """
@@ -60,6 +61,7 @@ from lotus_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from lotus_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
 from lotus_tpu_torch.models.gptj import GPTJConfig, GPTJModel
 from lotus_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from lotus_tpu_torch.models.marian import MarianConfig, MarianModel
 from lotus_tpu_torch.models.mbart import MBartConfig, MBartForSequenceClassification, MBartModel
 from lotus_tpu_torch.models.mistral import MistralConfig
 from lotus_tpu_torch.models.msgpack import read_flax_msgpack
@@ -97,7 +99,9 @@ FAMILIES: dict[str, tuple[type[EncoderConfig], type[nn.Module], type[nn.Module] 
     "pegasus": (PegasusConfig, PegasusModel, None),
     "blenderbot": (BlenderbotConfig, BartModel, None),
     "blenderbot-small": (BlenderbotSmallConfig, BlenderbotSmallModel, None),
+    "marian": (MarianConfig, MarianModel, None),
     "gpt2": (GPT2Config, GPT2Model, None),
+    "gpt-sw3": (GPT2Config, GPT2Model, None),  # CONFIG_MAPPING_NAMES["gpt-sw3"] is GPT2Config
     "gpt_neo": (GPTNeoConfig, GPTNeoModel, None),
     "gptj": (GPTJConfig, GPTJModel, None),
     "llama": (LlamaConfig, LlamaModel, None),
@@ -107,8 +111,7 @@ FAMILIES: dict[str, tuple[type[EncoderConfig], type[nn.Module], type[nn.Module] 
     "xglm": (XGLMConfig, XGLMModel, None),
 }
 # What FlaxAutoModel maps that the port refuses, named in the refusal.
-REFUSED = ("marian (its tokenizer is sentencepiece's slow one)", "gpt-sw3 (the same)", "t5 and its kin (mt5, longt5)",
-           "the vision and audio types")
+REFUSED = ("t5 and its kin (mt5, longt5)", "the vision and audio types")
 # The encoders that carry a pooler unless told not to.
 _POOLED = (BertModel, RobertaModel, AlbertModel, BigBirdModel, RobertaPreLayerNormModel)
 

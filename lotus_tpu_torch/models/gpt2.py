@@ -59,7 +59,7 @@ class GPT2Config(EncoderConfig):
     """The fields of a GPT-2 ``config.json`` the forward reads (the defaults
     are ``transformers``' ``GPT2Config``'s)."""
 
-    model_types: ClassVar[tuple[str, ...]] = ("gpt2",)
+    model_types: ClassVar[tuple[str, ...]] = ("gpt2", "gpt-sw3")  # GPT-SW3's CONFIG_MAPPING entry is GPT2Config
     activation_key: ClassVar[str] = "activation_function"
 
     vocab_size: int = 50257

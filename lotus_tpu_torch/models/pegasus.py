@@ -49,7 +49,7 @@ def _take_table(module: "Sinusoidal", state: dict, prefix: str, *_) -> None:
     want = sinusoidal_positions(cfg.max_position_embeddings, cfg.d_model)
     if table.shape != want.shape or not torch.allclose(table.float(), want.to(table.device), atol=TABLE_ATOL):
         raise ValueError(f"the checkpoint's {prefix}embed_positions.weight {tuple(table.shape)} is not the sinusoid "
-                         f"table {tuple(want.shape)} Flax Pegasus computes")
+                         f"table {tuple(want.shape)} Flax {cfg.model_types[0].capitalize()} computes")
 
 
 class Sinusoidal:

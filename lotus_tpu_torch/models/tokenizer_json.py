@@ -70,8 +70,10 @@ The tokenizer class is the one ``AutoTokenizer`` would build: named by
   record (``save_pretrained`` writes a ``BertPreTokenizer`` in its place),
   so reading the file would tokenize differently without an error.
 
-Blenderbot-Small's class is the slow one, which reads no ``tokenizer.json``
-(``blenderbot_small_tokenizer.py``; ``auto.load_tokenizer`` picks it).
+Blenderbot-Small's, GPT-SW3's and Marian's classes are slow ones, which
+read no ``tokenizer.json`` (``blenderbot_small_tokenizer.py``,
+``gpt_sw3_tokenizer.py``, ``marian_tokenizer.py``; ``auto.load_tokenizer``
+picks them).
 """
 
 from __future__ import annotations
@@ -658,7 +660,8 @@ JIEBA_TOKENIZERS = ("RoFormerTokenizer", "RoFormerTokenizerFast")
 # reads.
 TYPE_TOKENIZERS = {"roformer": "RoFormerTokenizer", "mbart": "MBartTokenizer", "bloom": "BloomTokenizer",
                    "blenderbot-small": "BlenderbotSmallTokenizer", "llama": "LlamaTokenizer",
-                   "mistral": "LlamaTokenizer", "gemma": "GemmaTokenizer"}
+                   "mistral": "LlamaTokenizer", "gemma": "GemmaTokenizer", "gpt-sw3": "GPTSw3Tokenizer",
+                   "marian": "MarianTokenizer"}
 
 
 def _mbart(lang: int, eos: int) -> tuple[Template, Template]:

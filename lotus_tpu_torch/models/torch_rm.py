@@ -1,8 +1,8 @@
 """Sentence-embedding RM on the card: an encoder (BERT, RoBERTa, XLM-R,
 DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird or RoBERTa-PreLayerNorm), an
-encoder-decoder (BART, mBART, Pegasus, Blenderbot or Blenderbot-Small) or a
-decoder (GPT-2, GPT-Neo, GPT-J, Llama, Mistral, Gemma, BLOOM or XGLM) in
-PyTorch.
+encoder-decoder (BART, mBART, Pegasus, Blenderbot, Blenderbot-Small or
+Marian) or a decoder (GPT-2, GPT-SW3, GPT-Neo, GPT-J, Llama, Mistral, Gemma,
+BLOOM or XGLM) in PyTorch.
 
 The port of ``JaxSentenceEncoderRM`` (``lotus_tpu/models/flax_rm.py:32-127``),
 which fills the role of the reference's ``SentenceTransformersRM``.  It
@@ -17,7 +17,9 @@ which Llama's and Gemma's tokenizers put on the left (so ``[CLS]`` pooling
 takes a padded row's first pad, as in the reference); BLOOM's ALiBi counts
 positions from each row's first real token.  A tokenizer without
 a pad token raises ``ValueError`` when a batch pads, as the reference's
-``padding=True`` does.  Where the reference
+``padding=True`` does, and so does an id past the model's vocabulary (a
+GPT-SW3 pad token its ``spiece.model`` lacks, added past it), where the
+reference's embeddings are NaN.  Where the reference
 fails on a bucket, the port raises before it runs the bucket: BigBird's
 block-sparse attention on one that is not whole blocks or holds fewer than
 4 (``big_bird.check_blocks``), an encoder-decoder on one longer than its
@@ -58,11 +60,12 @@ def seq_bucket(longest: int, max_seq_length: int) -> int:
 
 
 def bucketed_batches(tokenizer: JsonTokenizer, texts: Sequence[str], pairs: Sequence[str] | None,
-                     batch_size: int, max_seq_length: int,
-                     device: torch.device) -> Iterator[tuple[int, torch.Tensor, torch.Tensor]]:
+                     batch_size: int, max_seq_length: int, device: torch.device,
+                     vocab_size: int | None = None) -> Iterator[tuple[int, torch.Tensor, torch.Tensor]]:
     """(real rows, input ids, attention mask) on ``device`` for each batch of
     ``batch_size`` texts (or text pairs), padded with ``""`` to
-    ``batch_size`` rows and to the sequence bucket."""
+    ``batch_size`` rows and to the sequence bucket.  An id past
+    ``vocab_size`` raises ``ValueError`` before the batch leaves the host."""
     for lo in range(0, len(texts), batch_size):
         batch = [str(t) for t in texts[lo : lo + batch_size]]
         n = len(batch)
@@ -70,6 +73,10 @@ def bucketed_batches(tokenizer: JsonTokenizer, texts: Sequence[str], pairs: Sequ
         second = None if pairs is None else [str(t) for t in pairs[lo : lo + batch_size]] + [""] * (batch_size - n)
         enc = tokenizer.encode(batch, second, max_length=max_seq_length)
         ids, mask = tokenizer.pad(enc, seq_bucket(max(map(len, enc)), max_seq_length))
+        if vocab_size is not None and ids.size and ids.max() >= vocab_size:
+            raise ValueError(f"token id {ids.max()} lies outside the model's {vocab_size}-entry vocabulary (a pad or "
+                             f"added token the checkpoint has no row for): the reference's Flax embedding gathers NaN "
+                             f"for it, so its embeddings are not finite")
         yield (n, torch.from_numpy(ids).to(device, non_blocking=True),
                torch.from_numpy(mask).to(device, non_blocking=True))
 
@@ -125,7 +132,7 @@ class TorchSentenceEncoderRM(RM):
             # Batches are queued without waiting: the host tokenizes the next
             # batch while the card encodes this one.
             for n, ids, mask in bucketed_batches(self.tokenizer, docs, None, self.max_batch_size,
-                                                 self.max_seq_length, self.device):
+                                                 self.max_seq_length, self.device, self.encoder.config.vocab_size):
                 out.append(self._pool(self.encoder(ids, mask), mask)[:n])
         if not out:
             return np.zeros((0, self.encoder.config.hidden_size), np.float32)

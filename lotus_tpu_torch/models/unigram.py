@@ -11,7 +11,8 @@ where no one-character piece starts offers the unknown token at the
 lowest piece score minus 10.  Walking back from the end, consecutive unknown
 characters fuse into one token where ``fuse_unk`` (the library's default).
 Each piece's id is its row in the vocabulary; a fused or unknown string the
-vocabulary lacks is the unknown id.
+vocabulary lacks is the unknown id.  A piece given as None keeps its row but
+is never matched (sentencepiece's CONTROL, UNUSED and BYTE pieces).
 """
 
 from __future__ import annotations
@@ -20,23 +21,25 @@ UNK_PENALTY = 10.0  # sentencepiece's kUnkPenalty
 
 
 class Unigram:
-    """The model over ``vocab``, a list of (piece, score) in id order."""
+    """The model over ``vocab``, a list of (piece, score) in id order; the
+    unknown token scores ``min_score`` (the lowest piece score by default)
+    minus 10."""
 
-    def __init__(self, vocab: list[tuple[str, float]], unk_id: int | None = None, *, byte_fallback: bool = False,
-                 fuse_unk: bool = True):
+    def __init__(self, vocab: list[tuple[str | None, float]], unk_id: int | None = None, *,
+                 byte_fallback: bool = False, fuse_unk: bool = True, min_score: float | None = None):
         if byte_fallback:
             raise NotImplementedError("Unigram byte_fallback: the port's Unigram has no byte fallback")
         if not vocab:
             raise ValueError("a Unigram model needs a vocabulary")
-        self.ids = {piece: i for i, (piece, _) in enumerate(vocab)}
+        self.ids = {piece: i for i, (piece, _) in enumerate(vocab) if piece is not None}
         self.scores = [float(score) for _, score in vocab]
         self.unk_id = unk_id
         self.fuse_unk = fuse_unk
-        self.max_len = max(len(piece) for piece, _ in vocab)
-        self.unk_score = min(self.scores) - UNK_PENALTY
+        self.max_len = max(map(len, self.ids), default=1)
+        self.unk_score = (min(self.scores) if min_score is None else min_score) - UNK_PENALTY
         self._prefixes: set[str] | None = None  # every prefix of every piece, made at first use
 
-    def _pieces(self, word: str) -> list[str]:
+    def pieces(self, word: str) -> list[str]:
         """The best segmentation of ``word``, unknown runs fused."""
         n = len(word)
         ids, scores, unk = self.ids, self.scores, self.unk_id
@@ -84,7 +87,7 @@ class Unigram:
     def __call__(self, word: str) -> list[int]:
         """The ids of one pre-tokenized word."""
         got = []
-        for piece in self._pieces(word):
+        for piece in self.pieces(word):
             i = self.ids.get(piece, self.unk_id)
             if i is None:
                 raise ValueError(f"{piece!r} is not in the vocabulary and the model has no unknown id")

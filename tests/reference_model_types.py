@@ -8,7 +8,14 @@ reference raises.  Not a test (pytest does not collect it): it records
 what a later slice could port.  Its tiny configs hide faults that other
 widths meet: BLOOM at 2 heads runs, but a head count that is not a power of
 two fails in the reference's Flax code (``jnp.cat``,
-``test_torch_bloom.py::test_non_power_of_two_heads``).
+``test_torch_bloom.py::test_non_power_of_two_heads``).  Marian's record
+(``finite False``) is the tiny config's: it keeps MarianConfig's
+``pad_token_id`` and ``decoder_start_token_id`` 58100, past the seeded
+vocabulary, and Flax gathers NaN rows there; with both inside the
+vocabulary Marian runs finite (``test_torch_marian.py``, where the port
+raises ``ValueError`` for the out-of-range id).  The port runs
+marian and gpt-sw3 too, so without arguments the script lists only the
+types the reference's own classes fail on.
 
     JAX_PLATFORMS=cpu python tests/reference_model_types.py [type ...]
 """

@@ -111,7 +111,7 @@ def test_msgpack_only_and_other_model_types_raise(tmp_path):
     ``NotImplementedError`` naming the type, through ``config.json`` and
     through ``BertConfig`` (which reads ``bert`` alone); so does an
     activation outside the table (``quick_gelu``: the table holds ``gelu``,
-    ``gelu_new``, ``gelu_pytorch_tanh``, ``relu`` and ``silu``)."""
+    ``gelu_new``, ``gelu_pytorch_tanh``, ``relu``, ``silu`` and ``swish``)."""
     cfg_path = tmp_path / "cfg"
     write_bert(str(cfg_path))
     cfg = json.loads((cfg_path / "config.json").read_text())
@@ -124,7 +124,7 @@ def test_msgpack_only_and_other_model_types_raise(tmp_path):
             load_state_dict(str(d))
     with pytest.raises(FileNotFoundError):
         load_encoder(str(tmp_path / "absent"))
-    for model_type in ("marian", "gpt-sw3", "t5", "deberta-v2"):
+    for model_type in ("t5", "mt5", "longt5", "deberta-v2"):
         (cfg_path / "config.json").write_text(json.dumps({**cfg, "model_type": model_type}))
         with pytest.raises(NotImplementedError, match=model_type):
             load_encoder(str(cfg_path))

@@ -167,7 +167,7 @@ def test_loaded_modules_and_unported_types(checkpoints, tmp_path):
     # ALBERT's groups are shared: 3 layers run 2 group objects (0, 0, 1).
     groups = load_encoder(checkpoints["albert-groups"][0]).encoder.albert_layer_groups
     assert len(groups) == 2 and all(len(g.albert_layers) == 2 for g in groups)
-    for model_type in ("marian", "gpt-sw3", "deberta-v2", "t5"):
+    for model_type in ("t5", "mt5", "longt5", "deberta-v2"):
         with pytest.raises(NotImplementedError, match=model_type):
             encoder_config({"model_type": model_type, "vocab_size": 10})
     for family, key in (("distilbert", "activation"), ("electra", "hidden_act"), ("roberta", "hidden_act"),

@@ -30,7 +30,12 @@ made here from a seed).
   seeded merges); BLOOM's and XGLM's (``ALIBI_DECODERS``, their own files'):
   ``write_alibi_decoder``, ``bloom_tokenizer`` (byte-level BPE behind
   BLOOM's ``Split`` on a ``Regex``) and ``xglm_tokenizer`` (``XGLMConverter``'s
-  Unigram, ``</s> $A``).
+  Unigram, ``</s> $A``);
+- GPT-SW3 and Marian (their own files'): ``spm_proto`` (a seeded
+  sentencepiece ``ModelProto``, Unigram or BPE), ``converted`` (its
+  ``SpmConverter`` conversion), ``write_gpt_sw3`` (``spiece.model``),
+  ``write_marian`` (``source.spm`` and ``vocab.json``) and ``twin`` (the
+  same checkpoint with a ``tokenizer.json`` the reference can read).
 """
 
 from __future__ import annotations
@@ -630,3 +635,248 @@ def write_alibi_decoder(path: str, family: str, *, seed: int = 0, init_range: fl
     with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
         assert json.load(f)["model_type"] == family
     return model
+
+
+# ---- GPT-SW3 and Marian: sentencepiece .model files ------------------------------
+
+SPM_CHARS = "abcdefghijklmnopqrstuvwxyzéüßñ,.!'0123456789AHLOWDR"
+
+
+def spm_proto(seed: int = 0, model_type: str = "unigram", *, head: tuple[tuple[str, int], ...] = (),
+              byte_fallback: bool = False, blob: bytes | None = None, user: tuple[str, ...] = (), n_words: int = 200,
+              **normalizer):
+    """A seeded sentencepiece ``ModelProto`` (``transformers``'
+    ``sentencepiece_model_pb2_new``): the ``head`` pieces (piece, type),
+    the 256 ``<0xNN>`` byte pieces under ``byte_fallback``, the ``user``
+    pieces (USER_DEFINED), then seeded words.  A Unigram holds ``▁`` + each
+    word and two halves of the longer ones, at distinct seeded scores; a BPE
+    every prefix of ``▁`` + each word and one inner pair, scored by rank (the
+    earlier the higher).  Then every character of the pieces and
+    ``SPM_CHARS`` at the lowest scores.  ``blob`` is the charsmap;
+    ``normalizer`` sets NormalizerSpec fields."""
+    from transformers.utils import sentencepiece_model_pb2_new as pb
+
+    rng = np.random.default_rng(seed)
+    m = pb.ModelProto()
+
+    def add(piece: str, score: float, kind: int = 1) -> None:
+        p = m.pieces.add()
+        p.piece, p.score, p.type = piece, score, kind
+
+    for piece, kind in head:
+        add(piece, 0.0, kind)
+    if byte_fallback:
+        for b in range(256):
+            add(f"<0x{b:02X}>", 0.0, 6)
+    for piece in user:
+        add(piece, 0.0, 4)
+    taken = {p.piece for p in m.pieces}
+    pieces: dict[str, float] = {}
+    for w in seeded_words(seed, n_words):
+        if model_type == "unigram":
+            pieces.setdefault("▁" + w, -float(rng.uniform(3, 12)))
+            if len(w) > 2:
+                k = int(rng.integers(1, len(w)))
+                pieces.setdefault(w[:k], -float(rng.uniform(6, 12)))
+                pieces.setdefault(w[k:], -float(rng.uniform(6, 12)))
+        else:
+            form = "▁" + w
+            for k in range(2, len(form) + 1):
+                pieces.setdefault(form[:k], 0.0)
+            if len(w) > 3:
+                pieces.setdefault(w[1:3], 0.0)
+    pieces = {p: s for p, s in pieces.items() if p not in taken}
+    chars = [c for c in dict.fromkeys("".join(pieces) + SPM_CHARS + "▁") if c not in pieces and c not in taken]
+    if model_type == "bpe":
+        pieces = {p: -float(i) for i, p in enumerate(pieces)}
+    low = min(pieces.values(), default=0.0)
+    for piece, score in pieces.items():
+        add(piece, score)
+    for i, c in enumerate(chars):
+        add(c, low - 1.0 - i * 0.125 if model_type == "bpe" else -float(rng.uniform(13, 16)))
+    m.trainer_spec.model_type = 2 if model_type == "bpe" else 1
+    m.trainer_spec.byte_fallback = byte_fallback
+    kinds = [p.type for p in m.pieces]
+    m.trainer_spec.unk_id = kinds.index(2) if 2 in kinds else 0
+    if blob is not None:
+        m.normalizer_spec.precompiled_charsmap = blob
+    for k, v in normalizer.items():
+        setattr(m.normalizer_spec, k, v)
+    return m
+
+
+class _Extractor:
+    """``SentencePieceExtractor`` without ``sentencepiece``: the vocabulary
+    in id order and ``generate_merges`` over the scores."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def extract(self, vocab_scores=None):
+        from transformers.convert_slow_tokenizer import generate_merges
+
+        vocab = {p: i for i, (p, _) in enumerate(vocab_scores)}
+        return vocab, generate_merges(vocab, vocab_scores)
+
+
+def converted(proto) -> Tokenizer:
+    """``SpmConverter``'s ``tokenizers`` conversion of ``proto`` (its BPE
+    merges from ``generate_merges``, as ``SentencePieceExtractor`` makes
+    them)."""
+    import tempfile
+    import types
+
+    from transformers.convert_slow_tokenizer import SpmConverter
+
+    class Converter(SpmConverter):
+        SpmExtractor = _Extractor
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "sp.model")
+        with open(path, "wb") as f:
+            f.write(proto.SerializeToString())
+        return Converter(types.SimpleNamespace(vocab_file=path)).converted()
+
+
+GPT_SW3_HEAD = (("<unk>", 2), ("<pad>", 3), ("<s>", 3), ("<|endoftext|>", 3))
+
+
+def gpt_sw3_config(vocab_size: int, model_type: str = "gpt-sw3", **kw):
+    """A tiny GPT-SW3 config (GPT-2's: width 32, 2 layers, 4 heads, FFN 64,
+    128 positions, exact GELU as the published ones), ``model_type``
+    ``gpt-sw3`` or ``gpt2`` (the published files say ``gpt2``)."""
+    fields = dict(n_positions=128, n_embd=32, n_layer=2, n_head=4, n_inner=64, activation_function="gelu",
+                  initializer_range=0.2, pad_token_id=1, bos_token_id=2, eos_token_id=3)
+    fields.update(kw)
+    cfg = transformers.GPT2Config(vocab_size=vocab_size, **fields)
+    cfg.model_type = model_type
+    return cfg
+
+
+def write_gpt_sw3(path: str, *, seed: int = 0, model_type: str = "gpt-sw3", proto=None, tokenizer_config=None,
+                  **cfg_kw) -> str:
+    """A GPT-SW3 directory: ``spiece.model`` (a seeded BPE with byte
+    fallback and GPT-SW3's four special pieces first, unless ``proto``),
+    ``tokenizer_config.json`` naming ``GPTSw3Tokenizer``, and GPT-2 weights
+    of std 0.2 (LayerNorms around 1 and 0) saved with ``save_pretrained``,
+    ``config.json``'s ``model_type`` set to ``model_type``."""
+    proto = proto or spm_proto(seed, "bpe", head=GPT_SW3_HEAD, byte_fallback=True, remove_extra_whitespaces=False)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "spiece.model"), "wb") as f:
+        f.write(proto.SerializeToString())
+    with open(os.path.join(path, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump({"tokenizer_class": "GPTSw3Tokenizer", "do_lower_case": False, "remove_space": False,
+                   "keep_accents": True, **(tokenizer_config or {})}, f)
+    torch.manual_seed(seed)
+    model = transformers.GPT2Model(gpt_sw3_config(len(proto.pieces), model_type, **cfg_kw)).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "ln_" in name:
+                p.normal_(1.0 if name.endswith("weight") else 0.0, 0.2)
+            elif name.endswith("bias"):
+                p.normal_(0.0, 0.2)
+    model.save_pretrained(path)
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        cfg = json.load(f)
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+        json.dump({**cfg, "model_type": model_type}, f)
+    return path
+
+
+MARIAN_HEAD = (("<unk>", 2), ("<s>", 3), ("</s>", 3))
+
+
+def marian_vocab(proto) -> dict[str, int]:
+    """A ``vocab.json`` for ``proto`` in opus-mt's layout: ``</s>`` 0,
+    ``<unk>`` 1, the other pieces in a seeded order, ``<pad>`` last (the
+    ``pad_token_id`` and ``decoder_start_token_id``)."""
+    rest = [p.piece for p in proto.pieces if p.piece not in ("</s>", "<unk>", "<s>")]
+    order = np.random.default_rng(len(rest)).permutation(len(rest))
+    return {t: i for i, t in enumerate(["</s>", "<unk>", *(rest[j] for j in order), "<pad>"])}
+
+
+def marian_config(vocab_size: int, **kw):
+    """A tiny Marian config in opus-mt's layout (width 32, 2 + 2 layers, 2
+    heads, FFN 64, 128 positions, ``swish``, ``scale_embedding``, pad and
+    decoder start the last id, eos 0)."""
+    fields = dict(d_model=32, encoder_layers=2, decoder_layers=2, encoder_attention_heads=2,
+                  decoder_attention_heads=2, encoder_ffn_dim=64, decoder_ffn_dim=64, init_std=0.2,
+                  max_position_embeddings=128, scale_embedding=True, activation_function="swish",
+                  pad_token_id=vocab_size - 1, decoder_start_token_id=vocab_size - 1, eos_token_id=0,
+                  bos_token_id=0, forced_eos_token_id=0)
+    fields.update(kw)
+    return transformers.MarianConfig(vocab_size=vocab_size, **fields)
+
+
+def write_marian(path: str, *, seed: int = 0, proto=None, **cfg_kw) -> str:
+    """An opus-mt-style directory: ``source.spm`` and ``target.spm`` (a
+    seeded Unigram with the ``CHARSMAP`` charsmap, unless ``proto``),
+    ``vocab.json`` (``marian_vocab``), ``tokenizer_config.json`` naming
+    ``MarianTokenizer``, and Marian weights of std 0.2 (LayerNorms around 1
+    and 0) saved with ``save_pretrained``."""
+    proto = proto or spm_proto(seed, "unigram", head=MARIAN_HEAD, blob=build_charsmap(CHARSMAP))
+    vocab = marian_vocab(proto)
+    os.makedirs(path, exist_ok=True)
+    for name in ("source.spm", "target.spm"):
+        with open(os.path.join(path, name), "wb") as f:
+            f.write(proto.SerializeToString())
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump({"tokenizer_class": "MarianTokenizer", "source_lang": "en", "target_lang": "de"}, f)
+    torch.manual_seed(seed)
+    model = transformers.MarianModel(marian_config(len(vocab), **cfg_kw)).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                p.normal_(1.0 if name.endswith("weight") else 0.0, 0.2)
+            elif name.endswith("bias"):
+                p.normal_(0.0, 0.2)
+    model.save_pretrained(path)
+    return path
+
+
+def twin(path: str, out: str) -> str:
+    """``path``'s checkpoint with its sentencepiece tokenizer converted to
+    the ``tokenizer.json`` a fast tokenizer would read, for the reference
+    (whose slow classes need ``sentencepiece``): ``SpmConverter``'s
+    pipeline over ``spiece.model`` (GPT-SW3's special tokens; no template)
+    or over ``source.spm`` with ``vocab.json``'s ids and the ``$A </s>``
+    template (Marian's); ``tokenizer_config.json`` names
+    ``PreTrainedTokenizerFast``."""
+    import shutil
+
+    from transformers.utils import sentencepiece_model_pb2_new as pb
+
+    shutil.copytree(path, out, ignore=shutil.ignore_patterns("*.spm", "*.model", "vocab.json",
+                                                             "tokenizer_config.json"))
+    marian = os.path.exists(os.path.join(path, "source.spm"))
+    proto = pb.ModelProto()
+    with open(os.path.join(path, "source.spm" if marian else "spiece.model"), "rb") as f:
+        proto.ParseFromString(f.read())
+    spec = json.loads(converted(proto).to_str())
+    if marian:
+        with open(os.path.join(path, "vocab.json"), encoding="utf-8") as f:
+            vocab = json.load(f)
+        scores = {p.piece: p.score for p in proto.pieces}
+        spec["model"]["vocab"] = [[t, scores.get(t, 0.0)] for t in vocab]
+        spec["model"]["unk_id"] = vocab["<unk>"]
+        spec["added_tokens"] = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+                                 "rstrip": False, "normalized": False, "special": True}
+                                for t in ("</s>", "<unk>", "<pad>")]
+        spec["post_processor"] = {"type": "TemplateProcessing",
+                                  "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                                             {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                                  "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                                           {"Sequence": {"id": "B", "type_id": 0}},
+                                           {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                                  "special_tokens": {"</s>": {"id": "</s>", "ids": [vocab["</s>"]],
+                                                             "tokens": ["</s>"]}}}
+        config = {"pad_token": "<pad>", "eos_token": "</s>", "unk_token": "<unk>"}
+    else:
+        config = {"pad_token": "<pad>", "eos_token": "<|endoftext|>", "unk_token": "<unk>", "bos_token": "<s>"}
+    with open(os.path.join(out, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(out, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", **config}, f)
+    return out
