@@ -100,8 +100,11 @@ Phases (each prints its seconds and the card's name and power limit):
    the k-means++ seeding alone at k 1024 and 4096, the ``sem_dedup``
    self-join as store calls (a Flat
    store, ids = every row, K 65) over 65,536 query rows, extrapolated,
-   whose thresholded pairs of 256 queries must equal exact f32's, and the
-   reference's 20k x 20k self-join at K 16;
+   whose thresholded pairs of 256 queries must equal exact f32's, then
+   ``sem_dedup``'s host half over those rows' pairs at two thresholds
+   (``lotus_tpu_torch.native.union_find``: edges, components, host ms,
+   the same components as its plain version), and the reference's 20k x
+   20k self-join at K 16;
 17. the ids path at config 1's shape (10,000 x 384 Flat, one query a call:
    recall@10 must be 1.0) and config 2's (100,000 x 100,000 x 768, k 5:
    pair recall against the full exact oracle), warm host ms and device ms;
@@ -282,23 +285,46 @@ Phases (each prints its seconds and the card's name and power limit):
    opus-mt-en-de at full width and depth (6 + 6 layers) in bf16 over 4,096
    of config 1's passages into a Flat store: recall@10 1.0 through ids,
    >= 0.98 through K2 at d 512, K2 held to its plain version on the
-   call's inputs.  The files are deleted after.
+   call's inputs.  The files are deleted after;
+33. the serving tier (``lotus_tpu_torch.serving`` and ``.native``) under
+   ``build/lotus_tpu_torch/smoke_serving``.  33a: config 4's seeded corpus
+   in 4 contiguous quarters of 2,621,440 rows, each built on the card with
+   config 4's per-list shape (nlist 1,024, block_align 1,024, residual int8
+   + int4) and written as built (``save_ivf_state``; build seconds and GB
+   each); 4 child processes (``chip_smoke.py --serve <dir> <id_offset>``,
+   all on ``cuda:0``) each load one quarter into a ``TorchVS`` (nprobe 208,
+   rescore 24, int8 queries, query_chunk 2,048) behind a ``ShardServer``;
+   a ``SearchFrontEnd`` sends config 4's 4,096 queries over loopback
+   (k 10: recall@10 against phase 3's exact f32 oracle must reach 0.95,
+   printed against BASELINE's 0.99 and phase 5's), then 5 timed batches
+   (QPS) and 200 single-query requests (p50 / p99 ms); the share of the
+   front end's wall outside the stores' calls; each child's exit record
+   (K1 launches, each request's seconds, K1 held to its plain version on
+   its store call's inputs).  33b: the flat-scan corpus in 2 halves of
+   524,288 rows, bf16 ``TorchVS`` stores under ``scan="pallas"`` (K2)
+   behind ``ShardServer`` threads: recall@10 at least phase 21's bf16
+   store's less 0.001, QPS, the share outside the stores, K2 held to its
+   plain version on a half's call.  33c: ``native.topk_merge_batch``
+   against its plain version on 33a's (4,096, 4, 10) pools (ids equal,
+   scores bit for bit), both timed.  The files are deleted after.
 
 Each main path runs with its kernel's launch count set to 0 just before it
 and read just after: K1 over phases 5-8 (calibration included), in each
 rank over phase 12's sharded search, over phase 13 and over each K1 store of
-phase 15 and over phase 25's, 27's, 28's, 29's, 30's, 31's and 32's stores;
-K2 over phase 10, over phases 20-21, over phase 15's Flat store and over
-phase 24's, 27's, 28's, 29's, 30's, 31's and 32's;
+phase 15 and over phase 25's, 27's, 28's, 29's, 30's, 31's and 32's stores,
+and in each shard server of 33a over the requests it served; K2 over phase
+10, over phases 20-21, over phase 15's Flat store, over phase 24's, 27's,
+28's, 29's, 30's, 31's and 32's, and over 33b's front end;
 each must have launched its kernel, and each phase prints its count.
 The last three lines are the kernel table (K1, whose launches add the
-ranks', and K2, then the variants later slices added, each with its own
-path's launches: K2 at d 1024 is phase 27's), the card, and
-``{"ok": true, "device": {...}}``.  Without a GPU, or without the
+ranks' and the shard servers', and K2, then the variants later slices
+added, each with its own path's launches: K2 at d 1024 is phase 27's),
+the card, and ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 repository beside this file, it exits non-zero and
-prints no result.  ``chip_smoke.py --rank <dir>`` is one rank of phase 12 and
-``chip_smoke.py --profile <dir>`` phase 26's child, both started by the script
-itself.
+prints no result.  ``chip_smoke.py --rank <dir>`` is one rank of phase 12,
+``chip_smoke.py --profile <dir>`` phase 26's child and ``chip_smoke.py
+--serve <index_dir> <id_offset>`` one shard server of phase 33a, each
+started by the script itself.
 """
 
 from __future__ import annotations
@@ -1094,6 +1120,7 @@ def config3_phase(dev, n: int = 1_000_000, k: int = 1024, seed_ks=(1024, 4096), 
     say(f"  thresholded pairs (> 0.9) of 256 queries vs exact f32: {int(over.sum())} pairs ({others} with another "
         f"row), {mismatched} queries differ")
     assert mismatched == 0, "the self-join's thresholded pairs differ from exact f32"
+    dedup_components(out, slice_s)
     del vs
     shutil.rmtree(index_dir, ignore_errors=True)
     sub = x[:20_000]
@@ -1104,6 +1131,45 @@ def config3_phase(dev, n: int = 1_000_000, k: int = 1024, seed_ks=(1024, 4096), 
     i2.cpu()
     say(f"  the reference's measure, 20k x 20k self-join at K 16 (flat_search): "
         f"{1e3 * (time.perf_counter() - t0):.3f} ms [{GPU}]")
+
+
+DEDUP_THRESHOLDS = (0.9, 0.875)  # the phase's own, and the median of a row's 64 same-cluster neighbours' scores
+
+
+def dedup_components(out, join_s: float, thresholds=DEDUP_THRESHOLDS) -> None:
+    """``sem_dedup``'s host half (``sem_dedup.py:61-70``) over the self-join's
+    output ``out`` (each query row's neighbours): the pairs above the
+    threshold with another row, their values numbered, and the components
+    by ``lotus_tpu_torch.native.union_find`` beside the self-join's
+    ``join_s`` seconds, held to the plain version (``union_find_reference``:
+    the same components; its roots differ, having no union by rank)."""
+    import numpy as np
+
+    from lotus_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.lib()
+    say(f"  lotus_tpu_torch.native built and loaded in {time.perf_counter() - t0:.3f} s (g++ at first use)")
+    sims, nbrs = np.asarray(out.distances, np.float32).ravel(), np.asarray(out.indices, np.int64).ravel()
+    rows = len(out.indices)
+    left = np.repeat(np.arange(rows), len(out.indices[0]))
+    for threshold in thresholds:
+        keep = (sims > threshold) & (nbrs != left) & (nbrs >= 0)
+        values, edges = np.unique(np.stack([left[keep], nbrs[keep]], 1), return_inverse=True)
+        edges = edges.reshape(-1, 2)
+        t0 = time.perf_counter()
+        labels = native.union_find(edges, len(values))
+        uf_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = native.union_find_reference(edges, len(values))
+        plain_s = time.perf_counter() - t0
+        n_comp = len(np.unique(labels))
+        same = n_comp == len(np.unique(plain)) == len(np.unique(np.stack([labels, plain], 1), axis=0))
+        say(f"  sem_dedup's union-find at threshold {threshold} over the {rows:,} query rows' pairs: {len(edges):,} "
+            f"edges over {len(values):,} values -> {n_comp:,} components ({len(values) - n_comp:,} values removed); "
+            f"union_find {1e3 * uf_s:.3f} ms (host) beside the self-join's {join_s:.3f} s; the plain version "
+            f"{1e3 * plain_s:.1f} ms, components {'equal' if same else 'DIFFER'} [{GPU}]")
+        assert same, "native.union_find's components differ from its plain version's"
 
 
 def ids_store_runs(label: str, vs, q, k: int, ids, device_fn, gt) -> float:
@@ -2059,11 +2125,12 @@ def k2_store_compare(label: str, store, qv, top: int) -> list:
                         exact=args[0].dtype == torch.int8, k=top, reps=5, **kw), args) for args, kw in calls]
 
 
-def k1_store_compare(label: str, store, queries, k: int) -> None:
+def k1_store_compare(label: str, store, queries, k: int) -> list[tuple]:
     """K1 against its plain version on the inputs an IVF store's call gives
     it: the same call once more, the grouped probe folding through a
     recorder (bit for bit where the dot is int8); each call timed beside
-    its bound (``k1_bound``)."""
+    its bound (``k1_bound``).  Returns (max_abs_err, ms, plain ms, bound ms,
+    bound_by) for each call."""
     from lotus_tpu_torch.ops import ivf_probe
 
     record, calls = recording(ivf_probe.probe_fold_reference)
@@ -2074,8 +2141,9 @@ def k1_store_compare(label: str, store, queries, k: int) -> None:
     finally:
         ivf_probe.ivf_search_grouped_probe = grouped
     assert calls, f"{label}: the store did not call K1's wrapper"
+    figures = []
     for args, kw in calls:
-        _, ms, _ = compare(f"{label}: the IVF store's {args[1].dtype} rows (bl {kw['bl']}, {args[1].shape[0]:,} "
+        err, ms, plain_ms = compare(f"{label}: the IVF store's {args[1].dtype} rows (bl {kw['bl']}, {args[1].shape[0]:,} "
                            f"storage rows), {len(queries):,} {args[0].dtype} queries, "
                            f"{'int8' if kw['int8_dot'] else 'float'} dot, {'packed' if kw['packed'] else 'unpacked'}",
                            args, exact=kw["int8_dot"], tol=2e-3 if kw["packed"] else 1e-4, reps=5, **kw)
@@ -2083,6 +2151,8 @@ def k1_store_compare(label: str, store, queries, k: int) -> None:
                                            packed=kw["packed"], top1=kw.get("top1", False))
         say(f"    bound {bound:.4f} ms ({by}; {n_live} live chunks, each probed list read once), K1 at "
             f"{100 * bound / ms:.1f}% of it [{GPU}]")
+        figures.append((err, ms, plain_ms, bound, by))
+    return figures
 
 
 def config2_text_phase(dev, vocab: list[str], dirs: dict, n: int = 100_000, nq: int = 1000,
@@ -4133,6 +4203,397 @@ def spm_phases(dev, vocab: list[str]) -> tuple[int, int]:
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: the serving tier on the card (lotus_tpu_torch.serving, .native)
+# ---------------------------------------------------------------------------
+
+SERVE_DIR = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_serving")
+QUARTERS = 4  # 33a's shard servers: one child process a quarter of config 4, all on this card
+# Config 4's per-list shape (2,560 rows a list) over a quarter of its rows:
+# nlist cut by 4.  nprobe stays config 4's 208: at 52, the same share of the
+# lists, the quarters' merged recall@10 falls below the 0.95 gate
+# (``quarter_stores`` prints both); their quantizer is coarser against the
+# corpus's 65,536 synthetic clusters (64 a list, not 16).
+QUARTER = dict(CONFIG4, n=CONFIG4["n"] // QUARTERS, nlist=CONFIG4["nlist"] // QUARTERS)
+QUARTER_STORE = dict(index_type="ivf", device_dtype="int8", int8_refine=True, nprobe=NPROBE, rescore=RESCORE,
+                     int8_queries=True, query_chunk=QUERY_CHUNK)
+FLAT_SHARD_STORE = dict(index_type="flat", device_dtype="bfloat16", scan="pallas")  # 33b's halves
+SERVE_BATCHES = 5  # timed B-query batches through the front end, after the one whose recall is taken
+SINGLE_REQUESTS = 200  # single-query requests, each timed on the front end's clock
+SERVE_TIMEOUT = 300  # seconds the shard servers may take to load, or to stop, before they are killed
+
+
+def write_record(path: str, record: dict) -> None:
+    with open(path + ".tmp", "w") as f:
+        json.dump(record, f)
+    os.replace(path + ".tmp", path)  # a reader never sees a partial record
+
+
+class TimedStore:
+    """A store as ``vs_search_fn`` calls it, keeping the seconds of each
+    ``__call__`` in order (``seconds``) and its last batch of several
+    queries (``last``)."""
+
+    def __init__(self, vs):
+        self.vs, self.seconds, self.last = vs, [], None
+
+    def __call__(self, xq, k):
+        t0 = time.perf_counter()
+        out = self.vs(xq, k)
+        self.seconds.append(time.perf_counter() - t0)
+        if len(xq) > 1:
+            self.last = xq
+        return out
+
+
+def timed_search_fn(store: TimedStore, id_offset: int):
+    """``vs_search_fn`` over ``store``, keeping the seconds of each request
+    (the store's call and the ``RMOutput`` lists' way back to arrays) in
+    its ``seconds``."""
+    from lotus_tpu_torch.serving import vs_search_fn
+
+    inner = vs_search_fn(store, id_offset)
+
+    def search(xq, k):
+        t0 = time.perf_counter()
+        out = inner(xq, k)
+        search.seconds.append(time.perf_counter() - t0)
+        return out
+
+    search.seconds = []
+    return search
+
+
+def serve_main(index_dir: str, id_offset: int) -> int:
+    """One shard server of phase 33a (``chip_smoke.py --serve <index_dir>
+    <id_offset>``), started by ``shard_servers``: loads its quarter into a
+    ``TorchVS`` on the card, serves it through ``ShardServer`` until its
+    standard input closes, then writes its exit record (K1's launches over
+    the requests it served, each request's seconds, its counters) after
+    holding K1 to its plain version on the inputs its store's call gives it
+    (``k1_store_compare``; those launches are not counted)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("serve: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.ops.ivf_probe import probe_fold
+    from lotus_tpu_torch.serving import ShardServer
+
+    global GPU
+    GPU = card()
+    t0 = time.perf_counter()
+    vs = TorchVS(**QUARTER_STORE)
+    vs.load_index(index_dir)
+    vs._materialize()  # the quarter onto the card before the first request
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    store = TimedStore(vs)
+    search = timed_search_fn(store, id_offset)
+    probe_fold.launches = 0  # count only what the requests launch
+    server = ShardServer(search).start()
+    write_record(os.path.join(index_dir, "serve_ready.json"),
+                 dict(port=server.address[1], load_s=load_s, resident=torch.cuda.memory_allocated()))
+    sys.stdin.read()  # the parent closes it to stop the server
+    server.stop()
+    record = dict(launches=probe_fold.launches, stats=server.stats, routes=dict(vs.stats["routes"]), load_s=load_s,
+                  store_s=store.seconds, fn_s=search.seconds, peak=torch.cuda.max_memory_allocated())
+    assert store.last is not None, "the server saw no batch"
+    record["k1"] = k1_store_compare(f"shard at id offset {id_offset:,}", vs, store.last[:QUERY_CHUNK], K)
+    write_record(os.path.join(index_dir, "serve_exit.json"), record)
+    return 0
+
+
+def quarter_stores(dev, gt, root: str = SERVE_DIR, cfg: dict = QUARTER, quarters: int = QUARTERS) -> list:
+    """33a's stores: config 4's seeded corpus cut into ``quarters``
+    contiguous row ranges, each built on the card with config 4's per-list
+    shape (``synth_ivf_device_build(first_chunk=...)``) and written as a
+    ``TorchVS`` index directory as built (``save_ivf_state``).  Beside it,
+    each built quarter is searched in this process for the first
+    ``len(gt)`` queries at nprobe 52 (config 4's share of the lists) and at
+    the served nprobe, and the merged recall of each against ``gt`` is
+    printed: what chose 33a's nprobe.  Returns (directory, id offset) for
+    each."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch.ops.bench_data import synth_ivf_device_build
+    from lotus_tpu_torch.ops.ivf import save_ivf_state
+    from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    say(f"  free disk {shutil.disk_usage(root).free / 2**30:.1f} GiB at {os.path.relpath(root, REPO)}")
+    stores = []
+    probes = sorted({max(1, NPROBE * cfg["nlist"] // CONFIG4["nlist"]), QUARTER_STORE["nprobe"]})
+    found = {p: [] for p in probes}
+    for q in range(quarters):
+        built = synth_ivf_device_build(**cfg, first_chunk=q * (cfg["n"] // cfg["chunk"]), device=dev)
+        for p in probes:
+            d, i = ivf_search_grouped_probe(built["state"], built["queries"][: len(gt)], K, nprobe=p, metric="ip",
+                                            rescore=RESCORE, int8_queries=True)
+            found[p].append((d.cpu().numpy(), i.cpu().numpy() + q * cfg["n"]))
+        path = os.path.join(root, f"quarter{q}")
+        t0 = time.perf_counter()
+        save_ivf_state(path, built["state"])
+        meta = built["state"]["meta"]
+        say(f"  quarter {q} (rows {q * cfg['n']:,}..{(q + 1) * cfg['n'] - 1:,}): built in "
+            f"{built['build_seconds']:.3f} s (" + ", ".join(f"{k} {v:.2f} s" for k, v in built["timings"].items())
+            + f"), nlist {meta['nlist']}, window {meta['probe_window']}; {dir_bytes(path) / 1e9:.3f} GB written in "
+            f"{time.perf_counter() - t0:.2f} s [{GPU}]")
+        stores.append((path, q * cfg["n"]))
+        del built
+        torch.cuda.empty_cache()
+    for p in probes:
+        s, i = (np.concatenate([f[j] for f in found[p]], 1) for j in (0, 1))
+        merged = np.take_along_axis(i, np.argsort(-s, axis=1, kind="stable")[:, :K], 1)
+        say(f"  the {quarters} quarters at nprobe {p} of {cfg['nlist']}, searched here and merged: recall@{K} "
+            f"{recall_at(merged, gt)!r} over {len(gt)} queries")
+    return stores
+
+
+def shard_servers(stores: list, timeout: float = SERVE_TIMEOUT):
+    """Start one ``chip_smoke.py --serve`` child a store and wait until each
+    listens.  Returns the processes and their ready records; a child that
+    fails or does not start in ``timeout`` seconds stops them all."""
+    procs = []
+    for path, offset in stores:
+        with open(os.path.join(path, "serve.log"), "w") as log:
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--serve", path, str(offset)],
+                                          stdin=subprocess.PIPE, stdout=log, stderr=subprocess.STDOUT))
+    ready_files = [os.path.join(path, "serve_ready.json") for path, _ in stores]
+    deadline = time.monotonic() + timeout
+    while not all(os.path.exists(f) for f in ready_files):
+        if any(p.poll() is not None for p in procs) or time.monotonic() > deadline:
+            stop_shard_servers(procs, stores, timeout=0)
+            raise AssertionError("a shard server did not start")
+        time.sleep(0.2)
+    ready = []
+    for f in ready_files:
+        with open(f) as fh:
+            ready.append(json.load(fh))
+    return procs, ready
+
+
+def stop_shard_servers(procs, stores: list, timeout: float = SERVE_TIMEOUT) -> list[dict]:
+    """Close each child's standard input (its signal to stop), wait for it
+    (killing it after ``timeout`` seconds) and return the exit records; a
+    child that failed has the end of its log printed and fails the phase."""
+    for p in procs:
+        try:
+            p.stdin.close()
+        except OSError:
+            pass
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        try:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for (path, _), code in zip(stores, codes):
+            with open(os.path.join(path, "serve.log")) as f:
+                say(f"  shard server {os.path.basename(path)} exited {code}; the end of its log:\n" + f.read()[-3000:])
+        raise AssertionError(f"shard servers exited {codes}")
+    records = []
+    for path, _ in stores:
+        with open(os.path.join(path, "serve_exit.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def outside_share(walls: list[float], store_s: list[list[float]]) -> float:
+    """The share of the front end's wall, over requests with these walls,
+    that lies outside the stores' calls: each request's wall less its
+    slowest shard's ``__call__`` (the shards run side by side)."""
+    inside = [max(s[i] for s in store_s) for i in range(len(walls))]
+    return 1.0 - sum(inside) / sum(walls)
+
+
+def serving_config4_phase(stores: list, xq, gt, whole_recall: float):
+    """33a: config 4's quarters behind ``QUARTERS`` shard-server processes and
+    one ``SearchFrontEnd`` over loopback.  Returns K1's launches (the
+    children's), the candidate pools of one B-query batch ((B, QUARTERS, K)
+    scores and global ids, as each shard answered) and the front end's
+    merged ids of the same batch."""
+    import numpy as np
+
+    from lotus_tpu_torch import native
+    from lotus_tpu_torch.serving import SearchFrontEnd
+
+    native.lib()  # built here: the front end merges through it from its first request
+    t0 = time.perf_counter()
+    procs, ready = shard_servers(stores)
+    say(f"  {len(procs)} shard servers listening after {time.perf_counter() - t0:.2f} s: " + "; ".join(
+        f"quarter {q} loaded in {r['load_s']:.2f} s, {r['resident'] / 2**30:.3f} GiB resident"
+        for q, r in enumerate(ready)) + f" [{GPU}]")
+    try:
+        fe = SearchFrontEnd([("127.0.0.1", r["port"]) for r in ready])
+        t0 = time.perf_counter()
+        dists, ids = fe.search(xq, K)
+        first_s = time.perf_counter() - t0
+        recall = recall_at(ids, gt)
+        finite = (bool(np.isfinite(dists).all()) and ids.shape == (len(xq), K) and int(ids.min()) >= 0
+                  and int(ids.max()) < QUARTERS * QUARTER["n"])
+        walls = []
+        for _ in range(SERVE_BATCHES):
+            t0 = time.perf_counter()
+            fe.search(xq, K)
+            walls.append(time.perf_counter() - t0)
+        singles = []
+        for i in range(SINGLE_REQUESTS):
+            t0 = time.perf_counter()
+            fe.search(xq[i], K)
+            singles.append(time.perf_counter() - t0)
+        pools = [c.search(xq, K) for c in fe.clients]  # one more batch a shard: 33c's candidate pools
+        stats = fe.stats()
+        fe.close()
+    except BaseException:
+        stop_shard_servers(procs, stores, timeout=0)
+        raise
+    records = stop_shard_servers(procs, stores)
+    launches = sum(r["launches"] for r in records)
+    batch_store = [r["store_s"][1 : 1 + SERVE_BATCHES] for r in records]
+    batch_fn = [r["fn_s"][1 : 1 + SERVE_BATCHES] for r in records]
+    single_store = [r["store_s"][1 + SERVE_BATCHES : 1 + SERVE_BATCHES + SINGLE_REQUESTS] for r in records]
+    lat = np.asarray(singles) * 1e3
+    say(f"  recall@{K} vs exact f32 over the whole corpus = {recall!r} over {len(gt)} queries (the whole store, "
+        f"phase 5: {whole_recall!r}; gate 0.95, BASELINE's bar 0.99: {'met' if recall >= 0.99 else 'missed'}); "
+        f"finite {finite}; first batch {first_s:.3f} s")
+    say(f"  front end: QPS {len(xq) * SERVE_BATCHES / sum(walls):,.1f} at B {len(xq)}, k {K} ({1e3 * min(walls):.2f}"
+        f"..{1e3 * max(walls):.2f} ms a batch); single requests p50 {np.percentile(lat, 50):.3f} ms, p99 "
+        f"{np.percentile(lat, 99):.3f} ms over {SINGLE_REQUESTS} [{GPU}]")
+    say(f"  outside the {QUARTERS} stores' __call__ (frames, loopback, vs_search_fn's list round trip, the merge): "
+        f"{100 * outside_share(walls, batch_store):.1f}% of the batches' wall, "
+        f"{100 * outside_share(singles, single_store):.1f}% of the single requests'; the stores' calls "
+        f"{1e3 * np.mean(batch_store):.2f} ms a batch on average (slowest shard "
+        f"{1e3 * np.mean(np.max(batch_store, axis=0)):.2f}), vs_search_fn's lists to arrays "
+        f"{1e3 * (np.mean(batch_fn) - np.mean(batch_store)):.2f} ms a batch [{GPU}]")
+    say(f"  OP_STATS over the front end: {stats['searches']} searches, {stats['queries']:,} queries")
+    for q, r in enumerate(records):
+        err, ms, plain_ms, bound, by = r["k1"][0]
+        say(f"  shard server {q}: K1 launches {r['launches']} over {r['stats']['searches']} requests, routes "
+            f"{r['routes']}; K1 against its plain version on its store call's inputs: max_abs_err {err!r}, "
+            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}); peak {r['peak'] / 2**30:.2f} "
+            f"GiB [{GPU}]")
+    say(f"  K1 launches of this path: {launches} (the {QUARTERS} children's)")
+    assert finite, "the front end's output is not finite, has the wrong shape or ids out of range"
+    assert recall >= 0.95, f"served recall@10 {recall} below 0.95"
+    assert all(r["launches"] > 0 for r in records), "a shard server did not launch K1"
+    pool_s = np.stack([p[0] for p in pools], 1)
+    pool_i = np.stack([p[1] for p in pools], 1)
+    return launches, pool_s, pool_i, ids
+
+
+def serving_flat_phase(dev, single_recall: float, root: str = SERVE_DIR, halves: int = 2) -> int:
+    """33b: the flat-scan corpus in ``halves`` row shards, each a
+    ``TorchVS(**FLAT_SHARD_STORE)`` (bf16 rows, K2) behind a ``ShardServer``
+    thread of this process, one front end over loopback.  Returns K2's
+    launches over the front end's requests."""
+    import numpy as np
+    import torch
+
+    from lotus_tpu_torch import TorchVS
+    from lotus_tpu_torch.ops.flat_scan import scan_fold
+    from lotus_tpu_torch.serving import SearchFrontEnd, ShardServer
+
+    corpus, fq, flat_gt, _ = flat_corpus(dev)
+    emb, q_np = corpus.cpu().numpy(), fq.cpu().numpy()
+    del corpus, fq
+    n = emb.shape[0] // halves
+    shutil.rmtree(root, ignore_errors=True)
+    stores, fns, servers = [], [], []
+    try:
+        for h in range(halves):
+            vs = TorchVS(**FLAT_SHARD_STORE)
+            t0 = time.perf_counter()
+            vs.index([], emb[h * n : (h + 1) * n], os.path.join(root, f"half{h}"))
+            say(f"  half {h} (rows {h * n:,}..{(h + 1) * n - 1:,}): index() {time.perf_counter() - t0:.2f} s")
+            stores.append(TimedStore(vs))
+            fns.append(timed_search_fn(stores[-1], h * n))
+            servers.append(ShardServer(fns[-1]).start())
+        del emb
+        scan_fold.launches = 0  # count only the front end's requests
+        with SearchFrontEnd([s.address for s in servers]) as fe:
+            t0 = time.perf_counter()
+            _, ids = fe.search(q_np, K)
+            first_s = time.perf_counter() - t0
+            walls = []
+            for _ in range(SERVE_BATCHES):
+                t0 = time.perf_counter()
+                fe.search(q_np, K)
+                walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        launches = scan_fold.launches
+    finally:
+        for s in servers:
+            s.stop()
+    recall = recall_at(ids, flat_gt)
+    store_s = [s.seconds[1 : 1 + SERVE_BATCHES] for s in stores]
+    fn_s = [f.seconds[1 : 1 + SERVE_BATCHES] for f in fns]
+    say(f"  recall@{K} vs exact f32 = {recall!r} over {len(flat_gt)} queries (the single store, phase 21: "
+        f"{single_recall!r}); first batch {first_s:.3f} s (loads each half onto the card); K2 launches {launches}")
+    say(f"  front end: QPS {len(q_np) * SERVE_BATCHES / sum(walls):,.1f} at B {len(q_np)}, k {K} "
+        f"({1e3 * min(walls):.2f}..{1e3 * max(walls):.2f} ms a batch); outside the stores' __call__: "
+        f"{100 * outside_share(walls, store_s):.1f}% of the wall (the stores' calls {1e3 * np.mean(store_s):.2f} ms "
+        f"a batch, the slower {1e3 * np.mean(np.max(store_s, axis=0)):.2f}; their calls run one at a time on this "
+        f"process's stream; vs_search_fn's lists to arrays {1e3 * (np.mean(fn_s) - np.mean(store_s)):.2f} ms) [{GPU}]")
+    k2_store_compare(f"33b, half 0 of {halves}", stores[0].vs, q_np, K)
+    shutil.rmtree(root, ignore_errors=True)
+    assert launches > 0, "the Flat shards did not launch K2"
+    assert recall >= single_recall - 0.001, f"served recall@10 {recall} below the single store's {single_recall}"
+    return launches
+
+
+def merge_phase(pool_s, pool_i, served_ids) -> None:
+    """33c: ``native.topk_merge_batch`` against its plain version on 33a's
+    (B, QUARTERS, K) candidate pools: scores bit for bit, ids equal except
+    where two candidates of a query's pool hold the same score, whose order
+    the library takes from its heap and the plain version from a stable
+    sort (the reference's own two merges differ so; ROADMAP Queue 3)."""
+    import numpy as np
+
+    from lotus_tpu_torch import native
+
+    got_s, got_i = native.topk_merge_batch(pool_s, pool_i, K)
+    ref_s, ref_i = native.topk_merge_batch_reference(pool_s, pool_i, K)
+    scores_same = np.array_equal(got_s.view(np.int32), ref_s.view(np.int32))
+    moved = list(zip(*np.nonzero(got_i != ref_i)))
+    untied = [(q, j) for q, j in moved if np.count_nonzero(pool_s[q] == got_s[q, j]) < 2]
+    descending = bool((np.diff(pool_s, axis=-1) <= 0).all())
+    lib_ms = host_ms(lambda: native.topk_merge_batch(pool_s, pool_i, K), reps=5)
+    plain_ms = host_ms(lambda: native.topk_merge_batch_reference(pool_s, pool_i, K), reps=1)
+    say(f"  {pool_s.shape} pools (33a's shards' own answers; every list descending {descending}, ids -1 "
+        f"{int((pool_i < 0).sum())}): scores {'bitwise equal' if scores_same else 'DIFFER'}; ids equal but at "
+        f"{len(moved)} places in {len({q for q, _ in moved})} queries, {len(moved) - len(untied)} of them on a "
+        f"score two candidates of the pool share; the library {lib_ms:.3f} ms vs the plain version "
+        f"{plain_ms:.3f} ms (host clock); the merge equals the front end's answer to the same batch: "
+        f"{np.array_equal(got_i, served_ids)}")
+    assert scores_same and not untied, "native.topk_merge_batch differs from its plain version"
+
+
+def serving_phases(dev, xq, gt, whole_recall: float, flat_recall: float) -> tuple[int, int]:
+    """Phase 33.  Returns K1's and K2's launches on its two paths."""
+    import torch
+
+    with Phase(f"33a: config 4 in {QUARTERS} row shards, each a TorchVS behind a shard-server process, one "
+               f"front end over loopback: K1"):
+        stores = quarter_stores(dev, gt)
+        k1, pool_s, pool_i, served = serving_config4_phase(stores, xq, gt, whole_recall)
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    with Phase("33b: the flat-scan corpus in 2 row shards behind shard-server threads: K2"):
+        k2 = serving_flat_phase(dev, flat_recall)
+    torch.cuda.empty_cache()
+    with Phase("33c: the front end's merge (native.topk_merge_batch) against its plain version"):
+        merge_phase(pool_s, pool_i, served)
+    return k1, k2
+
+
 def text_phases(dev) -> tuple[int, int, int, tuple]:
     """Phases 23-32 (the models, configs 1-2 from text, profiling, the
     families past BERT, the encoder-decoders, the decoders, BLOOM and
@@ -4388,7 +4849,26 @@ def config4_paths(dev) -> dict:
             f"single device without the int4 refinement {config5['no_refine']!r} (with it {unspilled['recall']!r}) "
             f"[{GPU}]")
     return dict(config5=config5, k1=(main_err, main_ms, main_plain_ms, main_bound, main_by), k1_launches=launches,
-                k2_launches=resid_launches, new_variants=new_variants, unspilled=unspilled)
+                k2_launches=resid_launches, new_variants=new_variants, unspilled=unspilled,
+                queries=xq.cpu().numpy(), gt=gt)
+
+
+def flat_corpus(dev):
+    """The flat-scan setting's seeded corpus (2**20 x 768 f32, normalised),
+    its B queries, the exact f32 top-K of the first 256, and the generator
+    that drew the queries."""
+    import torch
+
+    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk
+
+    centers = corpus_centers(FLAT_SEED, 4096, 768, dev)
+    corpus = gen_chunk(FLAT_SEED, 0, centers, FLAT_N, 2.5)
+    g = torch.Generator(device=dev).manual_seed(FLAT_SEED)
+    fq = corpus[torch.randint(0, FLAT_N, (B,), generator=g, device=dev)]
+    fq = fq + 0.05 * torch.randn((B, 768), generator=g, device=dev)
+    fq = fq / torch.linalg.vector_norm(fq, dim=1, keepdim=True)
+    flat_gt = torch.topk(fq[:256] @ corpus.T, K, dim=1).indices.tolist()
+    return corpus, fq, flat_gt, g
 
 
 def main() -> int:
@@ -4403,7 +4883,6 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from lotus_tpu_torch import TorchVS
     from lotus_tpu_torch.ops import _kernels
-    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk
     from lotus_tpu_torch.ops.flat_scan import _pool_topk, flat_search_pallas, scan_fold, scan_fold_reference
     from lotus_tpu_torch.ops.quant import quantize_rows
 
@@ -4454,13 +4933,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with Phase("flat corpus"):
-        centers = corpus_centers(FLAT_SEED, 4096, 768, dev)
-        corpus = gen_chunk(FLAT_SEED, 0, centers, FLAT_N, 2.5)  # f32, normalised
-        g = torch.Generator(device=dev).manual_seed(FLAT_SEED)
-        fq = corpus[torch.randint(0, FLAT_N, (B,), generator=g, device=dev)]
-        fq = fq + 0.05 * torch.randn((B, 768), generator=g, device=dev)
-        fq = fq / torch.linalg.vector_norm(fq, dim=1, keepdim=True)
-        flat_gt = torch.topk(fq[:256] @ corpus.T, K, dim=1).indices.tolist()
+        corpus, fq, flat_gt, g = flat_corpus(dev)
         xb16 = corpus.to(torch.bfloat16)
         x8, s8 = quantize_rows(corpus)
         q8, _ = quantize_rows(fq)
@@ -4540,6 +5013,7 @@ def main() -> int:
         emb = corpus.cpu().numpy()
         qs_np = fq.cpu().numpy()
         index_dir = os.path.join(REPO, "build", "lotus_tpu_torch", "smoke_flat_index")
+        flat_store_recall = None
         for kw in (dict(device_dtype="bfloat16", approx=True), dict(device_dtype="int8", scan="pallas")):
             shutil.rmtree(index_dir, ignore_errors=True)
             vs = TorchVS(index_type="flat", **kw)
@@ -4554,9 +5028,11 @@ def main() -> int:
             vs(qs_np, K)
             t_warm = time.perf_counter() - t0
             used = scan_fold.launches - before
+            store_recall = recall_at(out.indices, flat_gt)
+            flat_store_recall = flat_store_recall or store_recall  # the bf16 store's, which phase 33b serves
             say(f"  TorchVS(index_type='flat', {', '.join(f'{k}={v!r}' for k, v in kw.items())}): "
                 f"index() {t_index:.2f} s; {B}-query search {t_first:.2f} s first (loads the store), "
-                f"{t_warm:.3f} s warm; recall@{K} {recall_at(out.indices, flat_gt)!r}; "
+                f"{t_warm:.3f} s warm; recall@{K} {store_recall!r}; "
                 f"K2 launches {used} [{GPU}]")
             assert used > 0, f"TorchVS {kw} did not reach K2"
         allowed = sorted(torch.randperm(FLAT_N, generator=torch.Generator().manual_seed(3))[:1000].tolist())
@@ -4579,6 +5055,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     text_k1, text_k2, d1024_k2, k2_d1024 = text_phases(dev)
+    serve_k1, serve_k2 = serving_phases(dev, c4["queries"], c4["gt"], c4["unspilled"]["recall"], flat_store_recall)
 
     peak_all = max(PEAK_SEEN, torch.cuda.max_memory_allocated())
     say(f"total {time.perf_counter() - t_all:.1f} s; peak {peak_all / 2**30:.2f} GiB [{GPU}]")
@@ -4599,7 +5076,7 @@ def main() -> int:
             "route": "cuda",
             "source": "lotus_tpu_torch/csrc/ivf_probe.cu",
             "replaces": "lotus_tpu/ops/pallas_ivf.py:235",
-            "launches": c4["k1_launches"] + c5_launches + spill_launches + f16_ivf + d770_ivf + text_k1,
+            "launches": c4["k1_launches"] + c5_launches + spill_launches + f16_ivf + d770_ivf + text_k1 + serve_k1,
             "max_abs_err": main_err,
             "ms": main_ms,
             "plain_ms": main_plain_ms,
@@ -4612,7 +5089,7 @@ def main() -> int:
             "route": "cuda",
             "source": "lotus_tpu_torch/csrc/flat_scan.cu",
             "replaces": "lotus_tpu/ops/pallas_flat.py:42",
-            "launches": c4["k2_launches"] + flat_launches + f16_flat + text_k2,
+            "launches": c4["k2_launches"] + flat_launches + f16_flat + text_k2 + serve_k2,
             "max_abs_err": k2_main[0],
             "ms": k2_main[1],
             "plain_ms": k2_main[2],
@@ -4638,4 +5115,6 @@ if __name__ == "__main__":
         sys.exit(rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--profile"]:
         sys.exit(profile_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve"]:
+        sys.exit(serve_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

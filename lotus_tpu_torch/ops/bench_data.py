@@ -135,6 +135,7 @@ def synth_ivf_device_build(
     spill_frac: float = 0.0,
     refine: bool = True,
     train_chunks: int = 2,
+    first_chunk: int = 0,
     device: torch.device | str | None = None,
     log: Callable[[str], Any] | None = None,
 ) -> dict[str, Any]:
@@ -152,6 +153,12 @@ def synth_ivf_device_build(
     refinement entry; ``ivf_inv_perm`` maps every row to its primary copy,
     the one its int4 refinement encodes, and ``meta["spill_frac"]`` makes
     the grouped probe dedup by row id.
+
+    ``first_chunk > 0`` builds a row shard of the same seeded corpus: its
+    rows are the corpus's chunks ``first_chunk ..`` (``n / chunk`` of them),
+    its k-means trains on the first ``train_chunks`` of those, and its
+    queries are the whole corpus's.  Row ids and the ground truth are then
+    the shard's own (local ids over its rows).
     """
     if n % chunk != 0:
         raise ValueError("n must be a multiple of chunk")
@@ -169,7 +176,9 @@ def synth_ivf_device_build(
     xq = x0[pick] + 0.05 * torch.randn((queries_b, d), generator=gq, device=dev)
     xq = xq / torch.linalg.vector_norm(xq, dim=1, keepdim=True)
     xq_gt = xq[:gt_queries]
-    train_x = torch.cat([x0, *(gen_chunk(seed, c, centers, chunk, cluster_scale)
+    if first_chunk:
+        x0 = gen_chunk(seed, first_chunk, centers, chunk, cluster_scale)
+    train_x = torch.cat([x0, *(gen_chunk(seed, first_chunk + c, centers, chunk, cluster_scale)
                                for c in range(1, min(train_chunks, n_chunks)))])
     del x0
     res = kmeans_fit(train_x, nlist, iters=kmeans_iters, metric="l2", spherical=True,
@@ -189,7 +198,7 @@ def synth_ivf_device_build(
     a2_buf = torch.empty(n if spill else 0, dtype=torch.int32, device=dev)
     mg_buf = torch.empty(n if spill else 0, dtype=torch.float32, device=dev)
     for c in range(n_chunks):
-        x = gen_chunk(seed, c, centers, chunk, cluster_scale)
+        x = gen_chunk(seed, first_chunk + c, centers, chunk, cluster_scale)
         s, i = torch.topk(xq_gt @ x.T, min(k, chunk), dim=1)
         cat_s, cat_i = torch.cat([best_s, s], 1), torch.cat([best_i, i + c * chunk], 1)
         best_s, pos = torch.topk(cat_s, k, dim=1)
@@ -231,7 +240,7 @@ def synth_ivf_device_build(
     residual = encoding == "residual_int8"
     quarter = max(1, chunk // 4)  # bounds the residual and r2 temporaries
     for c in range(n_chunks):
-        x = gen_chunk(seed, c, centers, chunk, cluster_scale)
+        x = gen_chunk(seed, first_chunk + c, centers, chunk, cluster_scale)
         for lo in range(0, chunk, quarter):
             r0 = c * chunk + lo
             part = x[lo : lo + quarter]

@@ -13,6 +13,7 @@ Block-aligned stores are probed by ``ops/ivf_probe.py``.
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import numpy as np
@@ -303,6 +304,8 @@ def load_ivf_state(
         "ivf_list_size": wrap(index_io.read_array(index_dir, "ivf_list_size", mmap=False)),
     }
     vecs = index_io.read_array(index_dir, "ivf_vectors")  # f32 mmap
+    if vecs.dtype == np.int8:  # written by save_ivf_state: loaded as it was built
+        return _load_quantized(index_dir, meta, dtype, refine_int4, state, wrap)
     if dtype != torch.int8:
         state["ivf_vectors"] = torch.from_numpy(np.array(vecs, np.float32)).to(device=device, dtype=dtype)
         return state
@@ -365,6 +368,50 @@ def load_ivf_state(
     if meta.get("metric") == "l2":
         norms = (q.astype(np.float32) ** 2).sum(axis=1) * scales.astype(np.float64) ** 2
         state["ivf_norms_sq"] = wrap(norms.astype(np.float32))
+    return state
+
+
+# The arrays of a quantized state that save_ivf_state writes beside the
+# reference's four (centroids, row ids, list starts and sizes).
+QUANTIZED_ARRAYS = ("ivf_vectors", "ivf_row_scales", "ivf_inv_perm", "ivf_refine", "ivf_refine_scales")
+
+
+def save_ivf_state(index_dir: str, state: dict[str, Any]) -> None:
+    """Write a built int8 IVF state (``synth_ivf_device_build``'s) as an
+    index directory that ``TorchVS`` loads: its int8 rows, scales and int4
+    refinement as they were built, so a load never quantizes again (as
+    ``parallel/ivf.py::save_ivf_shards`` keeps a shard's).  The directory
+    holds no f32 ``vectors``: the store serves searches with and without
+    ``ids``, but what reads the unquantized rows (``get_vectors_from_index``,
+    the exhaustive scan route, calibration) fails on it, and the reference's
+    ``TpuVS`` cannot load it."""
+    meta = state["meta"]
+    if state["ivf_vectors"].dtype != torch.int8:
+        raise ValueError("save_ivf_state writes int8 states only")
+    index_io.write_array(index_dir, "ivf_centroids", state["centroids"].cpu().numpy())
+    for name in ("ivf_row_ids", "ivf_list_start", "ivf_list_size", *QUANTIZED_ARRAYS):
+        if name in state:
+            index_io.write_array(index_dir, name, state[name].cpu().numpy())
+    index_io.write_meta(index_dir, {
+        "kind": "ivf", "metric": meta["metric"], "n_rows": int(meta["n"]), "dim": int(meta["d"]),
+        "device_dtype": "int8", "encoding": meta.get("encoding", "int8"), "refine_int4": "ivf_refine" in state,
+        **{key: meta[key] for key in ("nlist", "max_list_size", "probe_window", "block_align", "spill_frac")},
+    })
+
+
+def _load_quantized(index_dir, meta, dtype, refine_int4, state, wrap) -> dict[str, Any]:
+    """``load_ivf_state`` of a directory ``save_ivf_state`` wrote."""
+    if dtype != torch.int8:
+        raise ValueError(f"{index_dir} holds int8 rows; load it as int8, not {dtype}")
+    refine = bool(refine_int4 if refine_int4 is not None else meta.get("refine_int4", False))
+    for name in QUANTIZED_ARRAYS:
+        wanted = refine or name not in ("ivf_refine", "ivf_refine_scales")
+        if wanted and os.path.exists(os.path.join(index_dir, f"{name}.npy")):
+            state[name] = wrap(index_io.read_array(index_dir, name, mmap=False))
+    if refine and "ivf_refine" not in state:
+        raise ValueError(f"{index_dir} holds no int4 refinement")
+    if meta.get("metric") == "l2":
+        state["ivf_norms_sq"] = (state["ivf_vectors"].float() ** 2).sum(1) * state["ivf_row_scales"] ** 2
     return state
 
 

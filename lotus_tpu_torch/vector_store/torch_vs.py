@@ -34,6 +34,7 @@ the allowed rows of the on-disk f32 ``vectors`` exactly.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Any, Optional
 
@@ -217,7 +218,10 @@ class TorchVS(VS):
             raise ValueError("Index not loaded")
         meta = index_io.read_meta(self.index_dir)
         dtype = _DTYPE_NAMES[meta.get("device_dtype", self.device_dtype)]
-        n, d = index_io.read_array(self.index_dir, "vectors").shape
+        if os.path.exists(os.path.join(self.index_dir, "vectors.npy")):
+            n, d = index_io.read_array(self.index_dir, "vectors").shape
+        else:  # a directory save_ivf_state wrote keeps no f32 rows
+            n, d = int(meta["n_rows"]), int(meta["dim"])
         state: dict[str, Any] = {"meta": meta, "n_rows": n, "dim": d, "dtype": dtype}
         if meta["kind"] == "ivf":
             from lotus_tpu_torch.ops.ivf import load_ivf_state

@@ -1,9 +1,10 @@
-"""``lotus_tpu.serving`` over the port's store (the rest of M12).  The
-serving package imports ``lotus_tpu``, so it is not ported: where both
-packages are installed it serves ``TorchVS`` through ``vs_search_fn``
-(``serving/__init__.py:64-78``).  A ``ShardServer`` around the port's store
-and a ``SearchFrontEnd`` over two port shards must give ``TpuVS``'s rows,
-the latter with global ids."""
+"""``lotus_tpu.serving`` over the port's store: the reference's serving
+tier serves ``TorchVS`` through ``vs_search_fn`` (``serving/__init__.py:
+64-78``) where both packages are installed.  A ``ShardServer`` around the
+port's store and a ``SearchFrontEnd`` over two port shards must give
+``TpuVS``'s rows, the latter with global ids.  The port's own serving tier
+(``lotus_tpu_torch.serving``) is held to the reference's in
+``test_torch_serving_port.py``."""
 
 import numpy as np
 import pytest
