@@ -18,6 +18,10 @@ tables that XLA builds.  Here plain torch ops build the tables and K1
    dedup on spilled stores only, and the per-query int8 scale;
 6. optional exact f32 rescoring (``ops/ivf.py::rescore_candidates``).
 
+Each call is the span ``ivf.search`` (``lotus_tpu_torch.profiling``); each
+query slice opens ``ivf.coarse`` (1), ``ivf.layout`` (2-3), ``ivf.k1`` (4),
+``ivf.pool`` (5) and ``ivf.rescore`` (6) under it.
+
 The launch needs no host sync: the grid is the static bound
 ``P // QU + nlist + 1`` and blocks past the live chunk count write
 MASK_SCORE.  The reference's experiment knobs that are off by default
@@ -37,6 +41,7 @@ import torch
 from lotus_tpu_torch.ops.common import MASK_SCORE, NO_HIT, as_distance, cdiv, dedup_topk
 from lotus_tpu_torch.ops.flat import flat_search
 from lotus_tpu_torch.ops.ivf import ensure_norms_sq, rescore_candidates
+from lotus_tpu_torch.profiling import annotate
 
 QU = 128  # query slots per chunk
 BL = 1024  # default build alignment (db rows per kernel block)
@@ -346,22 +351,24 @@ def _grouped_probe(
     int8_dot = is_int8 and int8_queries and not is_l2
 
     if probe_lists is None:
-        _, probe_lists = flat_search(centroids, xq, nprobe, metric=metric)
-    probe_lists = probe_lists.to(torch.int32)
-    if owned is not None:
-        list_size = torch.where(owned, list_size, torch.zeros_like(list_size))
+        with annotate("ivf.coarse"):
+            _, probe_lists = flat_search(centroids, xq, nprobe, metric=metric)
+    with annotate("ivf.layout"):
+        probe_lists = probe_lists.to(torch.int32)
+        if owned is not None:
+            list_size = torch.where(owned, list_size, torch.zeros_like(list_size))
 
-    q_scales = None
-    if int8_dot:
-        from lotus_tpu_torch.ops.quant import quantize_rows
+        q_scales = None
+        if int8_dot:
+            from lotus_tpu_torch.ops.quant import quantize_rows
 
-        xq_store, q_scales = quantize_rows(xq)
-    elif is_int8 or xb_sorted.dtype == torch.bfloat16:
-        xq_store = xq.to(torch.bfloat16)
-    else:
-        xq_store = xq
+            xq_store, q_scales = quantize_rows(xq)
+        elif is_int8 or xb_sorted.dtype == torch.bfloat16:
+            xq_store = xq.to(torch.bfloat16)
+        else:
+            xq_store = xq
 
-    xq_units, chunk_list, padpos, blocks = probe_layout(probe_lists, xq_store, list_size, bl)
+        xq_units, chunk_list, padpos, blocks = probe_layout(probe_lists, xq_store, list_size, bl)
     n_chunks_max = chunk_list.shape[0] - 1
     l_flat = probe_lists.reshape(-1).long()
 
@@ -370,60 +377,61 @@ def _grouped_probe(
     # take the unpacked fold.
     packed = packed_ok and max_blocks * bl <= (1 << LOCAL_BITS)
     top1 = FOLD == "top1"
-    cand_pk, cand_idx = fold(
-        xq_units, xb_sorted, row_scales if is_int8 else None, norms_sq if is_l2 else None,
-        chunk_list, list_start, list_size, bl=bl, int8_dot=int8_dot, l2=is_l2, packed=packed, top1=top1,
-    )
+    with annotate("ivf.k1"):
+        cand_pk, cand_idx = fold(
+            xq_units, xb_sorted, row_scales if is_int8 else None, norms_sq if is_l2 else None,
+            chunk_list, list_start, list_size, bl=bl, int8_dot=int8_dot, l2=is_l2, packed=packed, top1=top1,
+        )
+    with annotate("ivf.pool"):
+        # ---- reassemble per pair -------------------------------------------
+        # Pair p's candidates are row padpos[p] of the kernel output; a pair
+        # whose list is empty reads a MASK_SCORE row, and 'empty' masks it too.
+        kc = ncand(top1)
+        empty = (blocks[l_flat] > 0)[:, None]
+        mask = torch.tensor(MASK_SCORE, dtype=torch.float32, device=dev)
+        flat_s = cand_pk.reshape((n_chunks_max + 1) * QU, kc)
+        pool = torch.where(empty, flat_s[padpos], mask).reshape(b, nprobe, kc)
+        if packed:
+            bits = pool.view(torch.int32)
+            starts = list_start[probe_lists.long()]  # (b, nprobe)
+            cand_i = torch.clamp(starts[:, :, None] + (bits & _LOCAL_MASK), max=xb_sorted.shape[0] - 1)
+            cand_s = (bits & ~_LOCAL_MASK).view(torch.float32)
+        else:
+            cand_s = pool
+            cand_i = cand_idx.reshape((n_chunks_max + 1) * QU, kc)[padpos].reshape(b, nprobe, kc)
+        if probe_bias is not None:
+            # Residual encoding: every candidate of probe slot s owes the exact
+            # coarse term q.c in probe_bias[:, s]; that breaks the rank-neutral
+            # query scale, so int8 queries are dequantized here.
+            masked = cand_s <= MASK_SCORE / 2
+            if q_scales is not None:
+                cand_s = cand_s * q_scales[:, None, None]
+            cand_s = torch.where(masked, mask, cand_s + probe_bias[:, :, None])
+        cand_s = cand_s.reshape(b, nprobe * kc)
+        cand_i = cand_i.reshape(b, nprobe * kc)
 
-    # ---- reassemble per pair -----------------------------------------------
-    # Pair p's candidates are row padpos[p] of the kernel output; a pair
-    # whose list is empty reads a MASK_SCORE row, and 'empty' masks it too.
-    kc = ncand(top1)
-    empty = (blocks[l_flat] > 0)[:, None]
-    mask = torch.tensor(MASK_SCORE, dtype=torch.float32, device=dev)
-    flat_s = cand_pk.reshape((n_chunks_max + 1) * QU, kc)
-    pool = torch.where(empty, flat_s[padpos], mask).reshape(b, nprobe, kc)
-    if packed:
-        bits = pool.view(torch.int32)
-        starts = list_start[probe_lists.long()]  # (b, nprobe)
-        cand_i = torch.clamp(starts[:, :, None] + (bits & _LOCAL_MASK), max=xb_sorted.shape[0] - 1)
-        cand_s = (bits & ~_LOCAL_MASK).view(torch.float32)
-    else:
-        cand_s = pool
-        cand_i = cand_idx.reshape((n_chunks_max + 1) * QU, kc)[padpos].reshape(b, nprobe, kc)
-    if probe_bias is not None:
-        # Residual encoding: every candidate of probe slot s owes the exact
-        # coarse term q.c in probe_bias[:, s]; that breaks the rank-neutral
-        # query scale, so int8 queries are dequantized here.
-        masked = cand_s <= MASK_SCORE / 2
-        if q_scales is not None:
-            cand_s = cand_s * q_scales[:, None, None]
-        cand_s = torch.where(masked, mask, cand_s + probe_bias[:, :, None])
-    cand_s = cand_s.reshape(b, nprobe * kc)
-    cand_i = cand_i.reshape(b, nprobe * kc)
+        # Spilled rows can reach the pool through two lists: 2k head-room and a
+        # dedup.  Unspilled pools hold each id once, so the top-k is final.
+        k_out = min(2 * k if spilled else k, nprobe * kc)
+        top_s, pos = torch.topk(cand_s, k_out, dim=1)
+        top_rows = torch.gather(cand_i, 1, pos)
+        top_i = row_ids[top_rows.long()]
+        top_i = torch.where(top_s <= MASK_SCORE / 2, torch.full_like(top_i, NO_HIT), top_i)
 
-    # Spilled rows can reach the pool through two lists: 2k head-room and a
-    # dedup.  Unspilled pools hold each id once, so the top-k is final.
-    k_out = min(2 * k if spilled else k, nprobe * kc)
-    top_s, pos = torch.topk(cand_s, k_out, dim=1)
-    top_rows = torch.gather(cand_i, 1, pos)
-    top_i = row_ids[top_rows.long()]
-    top_i = torch.where(top_s <= MASK_SCORE / 2, torch.full_like(top_i, NO_HIT), top_i)
-
-    if spilled:
-        # Storage rows ride along for the shard-local exact rescore.
-        top_s, top_i, top_rows = dedup_topk(top_s, top_i, k, aux=top_rows)
-    elif k_out < k:  # pool smaller than k: pad, keeping the sorted head
-        pad = k - k_out
-        top_s = torch.cat([top_s, torch.full((b, pad), MASK_SCORE, dtype=top_s.dtype, device=dev)], 1)
-        top_i = torch.cat([top_i, torch.full((b, pad), NO_HIT, dtype=top_i.dtype, device=dev)], 1)
-        top_rows = torch.cat([top_rows, torch.zeros((b, pad), dtype=top_rows.dtype, device=dev)], 1)
-    if q_scales is not None and probe_bias is None:
-        # Per-query dequantization constant; rank-neutral, so applied last.
-        top_s = torch.where(top_i == NO_HIT, top_s, top_s * q_scales[:, None])
-    if return_rows:
-        return top_s, top_i, top_rows
-    return top_s, top_i
+        if spilled:
+            # Storage rows ride along for the shard-local exact rescore.
+            top_s, top_i, top_rows = dedup_topk(top_s, top_i, k, aux=top_rows)
+        elif k_out < k:  # pool smaller than k: pad, keeping the sorted head
+            pad = k - k_out
+            top_s = torch.cat([top_s, torch.full((b, pad), MASK_SCORE, dtype=top_s.dtype, device=dev)], 1)
+            top_i = torch.cat([top_i, torch.full((b, pad), NO_HIT, dtype=top_i.dtype, device=dev)], 1)
+            top_rows = torch.cat([top_rows, torch.zeros((b, pad), dtype=top_rows.dtype, device=dev)], 1)
+        if q_scales is not None and probe_bias is None:
+            # Per-query dequantization constant; rank-neutral, so applied last.
+            top_s = torch.where(top_i == NO_HIT, top_s, top_s * q_scales[:, None])
+        if return_rows:
+            return top_s, top_i, top_rows
+        return top_s, top_i
 
 
 def ivf_search_grouped_probe(
@@ -467,39 +475,48 @@ def ivf_search_grouped_probe(
     squeeze = xq.ndim == 1
     if squeeze:
         xq = xq[None, :]
-    xq = xq.to(device=vecs.device, dtype=torch.float32)
-
-    if query_chunk is not None and xq.shape[0] > query_chunk:
+    with annotate("ivf.search", batch=xq.shape[0]):
+        xq = xq.to(device=vecs.device, dtype=torch.float32)
+        if vecs.shape[0] % bl != 0:
+            raise ValueError(f"block-aligned IVF storage expected (rows % {bl} != 0)")
+        b = xq.shape[0]
+        step = max(1, b if query_chunk is None else query_chunk)
         parts = [
-            ivf_search_grouped_probe(
-                state, xq[lo : lo + query_chunk], k, nprobe=nprobe, metric=metric,
-                int8_queries=int8_queries, rescore=rescore, fold=fold,
-            )
-            for lo in range(0, xq.shape[0], query_chunk)
+            _search_slice(state, xq[lo : lo + step], k, nprobe, metric, int8_queries, rescore, fold,
+                          max_blocks, bl, residual)
+            for lo in range(0, max(b, 1), step)
         ]
-        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+        if len(parts) == 1:
+            dists, idx = parts[0]
+        else:
+            dists, idx = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    if squeeze:
+        return dists[0], idx[0]
+    return dists, idx
 
-    if vecs.shape[0] % bl != 0:
-        raise ValueError(f"block-aligned IVF storage expected (rows % {bl} != 0)")
+
+def _search_slice(state, xq, k, nprobe, metric, int8_queries, rescore, fold, max_blocks, bl, residual):
+    """One query slice of ``ivf_search_grouped_probe``."""
+    meta = state["meta"]
     probe_lists = probe_bias = None
     if residual:
-        probe_bias, probe_lists = flat_search(state["centroids"], xq, nprobe, metric=metric)
+        with annotate("ivf.coarse"):
+            probe_bias, probe_lists = flat_search(state["centroids"], xq, nprobe, metric=metric)
     do_rescore = rescore is not None and metric != "l2"
     k_probe = max(k, rescore) if do_rescore else k
     scores, idx = _grouped_probe(
-        state["centroids"], vecs, state["ivf_row_ids"], state["ivf_list_start"],
+        state["centroids"], state["ivf_vectors"], state["ivf_row_ids"], state["ivf_list_start"],
         state["ivf_list_size"], xq, state.get("ivf_row_scales"),
         ensure_norms_sq(state) if metric == "l2" else None,
         k_probe, nprobe, max_blocks, metric, int8_queries,
         probe_lists=probe_lists, probe_bias=probe_bias, packed_ok=do_rescore, bl=bl,
         spilled=float(meta.get("spill_frac", 0.0) or 0.0) > 0.0, fold=fold,
     )
-    if do_rescore:
-        scores, idx = rescore_candidates(state, xq, idx, k)
-    dists = as_distance(scores, metric)
-    if metric == "l2":
-        q_norms = torch.sum(xq * xq, dim=-1, keepdim=True)
-        dists = torch.where(idx == NO_HIT, torch.finfo(torch.float32).max, dists + q_norms)
-    if squeeze:
-        return dists[0], idx[0]
+    with annotate("ivf.rescore"):
+        if do_rescore:
+            scores, idx = rescore_candidates(state, xq, idx, k)
+        dists = as_distance(scores, metric)
+        if metric == "l2":
+            q_norms = torch.sum(xq * xq, dim=-1, keepdim=True)
+            dists = torch.where(idx == NO_HIT, torch.finfo(torch.float32).max, dists + q_norms)
     return dists, idx

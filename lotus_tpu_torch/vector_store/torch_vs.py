@@ -22,6 +22,13 @@ With ``recall_target`` an IVF store calibrates ``nprobe`` on first use
 in ``meta.json`` by either package.  ``stats["routes"]`` counts the searches
 each route served.
 
+Each call is the span ``vs.call`` (``lotus_tpu_torch.profiling``) over
+``vs.inputs`` (the queries, and an ids search's ids, to the device), the
+route's spans (``ivf.subset_rows`` and ``ivf.subset_scan`` for an ids
+search, ``ivf.search`` for the grouped probe, ``vs.scan`` otherwise),
+``vs.wait`` (the answers' copies to the host, which wait for the device)
+and ``vs.to_lists``.
+
 With a ``mesh`` of several ranks (``lotus_tpu_torch.parallel``) the store is
 sharded as ``TpuVS``'s is (``tpu_vs.py:200-256``): ``index()`` also persists
 one IVF shard per rank, each rank loads only its own, and searches run the
@@ -46,6 +53,7 @@ from lotus_tpu_torch.ops import io as index_io
 from lotus_tpu_torch.ops.common import require_full_f32, round_up
 from lotus_tpu_torch.ops.flat import DEFAULT_BLOCK_ROWS, flat_search
 from lotus_tpu_torch.ops.ivf import default_device, ivf_search
+from lotus_tpu_torch.profiling import annotate
 from lotus_tpu_torch.types import RMOutput
 from lotus_tpu_torch.vector_store.vs import VS
 
@@ -279,38 +287,43 @@ class TorchVS(VS):
                 state["xb_scales_sharded"], _ = shard_rows(state["xb_scales"], self.mesh, block_rows=self.block_rows)
 
     # ------------------------------------------------------- ids-subset (IVF)
+    def _ids_tensor(self, ids: list[int]) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ids, dtype=np.int64), device=self.device)
+
     def _ivf_subset_search(
-        self, state: dict[str, Any], xq: torch.Tensor, k: int, ids: list[int]
+        self, state: dict[str, Any], xq: torch.Tensor, k: int, ids: list[int] | torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Exact search restricted to ``ids``: gather the allowed rows out of
-        the IVF storage via the row-id -> storage-row inverse permutation and
-        scan them exactly (O(|ids| x d), no second full-size copy).  The
-        reference pads the subset to power-of-two sizes to bound XLA
-        recompiles; eager torch needs no padding."""
+        """Exact search restricted to ``ids`` (a list, or int64 on the
+        store's device): gather the allowed rows out of the IVF storage via
+        the row-id -> storage-row inverse permutation and scan them exactly
+        (O(|ids| x d), no second full-size copy).  The reference pads the
+        subset to power-of-two sizes to bound XLA recompiles; eager torch
+        needs no padding."""
         from lotus_tpu_torch.ops.ivf import ensure_inv_perm, ensure_pos_list
 
         meta = state["meta"]
-        inv = ensure_inv_perm(state)
-        ids_t = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=self.device)
+        ids_t = ids if isinstance(ids, torch.Tensor) else self._ids_tensor(ids)
         m = ids_t.shape[0]
 
-        storage_rows = inv[ids_t].long()
-        subset = state["ivf_vectors"][storage_rows]
-        scales = state.get("ivf_row_scales")
-        sub_scales = scales[storage_rows] if scales is not None else None
-        norms = state.get("ivf_norms_sq")
-        sub_norms = norms[storage_rows] if norms is not None else None
-        if meta.get("encoding") == "residual_int8" and subset.dtype == torch.int8:
-            # Residual store: reconstruct f32 rows (residual * scale + centroid).
-            lists_of_rows = ensure_pos_list(state)[storage_rows].long()
-            subset = subset.float() * sub_scales[:, None] + state["centroids"][lists_of_rows]
-            sub_scales = None
+        with annotate("ivf.subset_rows"):
+            storage_rows = ensure_inv_perm(state)[ids_t].long()
+            subset = state["ivf_vectors"][storage_rows]
+            scales = state.get("ivf_row_scales")
+            sub_scales = scales[storage_rows] if scales is not None else None
+            norms = state.get("ivf_norms_sq")
+            sub_norms = norms[storage_rows] if norms is not None else None
+            if meta.get("encoding") == "residual_int8" and subset.dtype == torch.int8:
+                # Residual store: reconstruct f32 rows (residual * scale + centroid).
+                lists_of_rows = ensure_pos_list(state)[storage_rows].long()
+                subset = subset.float() * sub_scales[:, None] + state["centroids"][lists_of_rows]
+                sub_scales = None
 
-        dists, pos = flat_search(
-            subset, xq, min(k, m), metric=meta["metric"], n_rows=m, xb_norms_sq=sub_norms,
-            block_rows=self.block_rows, xb_scales=sub_scales,
-        )
-        hit_ids = torch.where(pos >= 0, ids_t[torch.clamp(pos, min=0).long()], -1)
+        with annotate("ivf.subset_scan"):
+            dists, pos = flat_search(
+                subset, xq, min(k, m), metric=meta["metric"], n_rows=m, xb_norms_sq=sub_norms,
+                block_rows=self.block_rows, xb_scales=sub_scales,
+            )
+            hit_ids = torch.where(pos >= 0, ids_t[torch.clamp(pos, min=0).long()], -1)
         return dists, hit_ids
 
     def _disk_subset_search(
@@ -335,25 +348,37 @@ class TorchVS(VS):
     def __call__(
         self, query_vectors: NDArray[np.float64], K: int, ids: list[int] | None = None, **kwargs: Any
     ) -> RMOutput:
+        with annotate("vs.call", ids=None if ids is None else len(ids)) as span:
+            return self._search(query_vectors, K, ids, span, **kwargs)
+
+    def _search(
+        self, query_vectors: NDArray[np.float64], K: int, ids: list[int] | None, span: Any, **kwargs: Any
+    ) -> RMOutput:
         t_start = time.perf_counter()
         state = self._materialize()
         meta = state["meta"]
         n, d = state["n_rows"], state["dim"]
+        # Shard-only states (the config-5 reload) gather an ids search's rows from disk.
+        subset = meta["kind"] == "ivf" and ids is not None and "ivf_vectors" in state
 
-        xq = np.asarray(query_vectors, dtype=np.float32)
-        if xq.ndim == 1:
-            xq = xq[None, :]
-        if xq.shape[1] != d:
-            raise ValueError(f"query dim {xq.shape[1]} != index dim {d}")
-        xq_t = torch.from_numpy(np.ascontiguousarray(xq)).to(self.device)
+        with annotate("vs.inputs"):
+            xq = np.asarray(query_vectors, dtype=np.float32)
+            if xq.ndim == 1:
+                xq = xq[None, :]
+            if xq.shape[1] != d:
+                raise ValueError(f"query dim {xq.shape[1]} != index dim {d}")
+            xq_t = torch.from_numpy(np.ascontiguousarray(xq)).to(self.device)
+            ids_t = self._ids_tensor(ids) if subset else None
+        if span is not None:
+            span.attrs["batch"] = int(xq.shape[0])
         k_eff = int(min(K, max(n, 1)))
 
         if meta["kind"] == "ivf" and ids is not None:
-            # Shard-only states (the config-5 reload) gather from disk.
-            if "ivf_vectors" in state:
-                dists, idx = self._ivf_subset_search(state, xq_t, k_eff, ids)
+            if subset:
+                dists, idx = self._ivf_subset_search(state, xq_t, k_eff, ids_t)
             else:
-                dists, idx = self._disk_subset_search(state, xq_t, k_eff, ids)
+                with annotate("vs.scan"):
+                    dists, idx = self._disk_subset_search(state, xq_t, k_eff, ids)
             return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
 
         route = "scan"
@@ -382,9 +407,19 @@ class TorchVS(VS):
             return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
 
         self._ensure_flat_arrays(state)
+        with annotate("vs.scan"):
+            dists, idx = self._flat_scan(state, xq_t, k_eff, ids, kwargs)
+        return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
+
+    def _flat_scan(
+        self, state: dict[str, Any], xq_t: torch.Tensor, k_eff: int, ids: list[int] | None,
+        kwargs: dict[str, Any],
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The exhaustive scan route: the sharded scan, K2, or ``flat_search``
+        with the ids as a row mask; int8 stores rescore exactly."""
         if "xb_sharded" in state:
-            dists, idx = self._sharded_scan(state, xq_t, k_eff, ids)
-            return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
+            return self._sharded_scan(state, xq_t, k_eff, ids)
+        meta, n = state["meta"], state["n_rows"]
         xb = state["xb"]
         valid = None
         if ids is not None:
@@ -405,7 +440,7 @@ class TorchVS(VS):
         use_k2 = (
             valid is None and meta["metric"] in ("ip", "cosine") and n_pad % 1024 == 0
             and (scan == "pallas" or (
-                scan == "auto" and self.approx and xq.shape[0] >= 256 and xb.dtype == torch.bfloat16
+                scan == "auto" and self.approx and xq_t.shape[0] >= 256 and xb.dtype == torch.bfloat16
             ))
         )
         if use_k2:
@@ -421,10 +456,8 @@ class TorchVS(VS):
         if do_rescore:
             from lotus_tpu_torch.ops.flat import flat_rescore
 
-            dists, idx = flat_rescore(xb, xq_t, idx, k_eff, xb_scales=state.get("xb_scales"))
-        else:
-            dists, idx = dists[:, :k_eff], idx[:, :k_eff]
-        return self._finish_output(dists, idx, xq, k_eff, K, ids, t_start)
+            return flat_rescore(xb, xq_t, idx, k_eff, xb_scales=state.get("xb_scales"))
+        return dists[:, :k_eff], idx[:, :k_eff]
 
     def _sharded_scan(
         self, state: dict[str, Any], xq_t: torch.Tensor, k_eff: int, ids: list[int] | None
@@ -465,14 +498,17 @@ class TorchVS(VS):
         if sharded is not None:
             from lotus_tpu_torch.parallel import sharded_ivf_search, sharded_ivf_search_pallas
 
-            if not use_pallas:
-                return sharded_ivf_search(sharded, xq_t, k_eff, nprobe=nprobe, metric=metric, rescore=rescore)
-            if int8_queries is None:  # auto: int8 shards + rescoring active
-                int8_queries = bool(sharded["vecs"].dtype == torch.int8 and rescore)
-            return sharded_ivf_search_pallas(
-                sharded, xq_t, k_eff, nprobe=nprobe, metric=metric, rescore=rescore,
-                int8_queries=int8_queries, query_chunk=query_chunk,
-            )
+            with annotate("vs.scan"):
+                if not use_pallas:
+                    return sharded_ivf_search(
+                        sharded, xq_t, k_eff, nprobe=nprobe, metric=metric, rescore=rescore,
+                    )
+                if int8_queries is None:  # auto: int8 shards + rescoring active
+                    int8_queries = bool(sharded["vecs"].dtype == torch.int8 and rescore)
+                return sharded_ivf_search_pallas(
+                    sharded, xq_t, k_eff, nprobe=nprobe, metric=metric, rescore=rescore,
+                    int8_queries=int8_queries, query_chunk=query_chunk,
+                )
         if use_pallas:
             from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe
 
@@ -482,7 +518,8 @@ class TorchVS(VS):
                 state, xq_t, k_eff, nprobe=nprobe, metric=metric, rescore=rescore,
                 int8_queries=int8_queries, query_chunk=query_chunk,
             )
-        return ivf_search(state, xq_t, k_eff, nprobe=nprobe, metric=metric, rescore=rescore)
+        with annotate("vs.scan"):
+            return ivf_search(state, xq_t, k_eff, nprobe=nprobe, metric=metric, rescore=rescore)
 
     def _pallas_eligible(self, meta: dict[str, Any]) -> bool:
         """The grouped probe serves block-aligned stores: on the card through
@@ -653,18 +690,21 @@ class TorchVS(VS):
     ) -> RMOutput:
         # Moving to the host waits for the device, so the wall-time stat
         # covers the whole search including the transfer.
-        dists_np = dists.cpu().numpy().astype(np.float64)
-        idx_np = idx.cpu().numpy().astype(np.int64)
-        self.stats["searches"] += 1
-        self.stats["queries"] += int(xq.shape[0])
-        if ids is not None:
-            self.stats["subset_searches"] += 1
-        self.stats["total_wall_s"] += time.perf_counter() - t_start
-        if k_eff < K:  # faiss-style -1 padding when K exceeds the collection
-            pad = K - k_eff
-            dists_np = np.pad(dists_np, ((0, 0), (0, pad)), constant_values=0.0)
-            idx_np = np.pad(idx_np, ((0, 0), (0, pad)), constant_values=-1)
-        return RMOutput(distances=dists_np.tolist(), indices=idx_np.tolist())
+        with annotate("vs.wait"):
+            dists_h, idx_h = dists.cpu(), idx.cpu()
+        with annotate("vs.to_lists"):
+            dists_np = dists_h.numpy().astype(np.float64)
+            idx_np = idx_h.numpy().astype(np.int64)
+            self.stats["searches"] += 1
+            self.stats["queries"] += int(xq.shape[0])
+            if ids is not None:
+                self.stats["subset_searches"] += 1
+            self.stats["total_wall_s"] += time.perf_counter() - t_start
+            if k_eff < K:  # faiss-style -1 padding when K exceeds the collection
+                pad = K - k_eff
+                dists_np = np.pad(dists_np, ((0, 0), (0, pad)), constant_values=0.0)
+                idx_np = np.pad(idx_np, ((0, 0), (0, pad)), constant_values=-1)
+            return RMOutput(distances=dists_np.tolist(), indices=idx_np.tolist())
 
     # ------------------------------------------------------------------- misc
     def get_vectors_from_index(self, index_dir: str, ids: list[int]) -> NDArray[np.float64]:
