@@ -6,9 +6,10 @@
 Phases (each prints its seconds and the card's name and power limit):
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the CUDA kernels from ``lotus_tpu_torch/csrc`` with nvcc,
-   one process per source, all started together; report each K1 and K2
-   kernel's registers, spills, wgmma advisories and HGMMA / IGMMA / UTMALDG
-   counts, and fail if a tensor-core kernel has none of its type's MMA;
+   one process per source, all started together; report each K1, K2 and
+   K3 kernel's registers, spills, wgmma advisories and HGMMA / IGMMA /
+   UTMALDG counts, and fail if a tensor-core kernel has none of its type's
+   MMA;
 3. config 4 build: the seeded 10 * 2**20 x 768 corpus, IVF with nlist 4096,
    residual int8 + int4 refinement, block-aligned at 1024, exact f32 oracle;
 4. K1 vs plain: K1 (``probe_fold``) against ``probe_fold_reference`` on
@@ -23,8 +24,12 @@ Phases (each prints its seconds and the card's name and power limit):
    (unpacked, top-2 and top-1 folds);
 5. IVF main path: ``ivf_search_grouped_probe`` at nprobe 208, rescore 24,
    int8 queries, query_chunk 2048 over B = 4096; recall@10 against the
-   exact f32 oracle must reach 0.99; QPS over chained batches; the capacity
-   model (``ops/capacity.py``) must equal the served state's bytes;
+   exact f32 oracle must reach 0.99, and K3 must run once a slice; QPS over
+   chained batches; the capacity model (``ops/capacity.py``) must equal the
+   served state's bytes.  Before it, K3 (``pool_select``) against
+   ``pool_select_reference`` on the inputs the main path gives it in its
+   first slice (scores bit for bit, rows equal as sets across equal
+   scores), both timed beside K3's bound (``k3_bound``);
 6. window probe over config 4's store (``ops/ivf.py::ivf_search``) at the
    reference's small-batch setting (nprobe 208, rescore 24) for B = 1, 16
    and 64: recall@10 over 64 queries must reach 0.99 at each B; ms per call
@@ -309,15 +314,16 @@ Phases (each prints its seconds and the card's name and power limit):
    scores bit for bit), both timed.  The files are deleted after.
 
 Each main path runs with its kernel's launch count set to 0 just before it
-and read just after: K1 over phases 5-8 (calibration included), in each
-rank over phase 12's sharded search, over phase 13 and over each K1 store of
-phase 15 and over phase 25's, 27's, 28's, 29's, 30's, 31's and 32's stores,
-and in each shard server of 33a over the requests it served; K2 over phase
+and read just after: K1 and K3 over phases 5-8 (calibration included) and
+over phase 13, K3 once a slice in phase 5's first search; K1 also in each
+rank over phase 12's sharded search, over each K1 store of phase 15 and
+over phase 25's, 27's, 28's, 29's, 30's, 31's and 32's stores, and in
+each shard server of 33a over the requests it served; K2 over phase
 10, over phases 20-21, over phase 15's Flat store, over phase 24's, 27's,
 28's, 29's, 30's, 31's and 32's, and over 33b's front end;
 each must have launched its kernel, and each phase prints its count.
 The last three lines are the kernel table (K1, whose launches add the
-ranks' and the shard servers', and K2, then the variants later slices
+ranks' and the shard servers', K2, K3, then the variants later slices
 added, each with its own path's launches: K2 at d 1024 is phase 27's),
 the card, and ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 repository beside this file, it exits non-zero and
@@ -518,15 +524,76 @@ def k2_compare(name, args, *, exact, blk=1024, reps=0, k=K):
     return err, ms, plain_ms
 
 
+def k3_bound(args, k_out: int) -> tuple[float, float]:
+    """K3's bound on these inputs: the candidates of every pair whose list
+    holds rows, the pair tables (row, list, bias) and the query scales read
+    once, the (b, k_out) head written once, at 3.35 TB/s.  Returns (ms,
+    bytes)."""
+    cand, _, _, lists, _, sizes, bias, q_scales = args
+    b, nprobe = lists.shape
+    live = int((sizes[lists.long()] > 0).sum())
+    nbytes = (live * cand.shape[-1] * 4 + b * nprobe * (8 + 4 + (4 if bias is not None else 0))
+              + (b * 4 if q_scales is not None else 0) + b * k_out * 8)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, float(nbytes)
+
+
+def k3_compare(state, queries, reps: int = 20):
+    """K3 (``pool_select``) against ``pool_select_reference`` on the inputs
+    the main path (``ivf_search_grouped_probe`` at phase 5's settings) gives
+    it for ``queries``, recorded through the plain version so that recording
+    launches no K3: scores bit for bit; rows equal, as sets of (score, row),
+    wherever the score is above MASK_SCORE / 2 and above the head's last
+    score (where ties may take other candidates of the same score); both
+    timed beside ``k3_bound``.  Returns (max_abs_err, ms, plain ms, bound
+    ms, "bytes")."""
+    import torch
+
+    from lotus_tpu_torch.ops import ivf_probe
+    from lotus_tpu_torch.ops.common import MASK_SCORE
+
+    record, calls = recording(ivf_probe.pool_select_reference)
+    kernel = ivf_probe.pool_select
+    ivf_probe.pool_select = record
+    try:
+        ivf_probe.ivf_search_grouped_probe(state, queries, K, nprobe=NPROBE, metric="ip", rescore=RESCORE,
+                                           int8_queries=True, query_chunk=QUERY_CHUNK)
+    finally:
+        ivf_probe.pool_select = kernel
+    args, kw = calls[0]
+    got_s, got_r = kernel(*args, **kw)
+    ref_s, ref_r = ivf_probe.pool_select_reference(*args, **kw)
+    torch.cuda.synchronize()
+    bits, ref_bits = got_s.view(torch.int32), ref_s.view(torch.int32)
+    bitwise = torch.equal(bits, ref_bits)
+    above = (got_s > MASK_SCORE / 2) & (bits != bits[:, -1:])
+    held = [torch.sort(torch.where(above, (v.long() << 32) | r.long(), -1), dim=1).values
+            for v, r in ((bits, got_r), (ref_bits, ref_r))]
+    rows_equal = torch.equal(*held)
+    err = float((got_s.double() - ref_s.double()).abs().max())
+    ms = cuda_ms(lambda: kernel(*args, **kw), reps)
+    plain_ms = cuda_ms(lambda: ivf_probe.pool_select_reference(*args, **kw), 3)
+    bound, nbytes = k3_bound(args, kw["k_out"])
+    b, nprobe = args[3].shape
+    say(f"  K3 at config 4's first slice (b {b}, nprobe {nprobe}, kc {args[0].shape[-1]}, k_out {kw['k_out']}, "
+        f"{'packed' if kw['packed'] else 'unpacked'}, bias {args[6] is not None}, scale {args[7] is not None}): "
+        f"scores {'bitwise equal' if bitwise else 'DIFFER'}, rows {'equal' if rows_equal else 'DIFFER'} "
+        f"({int(above.sum()):,} head entries above the last score); max_abs_err={err!r}; K3 {ms:.3f} ms vs plain "
+        f"{plain_ms:.3f} ms; bound {bound:.3f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s), K3 at "
+        f"{100 * bound / ms:.1f}% of it [{GPU}]")
+    assert bitwise and rows_equal, "K3 disagrees with its plain version on config 4's slice"
+    return err, ms, plain_ms, bound, "bytes"
+
+
 def kernel_report() -> None:
-    """K1's and K2's kernels as built: registers and spill bytes from ptxas,
+    """K1's, K2's and K3's kernels as built: registers and spill bytes from ptxas,
     ptxas's wgmma advisories counted by code (an injected warpgroup.wait or
     arrive: C7517, C7519; serialized wgmma: C7510, C7514), and the
     tensor-core (HGMMA bf16, IGMMA int8) and TMA-load (UTMALDG) instructions
     that ``cuobjdump -sass`` shows in each.  Fails unless every bf16
     tensor-core instantiation (K2's scan_kernel, K1's probe_wgmma) has HGMMA
     and every int8 one IGMMA.  K1's probe_cores (f32, and rows TMA cannot
-    take) runs on the CUDA cores by design."""
+    take) and K3's pool_select (a selection, no dot) run on the CUDA cores
+    by design."""
     from lotus_tpu_torch.ops import _kernels
 
     ptxas = {}
@@ -550,15 +617,16 @@ def kernel_report() -> None:
         elif fn is not None:
             for op in counts[fn]:
                 counts[fn][op] += op in line
-    for kind in ("scan_kernel", "probe_wgmma", "probe_cores"):
+    for kind in ("scan_kernel", "probe_wgmma", "probe_cores", "pool_select"):
         found = sorted(f for f in counts if kind in f)
         assert found, f"no {kind} in the built library"
         for f in found:
             int8_dot = f"{kind}Ia" in f  # the operand type is int8
             regs, spill = ptxas.get(f, (None, None))
-            say(f"  {f}: {'int8' if int8_dot else 'float'} dot; ptxas {regs} registers, spill "
+            dot = "selection" if kind == "pool_select" else f"{'int8' if int8_dot else 'float'} dot"
+            say(f"  {f}: {dot}; ptxas {regs} registers, spill "
                 f"stores/loads {spill} bytes, wgmma advisories {notes.get(f, {})}; SASS {counts[f]}")
-            if kind != "probe_cores":
+            if kind in ("scan_kernel", "probe_wgmma"):
                 op = "IGMMA" if int8_dot else "HGMMA"
                 assert counts[f][op] > 0, f"{f} has no {op}: not on the tensor cores"
 
@@ -939,18 +1007,19 @@ CONFIG4 = dict(n=10 * 2**20, d=768, nlist=4096, n_clusters=65536, cluster_scale=
                queries_b=B, gt_queries=256, k=K, block_align=1024, seed=0)
 
 
-def spill_phase(dev, unspilled: dict, cfg: dict = CONFIG4) -> int:
+def spill_phase(dev, unspilled: dict, cfg: dict = CONFIG4) -> tuple[int, int]:
     """Config 4 at ``spill_frac=0.05`` (the reference's measured spill point),
     beside the unspilled run of this call: build seconds per phase, vecs/s,
     spilled copies, peak memory, recall@10 at nprobe 208 / rescore 24, QPS,
     K1's ms per slice; no id repeats in any top-10, and every row's
-    ``ivf_inv_perm`` slot lies in its top-1 list."""
+    ``ivf_inv_perm`` slot lies in its top-1 list.  Returns K1's and K3's
+    launches."""
     import torch
 
     from lotus_tpu_torch.ops.bench_data import synth_ivf_device_build
     from lotus_tpu_torch.ops.flat import flat_search
     from lotus_tpu_torch.ops.ivf import ensure_pos_list
-    from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe, probe_fold, probe_layout
+    from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe, pool_select, probe_fold, probe_layout
     from lotus_tpu_torch.ops.quant import quantize_rows
 
     reset_peak()
@@ -967,15 +1036,15 @@ def spill_phase(dev, unspilled: dict, cfg: dict = CONFIG4) -> int:
         return ivf_search_grouped_probe(state, queries, K, nprobe=NPROBE, metric="ip", rescore=RESCORE,
                                         int8_queries=True, query_chunk=QUERY_CHUNK)
 
-    probe_fold.launches = 0  # this path's launches
+    probe_fold.launches = pool_select.launches = 0  # this path's launches
     dists, ids = search(xq)
     torch.cuda.synchronize()
-    k1_launches = probe_fold.launches
+    k1_launches, k3_launches = probe_fold.launches, pool_select.launches
     ids_np = ids.cpu().numpy()
     recall = recall_at(ids_np, gt)
     repeats = sum(len(set(r[r >= 0].tolist())) != int((r >= 0).sum()) for r in ids_np)
     qps, batch_ms = chained_qps(lambda: search(xq), B)
-    k1_launches_all = probe_fold.launches
+    k1_launches_all, k3_launches_all = probe_fold.launches, pool_select.launches
     q = xq[:QUERY_CHUNK]
     _, lists = flat_search(state["centroids"], q, NPROBE, metric="ip")
     units, chunk_list, _, _ = probe_layout(lists.to(torch.int32), quantize_rows(q)[0], state["ivf_list_size"], 1024)
@@ -987,7 +1056,8 @@ def spill_phase(dev, unspilled: dict, cfg: dict = CONFIG4) -> int:
     primary_ok = bool((ensure_pos_list(state)[state["ivf_inv_perm"].long()] == built["assign"]).all())
     say(f"  spilled: recall@{K} {recall!r}; QPS {qps:,.1f} ({batch_ms:.2f} ms per batch); K1 {k1_ms:.3f} ms per "
         f"{QUERY_CHUNK}-query slice ({n_live} live chunks, bound {bound:.3f} ms, {by}); K1 launches {k1_launches} "
-        f"(then {k1_launches_all - k1_launches} timed); top-{K} rows repeating an id {repeats}; ivf_inv_perm in "
+        f"(then {k1_launches_all - k1_launches} timed), K3 {k3_launches} (then {k3_launches_all - k3_launches}); "
+        f"top-{K} rows repeating an id {repeats}; ivf_inv_perm in "
         f"the top-1 list {primary_ok} [{GPU}]")
     say(f"  unspilled, same call: build {unspilled['build_s']:.2f} s = {unspilled['vecs_s']:,.0f} vecs/s; phases "
         + ", ".join(f"{k} {v:.2f} s" for k, v in unspilled["timings"].items())
@@ -1000,7 +1070,8 @@ def spill_phase(dev, unspilled: dict, cfg: dict = CONFIG4) -> int:
     assert repeats == 0, "a spilled top-10 repeats an id"
     assert primary_ok, "ivf_inv_perm does not point at each row's primary copy"
     assert k1_launches > 0, "the spilled search did not launch K1"
-    return k1_launches_all
+    assert k3_launches == -(-B // QUERY_CHUNK), "the spilled search did not launch K3 once a slice"
+    return k1_launches_all, k3_launches_all
 
 
 def queue3_stores_phase(dev, n: int = 131_072, nlist: int = 128) -> dict:
@@ -4631,7 +4702,7 @@ def config4_paths(dev) -> dict:
     """Phases 3-10 and the ids path over config 4's store.  The store lives
     only in this function's frame, so it is freed when the function returns
     (the spilled build must not coexist with it).  Returns K1's main-variant
-    figures and launches, K2's launches on the residual scan, the new
+    figures and launches, K3's and its launches, K2's launches on the residual scan, the new
     variants' figures and the unspilled run's build and search figures."""
     import torch
 
@@ -4640,7 +4711,7 @@ def config4_paths(dev) -> dict:
     from lotus_tpu_torch.ops.flat import flat_search
     from lotus_tpu_torch.ops.flat_scan import ivf_residual_scan, residual_scan_inputs, scan_fold
     from lotus_tpu_torch.ops.ivf_probe import (
-        LOCAL_BITS, ivf_search_grouped_probe, probe_fold, probe_fold_reference, probe_layout,
+        LOCAL_BITS, ivf_search_grouped_probe, pool_select, probe_fold, probe_fold_reference, probe_layout,
     )
     from lotus_tpu_torch.ops.quant import quantize_rows
 
@@ -4749,7 +4820,11 @@ def config4_paths(dev) -> dict:
                     (units_w, vecs, scales, None, cl_w, w_starts, w_sizes), bl=bl, int8_dot=True, l2=False,
                     packed=False, exact=True, top1=top1)
 
+    with Phase("K3 vs plain version"):
+        k3 = k3_compare(state, xq[:QUERY_CHUNK])
+
     probe_fold.launches = 0  # count only the main path's launches from here
+    pool_select.launches = 0
     with Phase("config 4 search"):
         def search(queries):
             return ivf_search_grouped_probe(
@@ -4760,17 +4835,19 @@ def config4_paths(dev) -> dict:
         dists, ids = search(xq)
         torch.cuda.synchronize()
         launches_search = probe_fold.launches
+        k3_search = pool_select.launches
         recall = recall_at(ids.cpu().numpy(), gt)
         finite = bool(torch.isfinite(dists).all()) and tuple(ids.shape) == (B, K)
         qps, batch_ms = chained_qps(lambda: search(xq), B)
         say(f"  recall@{K} vs exact f32 = {recall!r} over {gt.shape[0]} queries; finite {finite}; "
-            f"K1 launches {launches_search}")
+            f"K1 launches {launches_search}; K3 launches {k3_search} ({-(-B // QUERY_CHUNK)} slices)")
         say(f"  QPS {qps:,.1f} (B={B}, nprobe={NPROBE}, rescore={RESCORE}, int8 queries, "
             f"query_chunk={QUERY_CHUNK}; {batch_ms:.2f} ms per batch) "
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{GPU}]")
         assert finite, "search output is not finite or has the wrong shape"
         assert recall >= 0.99, f"recall@10 {recall} below the 0.99 target"
         assert launches_search > 0, "the main path did not launch K1"
+        assert k3_search == -(-B // QUERY_CHUNK), "the main path did not launch K3 once a slice"
         unspilled.update(recall=recall, qps=qps, k1_ms=main_ms)
         capacity_report("unspilled", state, CONFIG4["n"], unspilled["peak"])
 
@@ -4815,6 +4892,8 @@ def config4_paths(dev) -> dict:
         del vs, emb, emb_t
 
     launches = probe_fold.launches  # the main path's launches: search, QPS, window phase, store, calibration
+    k3_launches = pool_select.launches
+    say(f"  K1 launches of the main path {launches}, K3 {k3_launches}")
 
     with Phase("config 4 with ids (TorchVS._ivf_subset_search)"):
         ivf_ids_phase(state, xq)
@@ -4849,8 +4928,8 @@ def config4_paths(dev) -> dict:
             f"single device without the int4 refinement {config5['no_refine']!r} (with it {unspilled['recall']!r}) "
             f"[{GPU}]")
     return dict(config5=config5, k1=(main_err, main_ms, main_plain_ms, main_bound, main_by), k1_launches=launches,
-                k2_launches=resid_launches, new_variants=new_variants, unspilled=unspilled,
-                queries=xq.cpu().numpy(), gt=gt)
+                k3=k3, k3_launches=k3_launches, k2_launches=resid_launches, new_variants=new_variants,
+                unspilled=unspilled, queries=xq.cpu().numpy(), gt=gt)
 
 
 def flat_corpus(dev):
@@ -4913,7 +4992,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with Phase("config 4 with spill_frac 0.05 (the unspilled store freed)"):
-        spill_launches = spill_phase(dev, c4["unspilled"])
+        spill_launches, spill_k3 = spill_phase(dev, c4["unspilled"])
     torch.cuda.empty_cache()
 
     with Phase("window-regime store (200,000 x 768, nlist 512)"):
@@ -5096,6 +5175,19 @@ def main() -> int:
             "bound_ms": k2_bounds["bf16"][0],
             "bound_by": k2_bounds["bf16"][1],
             "library_ms": None,  # no single PyTorch call folds a top-2 per lane
+        },
+        {
+            "name": "pool_select (K3)",
+            "route": "cuda",
+            "source": "lotus_tpu_torch/csrc/pool_select.cu",
+            "replaces": "lotus_tpu/ops/pallas_ivf.py:558",  # the XLA ops after the probe kernel; no Pallas kernel
+            "launches": c4["k3_launches"] + spill_k3,
+            "max_abs_err": c4["k3"][0],
+            "ms": c4["k3"][1],
+            "plain_ms": c4["k3"][2],
+            "bound_ms": c4["k3"][3],
+            "bound_by": c4["k3"][4],
+            "library_ms": None,  # no single PyTorch call reassembles the pairs and selects
         },
         *({
             "name": name, "route": "cuda", "source": f"lotus_tpu_torch/csrc/{src}",

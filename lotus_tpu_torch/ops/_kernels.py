@@ -90,6 +90,10 @@ def bind(path: Path | str) -> ctypes.CDLL:
     handle.lotus_flat_scan.restype = ci
     handle.lotus_flat_scan_plan.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
     handle.lotus_flat_scan_plan.restype = None
+    handle.lotus_pool_select.argtypes = [vp] * 11 + [ctypes.c_longlong] + [ci] * 6 + [vp]
+    handle.lotus_pool_select.restype = ci
+    handle.lotus_pool_select_workspace.argtypes = [ci] * 3
+    handle.lotus_pool_select_workspace.restype = ctypes.c_longlong
     handle.lotus_cuda_error_string.argtypes = [ci]
     handle.lotus_cuda_error_string.restype = ctypes.c_char_p
     return handle

@@ -41,17 +41,17 @@ def state_bytes(n: int, slots: int, nlist: int, d: int, dtype: torch.dtype, *, r
             + nlist * (4 * d + 8))
 
 
-def k1_pool_bytes(query_chunk: int, nprobe: int, nlist: int, *, top1: bool = False) -> int:
+def k1_pool_bytes(query_chunk: int, nprobe: int, nlist: int, *, top1: bool = False, packed: bool = True) -> int:
     """Transient bytes of one grouped-probe slice: K1's output over the
     static grid (``P / 128 + nlist + 1`` chunks of 128 slots, ``P`` =
-    query_chunk * nprobe pairs) and four (P, candidates) f32 / int32 planes
-    of the reassembly (the gathered pool, its ids, the scores and the
-    top-k's input)."""
+    query_chunk * nprobe pairs), f32 scores and, when not ``packed``, their
+    int32 storage rows.  K3 (``pool_select``) reads it in place; its
+    (query_chunk, k_out) head is small beside it."""
     from lotus_tpu_torch.ops.ivf_probe import QU, ncand
 
     p = query_chunk * nprobe
-    nc = ncand(top1)
-    return ((p // QU + nlist + 1) * QU + 4 * p) * nc * 4
+    planes = 1 if packed else 2
+    return (p // QU + nlist + 1) * QU * ncand(top1) * 4 * planes
 
 
 def subset_bytes(n_ids: int, d: int, dtype: torch.dtype, *, residual: bool = False) -> int:

@@ -14,8 +14,9 @@ tables that XLA builds.  Here plain torch ops build the tables and K1
 4. K1 (``probe_fold``): per (list, chunk) a top-2 per 64 strided lanes
    across the whole list, 128 candidates per pair (a top-1, 64 candidates,
    under ``FOLD = "top1"``);
-5. reassembly per pair, packed-id decode, residual bias, the pool top-k,
-   dedup on spilled stores only, and the per-query int8 scale;
+5. K3 (``pool_select``, ``csrc/pool_select.cu``): per query, reassembly per
+   pair, packed-id decode, residual bias and the pool top-k in one launch;
+   then dedup on spilled stores only, and the per-query int8 scale;
 6. optional exact f32 rescoring (``ops/ivf.py::rescore_candidates``).
 
 Each call is the span ``ivf.search`` (``lotus_tpu_torch.profiling``); each
@@ -310,6 +311,190 @@ def probe_layout(
     return xq_units, chunk_list, padpos, blocks
 
 
+def pool_candidates(
+    cand_pk: torch.Tensor,
+    cand_idx: torch.Tensor | None,
+    padpos: torch.Tensor,
+    probe_lists: torch.Tensor,
+    list_start: torch.Tensor,
+    list_size: torch.Tensor,
+    probe_bias: torch.Tensor | None,
+    q_scales: torch.Tensor | None,
+    *,
+    packed: bool,
+    n_rows: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every query's whole candidate pool as K3 scores it: ``(cand_s,
+    cand_i)``, each (b, nprobe * kc), in pair order; ``cand_i`` holds
+    storage rows (int32)."""
+    b, nprobe = probe_lists.shape
+    kc = cand_pk.shape[-1]
+    dev = cand_pk.device
+    l_flat = probe_lists.reshape(-1).long()
+    # ---- reassemble per pair -------------------------------------------
+    # Pair p's candidates are row padpos[p] of the kernel output; a pair
+    # whose list is empty reads a MASK_SCORE row, and 'empty' masks it too
+    # (a probed list has blocks exactly where its size is above 0).
+    empty = (list_size[l_flat] > 0)[:, None]
+    mask = torch.tensor(MASK_SCORE, dtype=torch.float32, device=dev)
+    flat_s = cand_pk.reshape(-1, kc)
+    pool = torch.where(empty, flat_s[padpos], mask).reshape(b, nprobe, kc)
+    if packed:
+        bits = pool.view(torch.int32)
+        starts = list_start[probe_lists.long()]  # (b, nprobe)
+        cand_i = torch.clamp(starts[:, :, None] + (bits & _LOCAL_MASK), max=n_rows - 1)
+        cand_s = (bits & ~_LOCAL_MASK).view(torch.float32)
+    else:
+        cand_s = pool
+        cand_i = cand_idx.reshape(-1, kc)[padpos].reshape(b, nprobe, kc)
+    if probe_bias is not None:
+        # Residual encoding: every candidate of probe slot s owes the exact
+        # coarse term q.c in probe_bias[:, s]; that breaks the rank-neutral
+        # query scale, so int8 queries are dequantized here.
+        masked = cand_s <= MASK_SCORE / 2
+        if q_scales is not None:
+            cand_s = cand_s * q_scales[:, None, None]
+        cand_s = torch.where(masked, mask, cand_s + probe_bias[:, :, None])
+    return cand_s.reshape(b, nprobe * kc), cand_i.reshape(b, nprobe * kc)
+
+
+def pool_select_reference(
+    cand_pk: torch.Tensor,
+    cand_idx: torch.Tensor | None,
+    padpos: torch.Tensor,
+    probe_lists: torch.Tensor,
+    list_start: torch.Tensor,
+    list_size: torch.Tensor,
+    probe_bias: torch.Tensor | None,
+    q_scales: torch.Tensor | None,
+    *,
+    k_out: int,
+    packed: bool,
+    n_rows: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3: the pool (``pool_candidates``), then its
+    top ``k_out`` by ``torch.topk`` with their storage rows."""
+    cand_s, cand_i = pool_candidates(cand_pk, cand_idx, padpos, probe_lists, list_start, list_size,
+                                     probe_bias, q_scales, packed=packed, n_rows=n_rows)
+    top_s, pos = torch.topk(cand_s, k_out, dim=1)
+    return top_s, torch.gather(cand_i, 1, pos)
+
+
+def pool_select(
+    cand_pk: torch.Tensor,
+    cand_idx: torch.Tensor | None,
+    padpos: torch.Tensor,
+    probe_lists: torch.Tensor,
+    list_start: torch.Tensor,
+    list_size: torch.Tensor,
+    probe_bias: torch.Tensor | None,
+    q_scales: torch.Tensor | None,
+    *,
+    k_out: int,
+    packed: bool,
+    n_rows: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's wrapper (``csrc/pool_select.cu``): each query's ``k_out`` best
+    pool candidates, descending, and their storage rows (int32).  On CUDA
+    tensors it launches the kernel (or raises); only tensors on the CPU take
+    ``pool_select_reference``.
+
+    ``cand_pk``: K1's output (grid, QU, kc) f32, kc 64 or 128; ``cand_idx``:
+    its storage rows (int32, same shape), read only when not ``packed``;
+    ``padpos``: (b * nprobe,) int64 row of each pair; ``probe_lists``: (b,
+    nprobe) int32; ``list_start`` / ``list_size``: (nlist,) int32, the sizes
+    as K1 got them; ``probe_bias``: (b, nprobe) f32 or None; ``q_scales``:
+    (b,) f32 or None, multiplied in before the bias (only with a bias);
+    ``n_rows``: the storage rows, the bound of a packed row.
+    """
+    args = (cand_pk, cand_idx, padpos, probe_lists, list_start, list_size, probe_bias, q_scales)
+    if not cand_pk.is_cuda:
+        return pool_select_reference(*args, k_out=k_out, packed=packed, n_rows=n_rows)
+    from lotus_tpu_torch.ops import _kernels
+
+    dev = cand_pk.device
+    b, nprobe = probe_lists.shape
+    kc = cand_pk.shape[-1]
+    if kc not in (NBK, 2 * NBK) or cand_pk.dtype != torch.float32 or not cand_pk.is_contiguous():
+        raise ValueError(f"pool_select: cand_pk must be a contiguous f32 tensor of {NBK} or {2 * NBK} columns")
+    if cand_pk.data_ptr() % 16:
+        raise ValueError("pool_select: cand_pk must be 16-byte aligned")
+    if not 0 <= k_out <= nprobe * kc:
+        raise ValueError(f"pool_select: k_out {k_out} outside [0, {nprobe * kc}]")
+    probe_lists = probe_lists.contiguous()
+    probe_bias = None if probe_bias is None else probe_bias.contiguous()
+    q_scales = None if probe_bias is None or q_scales is None else q_scales.contiguous()
+    if not packed and (cand_idx is None or cand_idx.shape != cand_pk.shape):
+        raise ValueError("pool_select: unpacked candidates need cand_idx of cand_pk's shape")
+    checks = (
+        ("cand_idx", None if packed else cand_idx, torch.int32, cand_pk.shape),
+        ("padpos", padpos, torch.int64, (b * nprobe,)),
+        ("probe_lists", probe_lists, torch.int32, (b, nprobe)),
+        ("list_start", list_start, torch.int32, list_size.shape),
+        ("list_size", list_size, torch.int32, (list_size.shape[0],)),
+        ("probe_bias", probe_bias, torch.float32, (b, nprobe)),
+        ("q_scales", q_scales, torch.float32, (b,)),
+    )
+    for name, t, dtype, shape in checks:
+        if t is not None and (t.device != dev or t.dtype != dtype or t.shape != shape or not t.is_contiguous()):
+            raise ValueError(f"pool_select: {name} must be a contiguous {tuple(shape)} {dtype} tensor on {dev}")
+    out_s = torch.empty((b, k_out), dtype=torch.float32, device=dev)
+    out_rows = torch.empty((b, k_out), dtype=torch.int32, device=dev)
+    if b == 0 or k_out == 0:
+        return out_s, out_rows
+    lib = _kernels.lib()
+    # Device memory for the blocks' tables where they outgrow shared memory
+    # (nprobe past about 8,000 or k_out past 16,384); none at served shapes.
+    work_bytes = lib.lotus_pool_select_workspace(b, nprobe, k_out)
+    work = torch.empty((work_bytes,), dtype=torch.uint8, device=dev) if work_bytes else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    code = lib.lotus_pool_select(
+        ptr(cand_pk), ptr(None if packed else cand_idx), ptr(padpos), ptr(probe_lists), ptr(list_start),
+        ptr(list_size), ptr(probe_bias), ptr(q_scales), ptr(out_s), ptr(out_rows), ptr(work), work_bytes, b,
+        nprobe, kc, k_out, int(packed), n_rows, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _kernels.check(code, "pool_select launch")
+    pool_select.launches += 1
+    return out_s, out_rows
+
+
+pool_select.launches = 0  # K3 launches in this process (one an ``ivf.pool`` span on the card)
+
+
+def finish_pool(
+    top_s: torch.Tensor,
+    top_rows: torch.Tensor,
+    row_ids: torch.Tensor,
+    k: int,
+    *,
+    spilled: bool,
+    q_scales: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """From the pool's sorted head (``pool_select``) to the probe's answer:
+    ids (NO_HIT for masked scores), the dedup of spilled stores or the
+    padding of a pool smaller than k, and the rank-neutral query scale
+    ``q_scales`` applied last.  Returns ``(scores, ids, storage rows)``."""
+    b, k_out = top_s.shape
+    dev = top_s.device
+    top_i = row_ids[top_rows.long()]
+    top_i = torch.where(top_s <= MASK_SCORE / 2, torch.full_like(top_i, NO_HIT), top_i)
+    if spilled:
+        # Storage rows ride along for the shard-local exact rescore.
+        top_s, top_i, top_rows = dedup_topk(top_s, top_i, k, aux=top_rows)
+    elif k_out < k:  # pool smaller than k: pad, keeping the sorted head
+        pad = k - k_out
+        top_s = torch.cat([top_s, torch.full((b, pad), MASK_SCORE, dtype=top_s.dtype, device=dev)], 1)
+        top_i = torch.cat([top_i, torch.full((b, pad), NO_HIT, dtype=top_i.dtype, device=dev)], 1)
+        top_rows = torch.cat([top_rows, torch.zeros((b, pad), dtype=top_rows.dtype, device=dev)], 1)
+    if q_scales is not None:
+        # Per-query dequantization constant; rank-neutral, so applied last.
+        top_s = torch.where(top_i == NO_HIT, top_s, top_s * q_scales[:, None])
+    return top_s, top_i, top_rows
+
+
 def _grouped_probe(
     centroids: torch.Tensor,
     xb_sorted: torch.Tensor,
@@ -342,8 +527,6 @@ def _grouped_probe(
     exact rescore.  ``fold`` runs K1; a check on the card passes
     ``probe_fold_reference`` to run the same path through the plain version.
     """
-    b = xq.shape[0]
-    dev = xq.device
     is_int8 = xb_sorted.dtype == torch.int8
     is_l2 = metric == "l2"
     # int8 x int8 needs int8 storage and queries and a metric whose query
@@ -368,9 +551,7 @@ def _grouped_probe(
         else:
             xq_store = xq
 
-        xq_units, chunk_list, padpos, blocks = probe_layout(probe_lists, xq_store, list_size, bl)
-    n_chunks_max = chunk_list.shape[0] - 1
-    l_flat = probe_lists.reshape(-1).long()
+        xq_units, chunk_list, padpos, _ = probe_layout(probe_lists, xq_store, list_size, bl)
 
     # Packing truncates 13 mantissa bits, so it is only used when the caller
     # exactly re-ranks the candidates; windows beyond the packed-id range
@@ -382,53 +563,17 @@ def _grouped_probe(
             xq_units, xb_sorted, row_scales if is_int8 else None, norms_sq if is_l2 else None,
             chunk_list, list_start, list_size, bl=bl, int8_dot=int8_dot, l2=is_l2, packed=packed, top1=top1,
         )
-    with annotate("ivf.pool"):
-        # ---- reassemble per pair -------------------------------------------
-        # Pair p's candidates are row padpos[p] of the kernel output; a pair
-        # whose list is empty reads a MASK_SCORE row, and 'empty' masks it too.
-        kc = ncand(top1)
-        empty = (blocks[l_flat] > 0)[:, None]
-        mask = torch.tensor(MASK_SCORE, dtype=torch.float32, device=dev)
-        flat_s = cand_pk.reshape((n_chunks_max + 1) * QU, kc)
-        pool = torch.where(empty, flat_s[padpos], mask).reshape(b, nprobe, kc)
-        if packed:
-            bits = pool.view(torch.int32)
-            starts = list_start[probe_lists.long()]  # (b, nprobe)
-            cand_i = torch.clamp(starts[:, :, None] + (bits & _LOCAL_MASK), max=xb_sorted.shape[0] - 1)
-            cand_s = (bits & ~_LOCAL_MASK).view(torch.float32)
-        else:
-            cand_s = pool
-            cand_i = cand_idx.reshape((n_chunks_max + 1) * QU, kc)[padpos].reshape(b, nprobe, kc)
-        if probe_bias is not None:
-            # Residual encoding: every candidate of probe slot s owes the exact
-            # coarse term q.c in probe_bias[:, s]; that breaks the rank-neutral
-            # query scale, so int8 queries are dequantized here.
-            masked = cand_s <= MASK_SCORE / 2
-            if q_scales is not None:
-                cand_s = cand_s * q_scales[:, None, None]
-            cand_s = torch.where(masked, mask, cand_s + probe_bias[:, :, None])
-        cand_s = cand_s.reshape(b, nprobe * kc)
-        cand_i = cand_i.reshape(b, nprobe * kc)
-
+    with annotate("ivf.pool", route="kernel" if cand_pk.is_cuda else "plain"):
         # Spilled rows can reach the pool through two lists: 2k head-room and a
         # dedup.  Unspilled pools hold each id once, so the top-k is final.
-        k_out = min(2 * k if spilled else k, nprobe * kc)
-        top_s, pos = torch.topk(cand_s, k_out, dim=1)
-        top_rows = torch.gather(cand_i, 1, pos)
-        top_i = row_ids[top_rows.long()]
-        top_i = torch.where(top_s <= MASK_SCORE / 2, torch.full_like(top_i, NO_HIT), top_i)
-
-        if spilled:
-            # Storage rows ride along for the shard-local exact rescore.
-            top_s, top_i, top_rows = dedup_topk(top_s, top_i, k, aux=top_rows)
-        elif k_out < k:  # pool smaller than k: pad, keeping the sorted head
-            pad = k - k_out
-            top_s = torch.cat([top_s, torch.full((b, pad), MASK_SCORE, dtype=top_s.dtype, device=dev)], 1)
-            top_i = torch.cat([top_i, torch.full((b, pad), NO_HIT, dtype=top_i.dtype, device=dev)], 1)
-            top_rows = torch.cat([top_rows, torch.zeros((b, pad), dtype=top_rows.dtype, device=dev)], 1)
-        if q_scales is not None and probe_bias is None:
-            # Per-query dequantization constant; rank-neutral, so applied last.
-            top_s = torch.where(top_i == NO_HIT, top_s, top_s * q_scales[:, None])
+        k_out = min(2 * k if spilled else k, nprobe * ncand(top1))
+        top_s, top_rows = pool_select(
+            cand_pk, cand_idx, padpos, probe_lists, list_start, list_size, probe_bias,
+            q_scales if probe_bias is not None else None, k_out=k_out, packed=packed,
+            n_rows=xb_sorted.shape[0],
+        )
+        top_s, top_i, top_rows = finish_pool(top_s, top_rows, row_ids, k, spilled=spilled,
+                                             q_scales=q_scales if probe_bias is None else None)
         if return_rows:
             return top_s, top_i, top_rows
         return top_s, top_i

@@ -19,6 +19,7 @@ from lotus_tpu.ops.ivf import build_ivf as jax_build_ivf
 from lotus_tpu.ops.ivf import load_ivf_state as jax_load
 from lotus_tpu_torch.ops import ivf_probe as tprobe
 from lotus_tpu_torch.ops.ivf import load_ivf_state as torch_load
+from torch_pool import assert_finish, assert_head, numpy_finish, numpy_pool, synth_pool
 
 _JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8,
               torch.float16: jnp.float16}
@@ -436,3 +437,48 @@ def test_shard_owning_none_of_the_probed_lists(tmp_path, packed_ok):
     assert launches == [1]
     for s, i, _ in (ref, got, tuple(t.numpy() for t in out)):
         assert (s <= -1e38).all() and (i == -1).all()
+
+
+# (case, synth_pool arguments, k, spilled) for the pool stage's plain version
+_POOL_CASES = [
+    ("packed_bias_scale", dict(kc=128, packed=True, bias=True, scale=True), 24, False),
+    ("packed_bias", dict(kc=128, packed=True, bias=True, scale=False), 24, False),
+    ("packed_scale_last", dict(kc=128, packed=True, bias=False, scale=True), 24, False),
+    ("unpacked_bias_scale", dict(kc=128, packed=False, bias=True, scale=True), 24, False),
+    ("unpacked_kc64", dict(kc=64, packed=False, bias=False, scale=False), 10, False),
+    ("packed_kc64_bias", dict(kc=64, packed=True, bias=True, scale=False), 10, False),
+    ("empty_lists", dict(packed=True, empty=5), 24, False),
+    ("owned_zeroed", dict(packed=True, zeroed=5), 24, False),
+    ("owned_zeroed_unpacked", dict(packed=False, zeroed=5, bias=False, scale=False), 24, False),
+    ("all_empty_query", dict(packed=True, all_empty_query=True), 24, False),
+    ("ties", dict(packed=False, ties=True), 24, False),
+    ("whole_pool_padded", dict(kc=64, packed=True, nprobe=3), 300, False),
+    ("spilled_2k_dedup", dict(packed=False, bias=False, scale=False), 24, True),
+    ("spilled_kc64_scale", dict(kc=64, packed=False, bias=False, scale=True), 24, True),
+]
+
+
+@pytest.mark.parametrize("case,kw,k,spilled", _POOL_CASES, ids=[c[0] for c in _POOL_CASES])
+def test_pool_select_reference_against_numpy_pool(case, kw, k, spilled):
+    """The pool stage's plain version (``pool_select_reference``) against
+    each query's pool built pair by pair in numpy and sorted there, and
+    ``finish_pool`` after it against the same steps in numpy."""
+    kw = dict(kw)
+    nprobe = kw.pop("nprobe", 12)
+    inp = synth_pool(13, b=6, nprobe=nprobe, nlist=20, **kw)
+    kc, packed = inp["cand_pk"].shape[-1], kw.get("packed", True)
+    k_out = min(2 * k if spilled else k, nprobe * kc)
+    names = ("cand_pk", "cand_idx", "padpos", "probe_lists", "list_start", "list_size", "probe_bias", "q_scales")
+    top_s, top_rows = tprobe.pool_select(*(inp[n] for n in names), k_out=k_out, packed=packed,
+                                         n_rows=inp["n_rows"])
+    assert top_s.shape == top_rows.shape == (6, k_out) and top_rows.dtype == torch.int32
+    pool_s, pool_r = numpy_pool(inp, packed=packed)
+    assert_head(top_s.numpy(), top_rows.numpy(), pool_s, pool_r)
+    if case == "all_empty_query":
+        assert (top_s[0] <= -1e38).all() and (top_s[1:, 0] > -1e38).all()
+    rng = np.random.default_rng(14)
+    row_ids = torch.from_numpy(rng.integers(0, inp["n_rows"] // 2, inp["n_rows"]).astype(np.int32) if spilled
+                               else rng.permutation(inp["n_rows"]).astype(np.int32))
+    last_scale = inp["q_scales"] if inp["probe_bias"] is None else None
+    got = tprobe.finish_pool(top_s, top_rows, row_ids, k, spilled=spilled, q_scales=last_scale)
+    assert_finish(got, numpy_finish(top_s, top_rows, row_ids, k, spilled=spilled, q_scales=last_scale), k)

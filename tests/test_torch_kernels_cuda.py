@@ -1,5 +1,5 @@
-"""K1 and K2 on the card against their plain PyTorch versions, variant by
-variant.
+"""K1, K2 and K3 on the card against their plain PyTorch versions, variant
+by variant, and the grouped probe's slices free of host synchronisation.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (a CUDA kernel has no
 CPU mode) and skip without them.  The file imports torch only, so it also
@@ -8,10 +8,13 @@ runs on a machine without JAX:
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
+from torch_pool import assert_finish, numpy_finish, synth_pool
 
 from lotus_tpu_torch.ops import ivf_probe as tprobe
+from lotus_tpu_torch.ops.common import MASK_SCORE
 
 
 @pytest.mark.cuda
@@ -307,3 +310,121 @@ def test_scan_fold_loaders_and_depths_on_gpu(qdt, xdt, d, loader, query):
     torch.cuda.synchronize()
     assert (tscan.scan_fold.last_plan["loader"], tscan.scan_fold.last_plan["query"]) == (loader, query)
     _hold_scan(got, ref, exact=qdt == torch.int8)
+
+
+_POOL_ARGS = ("cand_pk", "cand_idx", "padpos", "probe_lists", "list_start", "list_size", "probe_bias", "q_scales")
+# (case, synth_pool arguments, k, spilled); k_out = min(2k if spilled else k, the pool)
+_K3_CASES = [
+    # the config-4 slice: K1's packed top-2 output, residual bias, int8 query scales
+    ("config4_slice", dict(b=2048, nprobe=208, nlist=4096), 24, False),
+    # a pool of 512 KB a query, far past shared memory
+    ("nprobe_1024", dict(b=96, nprobe=1024, nlist=2048), 24, False),
+    ("spilled_2k", dict(b=256, nprobe=64, nlist=512, packed=False, bias=False, scale=False), 24, True),
+    ("kc64", dict(b=256, nprobe=32, nlist=256, kc=64, packed=False, bias=False, scale=False), 10, False),
+    ("kc64_packed_bias", dict(b=256, nprobe=32, nlist=256, kc=64, scale=False), 10, False),
+    # k past the pool: k_out is the whole pool, padded after
+    ("k_out_whole_pool", dict(b=64, nprobe=3, nlist=32, kc=64), 300, False),
+    # fewer pairs than k_out: no bound from the pairs' maxima
+    ("fewer_pairs_than_k_out", dict(b=64, nprobe=8, nlist=64, kc=64), 24, True),
+    ("all_lists_empty", dict(b=64, nprobe=16, nlist=256, all_empty_query=True), 24, False),
+    ("empty_and_owned", dict(b=256, nprobe=64, nlist=512, empty=20, zeroed=40), 24, False),
+    # scores rounded to quarters: ties across pairs and at the head's end
+    ("ties", dict(b=256, nprobe=64, nlist=512, packed=False, bias=False, scale=False, ties=True), 24, False),
+    # 23 pairs of a query far above the rest: the candidate list overflows and t rises
+    ("crowded", dict(b=64, nprobe=208, nlist=1024, packed=False, bias=False, scale=False, crowded=23), 24, False),
+    # tables past shared memory, so each block keeps them in the device-memory workspace:
+    # 9,000 pairs a query; k_out past 16,384 with fewer pairs than k_out; both at once
+    ("nprobe_9000", dict(b=24, nprobe=9000, nlist=9216, scale=False), 24, False),
+    ("k_out_20000", dict(b=16, nprobe=256, nlist=512, packed=False, bias=False, scale=False), 20000, False),
+    ("k_out_17000_nprobe_20000", dict(b=4, nprobe=20000, nlist=20480, kc=64), 17000, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,kw,k,spilled", _K3_CASES, ids=[c[0] for c in _K3_CASES])
+def test_pool_select_matches_plain_version_on_gpu(case, kw, k, spilled):
+    """K3 against ``pool_select_reference`` on the same inputs on the card:
+    scores bit for bit; rows above MASK_SCORE / 2 those of the pool's stable
+    descending order (earlier candidates first among equal scores), so the
+    plain version's rows agree as sets wherever its ``torch.topk`` may order
+    ties otherwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: K3 has no CPU mode")
+    inp = synth_pool(31, device="cuda", **kw)
+    args = tuple(inp[n] for n in _POOL_ARGS)
+    packed = kw.get("packed", True)
+    kc = inp["cand_pk"].shape[-1]
+    k_out = min(2 * k if spilled else k, kw["nprobe"] * kc)
+    opts = dict(k_out=k_out, packed=packed, n_rows=inp["n_rows"])
+    launches = tprobe.pool_select.launches
+    got_s, got_r = tprobe.pool_select(*args, **opts)
+    assert tprobe.pool_select.launches == launches + 1
+    ref_s, ref_r = tprobe.pool_select_reference(*args, **opts)
+    pool_s, pool_r = tprobe.pool_candidates(*args, packed=packed, n_rows=inp["n_rows"])
+    stable = torch.sort(pool_s, dim=1, descending=True, stable=True).indices[:, :k_out]
+    want_r = torch.gather(pool_r, 1, stable)
+    torch.cuda.synchronize()
+    got_s, got_r, ref_s, ref_r, want_r = (t.cpu() for t in (got_s, got_r, ref_s, ref_r, want_r))
+    assert torch.equal(got_s.view(torch.int32), ref_s.view(torch.int32))
+    live = got_s > MASK_SCORE / 2
+    assert torch.equal(torch.where(live, got_r, 0), torch.where(live, want_r, 0))
+    # The plain version's (score, row) pairs above each query's last score.
+    bits = got_s.view(torch.int32)
+    above = live & (bits != bits[:, -1:])
+    pairs = [(bits.long() << 32) | r.long() for r in (got_r, ref_r)]
+    held = [torch.sort(torch.where(above, p, torch.full_like(p, -1)), dim=1).values for p in pairs]
+    assert torch.equal(held[0], held[1])
+    if case == "all_lists_empty":
+        assert not live[0].any() and live[1:, 0].all()
+    if spilled or k_out < k:
+        rng = np.random.default_rng(32)
+        row_ids = torch.from_numpy(rng.integers(0, inp["n_rows"] // 2, inp["n_rows"]).astype(np.int32))
+        last_scale = inp["q_scales"].cpu() if inp["q_scales"] is not None and inp["probe_bias"] is None else None
+        got = tprobe.finish_pool(got_s.cuda(), got_r.cuda(), row_ids.cuda(), k, spilled=spilled,
+                                 q_scales=None if last_scale is None else last_scale.cuda())
+        want = numpy_finish(got_s, got_r, row_ids, k, spilled=spilled, q_scales=last_scale)
+        assert_finish(tuple(t.cpu() for t in got), want, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spill_frac", [0.0, 0.2])
+def test_grouped_probe_slices_sync_only_in_probe_layout_on_gpu(monkeypatch, spill_frac):
+    """A search's slices queue their launches without waiting for the card:
+    under ``torch.cuda.set_sync_debug_mode("error")`` nothing synchronises
+    but ``probe_layout`` (its histogram's ``hist[q_ids, l_flat] = 1`` copies
+    a host scalar), which runs with the mode off, and K3 (never the plain
+    version) runs once a slice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from lotus_tpu_torch.ops.bench_data import synth_ivf_device_build
+
+    built = synth_ivf_device_build(n=131072, d=64, nlist=64, n_clusters=512, chunk=32768, queries_b=1024,
+                                   gt_queries=1, k=10, spill_frac=spill_frac, device="cuda", seed=3)
+    state, xq = built["state"], built["queries"]
+    kw = dict(nprobe=16, int8_queries=True, rescore=24, query_chunk=512)
+    want = tprobe.ivf_search_grouped_probe(state, xq, 10, **kw)  # builds the kernels, caches the state's tables
+    torch.cuda.synchronize()
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached pool_select_reference")
+
+    layout = tprobe.probe_layout
+
+    def layout_unchecked(*a, **k):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return layout(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(tprobe, "pool_select_reference", plain)
+    monkeypatch.setattr(tprobe, "probe_layout", layout_unchecked)
+    launches = tprobe.pool_select.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tprobe.ivf_search_grouped_probe(state, xq, 10, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tprobe.pool_select.launches == launches + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -18,7 +18,7 @@ from lotus_tpu.ops.ivf import plan_block_aligned_layout
 from lotus_tpu_torch.ops import capacity
 from lotus_tpu_torch.ops.bench_data import plan_spill_layout, synth_ivf_device_build
 from lotus_tpu_torch.ops.ivf import ensure_pos_list
-from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe
+from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe, probe_fold_reference
 
 CFG = dict(n=2**15, d=64, nlist=64, n_clusters=48, chunk=2**13, queries_b=256, gt_queries=256, k=10)
 SPILL = 0.1
@@ -123,3 +123,22 @@ def test_capacity_formula_sums_the_built_state(builds, frac):
     rows = capacity.max_rows(have, CFG["d"], torch.int8, nlist=CFG["nlist"], block_align=1024,
                              window=int(st["meta"]["probe_window"]), residual=True, refine=True, spill_frac=frac)
     assert 0.8 * CFG["n"] <= rows <= 1.2 * CFG["n"], rows
+
+
+@pytest.mark.parametrize("rescore", [24, None], ids=["packed", "unpacked"])
+def test_k1_pool_bytes_is_k1_output(builds, rescore):
+    """The slice's transient in the capacity model is K1's output as the
+    grouped probe gets it: scores, and storage rows when not packed."""
+    b = builds[0.0]
+    seen = []
+
+    def fold(*args, **kw):
+        out = probe_fold_reference(*args, **kw)
+        seen.append((kw["packed"], sum(t.nbytes for t in out if t is not None)))
+        return out
+
+    ivf_search_grouped_probe(b["state"], b["queries"], CFG["k"], nprobe=8, metric="ip", rescore=rescore,
+                             int8_queries=True, query_chunk=128, fold=fold)
+    assert [packed for packed, _ in seen] == [rescore is not None] * 2
+    for packed, nbytes in seen:
+        assert nbytes == capacity.k1_pool_bytes(128, 8, CFG["nlist"], packed=packed), (packed, nbytes)
