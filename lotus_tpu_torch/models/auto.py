@@ -3,13 +3,10 @@
 local checkpoint directory.
 
 ``load_encoder`` dispatches on ``config.json``'s ``model_type`` to the
-families in ``checkpoint.FAMILIES`` (bert, roberta, xlm-roberta,
-distilbert, electra, albert, roformer, big_bird, roberta-prelayernorm;
-bart and mbart, also as sequence classifiers; pegasus, blenderbot,
-blenderbot-small, marian and the decoders gpt2, gpt-sw3, gpt_neo, gptj,
-llama, mistral, gemma, bloom and xglm as encoders only, where a classifier
-raises ``ValueError`` as the reference's auto class does); any other type
-raises ``NotImplementedError`` naming it: of the types ``FlaxAutoModel``
+families in ``checkpoint.FAMILIES``, which lists them with their sequence
+classifiers (a family without one runs as an encoder only, where a
+classifier raises ``ValueError`` as the reference's auto class does); any
+other type raises ``NotImplementedError`` naming it: of the types ``FlaxAutoModel``
 maps, t5 and its kin, and the vision and audio models, which fail in the
 reference's classes.  It places each
 tensor on the target device as it is read, and casts the model there: a 7B

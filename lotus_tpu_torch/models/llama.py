@@ -108,11 +108,13 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 
 class LlamaRMSNorm(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    """RMSNorm over the hidden size, or over ``size`` (DeepSeek-V2's latent)."""
+
+    def __init__(self, cfg: LlamaConfig, size: int | None = None):
         super().__init__()
         self.eps = cfg.rms_norm_eps
-        self.offset = cfg.norm_offset
-        self.weight = nn.Parameter(torch.empty(cfg.hidden_size))
+        self.offset = getattr(cfg, "norm_offset", 0.0)
+        self.weight = nn.Parameter(torch.empty(size or cfg.hidden_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         variance = x.float().pow(2).mean(-1, keepdim=True)
@@ -147,11 +149,15 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    """The SwiGLU MLP, ``intermediate_size`` wide or ``width`` (DeepSeek-V2's
+    shared experts)."""
+
+    def __init__(self, cfg: LlamaConfig, width: int | None = None):
         super().__init__()
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        width = width or cfg.intermediate_size
+        self.gate_proj = nn.Linear(cfg.hidden_size, width, bias=False)
+        self.up_proj = nn.Linear(cfg.hidden_size, width, bias=False)
+        self.down_proj = nn.Linear(width, cfg.hidden_size, bias=False)
         self.act = ACTIVATIONS[getattr(cfg, cfg.activation_key)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

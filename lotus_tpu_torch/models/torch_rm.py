@@ -1,8 +1,5 @@
-"""Sentence-embedding RM on the card: an encoder (BERT, RoBERTa, XLM-R,
-DistilBERT, ELECTRA, ALBERT, RoFormer, BigBird or RoBERTa-PreLayerNorm), an
-encoder-decoder (BART, mBART, Pegasus, Blenderbot, Blenderbot-Small or
-Marian) or a decoder (GPT-2, GPT-SW3, GPT-Neo, GPT-J, Llama, Mistral, Gemma,
-BLOOM or XGLM) in PyTorch.
+"""Sentence-embedding RM on the card: an encoder, an encoder-decoder or a
+decoder of any family ``checkpoint.FAMILIES`` lists, in PyTorch.
 
 The port of ``JaxSentenceEncoderRM`` (``lotus_tpu/models/flax_rm.py:32-127``),
 which fills the role of the reference's ``SentenceTransformersRM``.  It
@@ -32,7 +29,9 @@ sliced off after pooling.  One tokenizer pass truncated to
 ``max_seq_length`` and padded to the bucket gives the ids the reference's
 two passes give.  Pooling is the reference's: mean over the mask in the
 hidden dtype (count clipped at 1e-9) or ``[CLS]``, cast to f32, optionally
-L2-normalised (norm clipped at 1e-12).
+L2-normalised (norm clipped at 1e-12).  A call opens the span ``rm.call``
+over ``rm.tokenize`` (a batch's tokens) and ``rm.forward`` (its forward and
+pooling) for ``lotus_tpu_torch.profiling``.
 """
 
 from __future__ import annotations
@@ -41,7 +40,9 @@ from typing import Iterator, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
+from lotus_tpu_torch import profiling
 from lotus_tpu_torch.models.auto import load_encoder, load_tokenizer
 from lotus_tpu_torch.models.rm import RM
 from lotus_tpu_torch.models.tokenizer_json import JsonTokenizer
@@ -91,7 +92,10 @@ class TorchSentenceEncoderRM(RM):
     ``dtype`` (a torch dtype, f32 by default) holds the parameters and runs
     the forward, each tensor placed on the device as it is read; outputs are
     always float32.  ``device=None`` takes the card
-    and raises without one.
+    and raises without one.  ``encoder``, a family's module already built
+    on the device (a model made there rather than read from files), takes
+    the place of ``model``'s weights; the tokenizer is still ``model``'s, and
+    every call runs the same path.
     """
 
     def __init__(
@@ -103,6 +107,7 @@ class TorchSentenceEncoderRM(RM):
         max_seq_length: int = 512,
         dtype: torch.dtype | None = None,
         device: str | torch.device | None = None,
+        encoder: nn.Module | None = None,
     ):
         if pooling not in ("mean", "cls"):
             raise ValueError(f"pooling must be 'mean' or 'cls', got {pooling!r}")
@@ -112,7 +117,8 @@ class TorchSentenceEncoderRM(RM):
         self.normalize_embeddings = normalize_embeddings
         self.pooling = pooling
         self.max_seq_length = int(max_seq_length)
-        self.encoder = load_encoder(model, dtype=dtype or torch.float32, device=self.device)
+        self.encoder = (load_encoder(model, dtype=dtype or torch.float32, device=self.device) if encoder is None
+                        else encoder.eval())
         self.tokenizer = load_tokenizer(model)
 
     def _pool(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -128,12 +134,19 @@ class TorchSentenceEncoderRM(RM):
 
     def _embed(self, docs: list[str]) -> np.ndarray:
         out = []
-        with torch.inference_mode():
+        with profiling.annotate("rm.call", docs=len(docs)), torch.inference_mode():
             # Batches are queued without waiting: the host tokenizes the next
             # batch while the card encodes this one.
-            for n, ids, mask in bucketed_batches(self.tokenizer, docs, None, self.max_batch_size,
-                                                 self.max_seq_length, self.device, self.encoder.config.vocab_size):
-                out.append(self._pool(self.encoder(ids, mask), mask)[:n])
-        if not out:
-            return np.zeros((0, self.encoder.config.hidden_size), np.float32)
-        return torch.cat(out).cpu().numpy()
+            batches = bucketed_batches(self.tokenizer, docs, None, self.max_batch_size, self.max_seq_length,
+                                       self.device, self.encoder.config.vocab_size)
+            while True:
+                with profiling.annotate("rm.tokenize"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                n, ids, mask = batch
+                with profiling.annotate("rm.forward", tokens=ids.numel()):
+                    out.append(self._pool(self.encoder(ids, mask), mask)[:n])
+            if not out:
+                return np.zeros((0, self.encoder.config.hidden_size), np.float32)
+            return torch.cat(out).cpu().numpy()

@@ -23,7 +23,19 @@ The spans the program opens (``ops/ivf_probe.py``, ``TorchVS.__call__``):
 ``ivf.k1``, ``ivf.pool`` and ``ivf.rescore`` per query slice; ``vs.call``
 (one store call) over ``vs.inputs``, ``ivf.subset_rows``,
 ``ivf.subset_scan`` (an ids search), ``ivf.search`` or ``vs.scan`` (the
-other routes), ``vs.wait`` and ``vs.to_lists``.
+other routes), ``vs.wait`` and ``vs.to_lists``.  The sentence-embedding RM
+(``models/torch_rm.py``) opens ``rm.call`` (one ``rm(docs)``) over
+``rm.tokenize`` (a batch's tokens, on the host) and ``rm.forward`` (a
+batch's forward and pooling); DeepSeek-V2 (``models/deepseek_v2.py``)
+opens ``mla.attn`` (a layer's attention, projections included),
+``moe.route``, ``moe.experts`` and ``moe.shared`` inside the forward.
+
+The program's counters (``tally``) are device tensors of a session, added to
+without a synchronisation while a profiler runs and read by
+``counter_totals()`` after it: DeepSeek-V2's ``moe.pairs`` (routed pairs per
+layer and expert), ``moe.pairs_max`` (per layer, the most pairs of one
+expert, summed over calls) and ``moe.experts_used`` (per layer, the experts
+with a pair, summed over calls).
 """
 
 from __future__ import annotations
@@ -86,12 +98,14 @@ class _Registry:
         self.session = 0
         self.spans: list[_Span] = []
         self.dropped = 0
+        self.counters: dict[str, torch.Tensor] = {}
 
     def new_session(self) -> None:
         with self.lock:
             self.session += 1
             self.spans = []
             self.dropped = 0
+            self.counters = {}
             self.live = True
 
     def open_spans(self) -> list[_Span]:
@@ -252,6 +266,37 @@ def span_totals() -> SpanTotals:
         t.device_s += r["device_s"]
         t.roots += r["parent"] == -1
     return totals
+
+
+def active() -> bool:
+    """Whether a profiler session runs: what a caller checks before it works
+    out values to ``tally``."""
+    return _profiler_enabled()
+
+
+def tally(name: str, row: int, values: torch.Tensor, rows: int) -> None:
+    """Adds ``values`` (1-D, integer) into row ``row`` of the session's
+    counter ``name``, a (``rows``, len(values)) int64 tensor on the values'
+    device made at its first tally, while a profiler runs: one device add,
+    no synchronisation.  With no profiler running it checks that one flag
+    and does nothing."""
+    if not _profiler_enabled():
+        return
+    reg = _REGISTRY
+    if not reg.live:
+        reg.new_session()
+    counter = reg.counters.get(name)
+    if counter is None:
+        counter = reg.counters[name] = torch.zeros((rows, values.numel()), dtype=torch.int64, device=values.device)
+    counter[row].add_(values)
+
+
+def counter_totals() -> dict[str, torch.Tensor]:
+    """The latest session's counters, each copied to the host (which waits
+    for the work that added to it)."""
+    with _REGISTRY.lock:
+        counters = dict(_REGISTRY.counters)
+    return {name: c.cpu() for name, c in counters.items()}
 
 
 @contextlib.contextmanager
