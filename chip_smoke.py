@@ -9,7 +9,13 @@ Phases (each prints its seconds and the card's name and power limit):
    one process per source, all started together; report each K1, K2 and
    K3 kernel's registers, spills, wgmma advisories and HGMMA / IGMMA /
    UTMALDG counts, and fail if a tensor-core kernel has none of its type's
-   MMA;
+   MMA; K4's registers and spills;
+2b. K4 vs plain version: a ``DeepseekV2MoE`` layer at DeepSeek-V2-Lite's
+   published widths (seeded bf16 weights) over the passage join's 64 x 512
+   tokens; K4 (``moe_combine``) against ``moe_combine_reference`` bit for
+   bit on the arguments the layer's own ``routed`` gives the combine, both
+   timed beside K4's byte bound; the layer's forward must launch K4 once
+   and equal its forward through the plain version bit for bit;
 3. config 4 build: the seeded 10 * 2**20 x 768 corpus, IVF with nlist 4096,
    residual int8 + int4 refinement, block-aligned at 1024, exact f32 oracle;
 4. K1 vs plain: K1 (``probe_fold``) against ``probe_fold_reference`` on
@@ -314,8 +320,8 @@ Phases (each prints its seconds and the card's name and power limit):
    scores bit for bit), both timed.  The files are deleted after.
 
 Each main path runs with its kernel's launch count set to 0 just before it
-and read just after: K1 and K3 over phases 5-8 (calibration included) and
-over phase 13, K3 once a slice in phase 5's first search; K1 also in each
+and read just after: K4 over phase 2b's layer call; K1 and K3 over
+phases 5-8 (calibration included) and over phase 13, K3 once a slice in phase 5's first search; K1 also in each
 rank over phase 12's sharded search, over each K1 store of phase 15 and
 over phase 25's, 27's, 28's, 29's, 30's, 31's and 32's stores, and in
 each shard server of 33a over the requests it served; K2 over phase
@@ -323,7 +329,7 @@ each shard server of 33a over the requests it served; K2 over phase
 28's, 29's, 30's, 31's and 32's, and over 33b's front end;
 each must have launched its kernel, and each phase prints its count.
 The last three lines are the kernel table (K1, whose launches add the
-ranks' and the shard servers', K2, K3, then the variants later slices
+ranks' and the shard servers', K2, K3, K4, then the variants later slices
 added, each with its own path's launches: K2 at d 1024 is phase 27's),
 the card, and ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 repository beside this file, it exits non-zero and
@@ -584,16 +590,85 @@ def k3_compare(state, queries, reps: int = 20):
     return err, ms, plain_ms, bound, "bytes"
 
 
+def k4_phase(dev, tokens: int = 64 * 512, reps: int = 20, widths: dict | None = None, seed: int = 21):
+    """K4 (``moe_combine``) on a ``DeepseekV2MoE`` layer at DeepSeek-V2-Lite's
+    published widths (``perfbench/configs/dsv2_lite.json``: hidden 2,048,
+    64 routed experts of 1,408 and 2 shared, top-6; ``widths`` overrides
+    them for a rehearsal) with seeded bf16 weights, over ``tokens`` seeded
+    hidden states (the passage join's 64 x 512).  The layer's forward runs
+    once with the plain version standing in for K4, which records the
+    arguments its own ``routed`` gives the combine; K4 on them must equal
+    ``moe_combine_reference`` bit for bit (the same f32 operations in the
+    same order), and both are timed beside K4's byte bound (the held rows,
+    the shared and output rows, the inverse and the weights moved once at
+    3.35 TB/s).  Then the main path: ``moe_combine.launches`` set to 0, the
+    layer's forward must launch K4 once and give the recorded forward's
+    output bit for bit.  Returns (max_abs_err, ms, plain ms, bound ms,
+    "bytes", launches)."""
+    import torch
+
+    from lotus_tpu_torch.models import deepseek_v2
+    from lotus_tpu_torch.ops import moe_combine as combine
+
+    with open(os.path.join(REPO, "perfbench", "configs", "dsv2_lite.json")) as f:
+        raw = dict(json.load(f), **(widths or {}))
+    cfg = deepseek_v2.DeepseekV2Config.from_dict(raw)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device(dev):
+        layer = deepseek_v2.DeepseekV2MoE(cfg, 1).to(torch.bfloat16).eval()
+    with torch.no_grad():
+        for _, p in sorted(layer.named_parameters()):
+            p.normal_(0.0, raw["initializer_range"], generator=g)
+    x = torch.randn((tokens, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+
+    record, calls = recording(combine.moe_combine_reference)
+    deepseek_v2.moe_combine = record
+    try:
+        with torch.inference_mode():
+            y_plain = layer(x)
+    finally:
+        deepseek_v2.moe_combine = combine.moe_combine
+    (out, inv, weights, offsets, shared), _ = calls[0]
+    got = combine.moe_combine(out, inv, weights, offsets, shared)
+    want = combine.moe_combine_reference(out, inv, weights, offsets, shared)
+    sync(dev)
+    bitwise = torch.equal(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    ms = cuda_ms(lambda: combine.moe_combine(out, inv, weights, offsets, shared), reps)
+    plain_ms = cuda_ms(lambda: combine.moe_combine_reference(out, inv, weights, offsets, shared), 3)
+    held = int(offsets[-1])
+    rows = held + 2 * tokens if shared is not None else held + tokens
+    nbytes = rows * out.shape[1] * out.element_size() + inv.numel() * inv.element_size() + weights.numel() * 4
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+
+    combine.moe_combine.launches = 0  # count only the main path's launches from here
+    with torch.inference_mode():
+        y = layer(x)
+    sync(dev)
+    launches = combine.moe_combine.launches
+    same = torch.equal(y, y_plain)
+    say(f"  K4 at the passage join's MoE layer (t {tokens:,}, k {weights.shape[1]}, hidden {out.shape[1]}, "
+        f"{out.dtype}, {held:,} held pairs, shared {shared is not None}): {'bitwise equal' if bitwise else 'DIFFERS'}; "
+        f"max_abs_err={err!r}; K4 {ms:.4f} ms vs plain {plain_ms:.3f} ms; bound {bound:.4f} ms "
+        f"({nbytes / 1e9:.4f} GB at 3.35 TB/s), K4 at {100 * bound / ms:.1f}% of it [{GPU}]")
+    say(f"  the layer's forward on the main path: K4 launches {launches}; output "
+        f"{'bitwise equal to' if same else 'DIFFERS from'} the forward through the plain version")
+    assert bitwise, "K4 disagrees with its plain version on the MoE layer's own inputs"
+    assert launches == 1, f"the MoE layer's forward launched K4 {launches} times, not once"
+    assert same, "the MoE layer's forward through K4 differs from the one through the plain version"
+    return err, ms, plain_ms, bound, "bytes", launches
+
+
 def kernel_report() -> None:
-    """K1's, K2's and K3's kernels as built: registers and spill bytes from ptxas,
+    """K1's, K2's, K3's and K4's kernels as built: registers and spill bytes from ptxas,
     ptxas's wgmma advisories counted by code (an injected warpgroup.wait or
     arrive: C7517, C7519; serialized wgmma: C7510, C7514), and the
     tensor-core (HGMMA bf16, IGMMA int8) and TMA-load (UTMALDG) instructions
     that ``cuobjdump -sass`` shows in each.  Fails unless every bf16
     tensor-core instantiation (K2's scan_kernel, K1's probe_wgmma) has HGMMA
     and every int8 one IGMMA.  K1's probe_cores (f32, and rows TMA cannot
-    take) and K3's pool_select (a selection, no dot) run on the CUDA cores
-    by design."""
+    take), K3's pool_select (a selection, no dot) and K4's moe_combine (a
+    weighted sum of gathered rows) run on the CUDA cores by design."""
     from lotus_tpu_torch.ops import _kernels
 
     ptxas = {}
@@ -617,13 +692,14 @@ def kernel_report() -> None:
         elif fn is not None:
             for op in counts[fn]:
                 counts[fn][op] += op in line
-    for kind in ("scan_kernel", "probe_wgmma", "probe_cores", "pool_select"):
+    for kind in ("scan_kernel", "probe_wgmma", "probe_cores", "pool_select", "moe_combine"):
         found = sorted(f for f in counts if kind in f)
         assert found, f"no {kind} in the built library"
         for f in found:
             int8_dot = f"{kind}Ia" in f  # the operand type is int8
             regs, spill = ptxas.get(f, (None, None))
-            dot = "selection" if kind == "pool_select" else f"{'int8' if int8_dot else 'float'} dot"
+            dot = {"pool_select": "selection", "moe_combine": "weighted sum"}.get(
+                kind, f"{'int8' if int8_dot else 'float'} dot")
             say(f"  {f}: {dot}; ptxas {regs} registers, spill "
                 f"stores/loads {spill} bytes, wgmma advisories {notes.get(f, {})}; SASS {counts[f]}")
             if kind in ("scan_kernel", "probe_wgmma"):
@@ -4983,6 +5059,10 @@ def main() -> int:
             f"spill stores {min(spills, default=0)}..{max(spills, default=0)} bytes")
         kernel_report()
 
+    with Phase("K4 vs plain version (a DeepSeek-V2-Lite MoE layer over 64 x 512 tokens)"):
+        k4 = k4_phase(dev)
+    torch.cuda.empty_cache()
+
     c4 = config4_paths(dev)
     torch.cuda.empty_cache()
 
@@ -5188,6 +5268,19 @@ def main() -> int:
             "bound_ms": c4["k3"][3],
             "bound_by": c4["k3"][4],
             "library_ms": None,  # no single PyTorch call reassembles the pairs and selects
+        },
+        {
+            "name": "moe_combine (K4)",
+            "route": "cuda",
+            "source": "lotus_tpu_torch/csrc/moe_combine.cu",
+            "replaces": None,  # the JAX package has no mixture-of-experts layer
+            "launches": k4[5],
+            "max_abs_err": k4[0],
+            "ms": k4[1],
+            "plain_ms": k4[2],
+            "bound_ms": k4[3],
+            "bound_by": k4[4],
+            "library_ms": None,  # no single PyTorch call gathers, weights and sums rows through an index
         },
         *({
             "name": name, "route": "cuda", "source": f"lotus_tpu_torch/csrc/{src}",

@@ -28,9 +28,11 @@ re-implements):
   top-``num_experts_per_tok`` (renormalised only under ``norm_topk_prob``),
   times ``routed_scaling_factor``; the (token, expert) pairs sorted by
   expert with offsets counted on the device, the held experts' SwiGLU as two
-  grouped GEMMs (``torch._grouped_mm``), the outputs weighted and summed in
-  f32 per token and cast back, plus the shared experts (one SwiGLU MLP of
-  ``n_shared_experts`` x ``moe_intermediate_size``).
+  grouped GEMMs (``torch._grouped_mm``), then the combine (K4,
+  ``ops/moe_combine.py``): each token's outputs gathered back through the
+  sort's inverse, weighted and summed in f32 with the shared experts' output
+  (one SwiGLU MLP of ``n_shared_experts`` x ``moe_intermediate_size``) and
+  rounded once.
 
 A layer is told which experts it holds (``experts=(first, end)``, all of
 them by default) and routes over every expert: pairs sent to an expert it
@@ -55,6 +57,7 @@ from lotus_tpu_torch.models.bart import check_length
 from lotus_tpu_torch.models.bert import ACTIVATIONS, EncoderConfig
 from lotus_tpu_torch.models.gpt2 import causal, decoder_bias
 from lotus_tpu_torch.models.llama import LlamaMLP, LlamaRMSNorm
+from lotus_tpu_torch.ops.moe_combine import moe_combine
 
 
 @dataclass(frozen=True, eq=False)
@@ -217,7 +220,7 @@ class DeepseekV2MoE(nn.Module):
     def __init__(self, cfg: DeepseekV2Config, layer: int, experts: tuple[int, int] | None = None):
         super().__init__()
         self.layer, self.layers = layer, cfg.num_hidden_layers
-        self.top_k, self.n_routed = cfg.num_experts_per_tok, cfg.n_routed_experts
+        self.top_k = cfg.num_experts_per_tok
         self.norm_topk, self.scaling = cfg.norm_topk_prob, cfg.routed_scaling_factor
         self.held = experts or (0, cfg.n_routed_experts)
         self.act = ACTIVATIONS[cfg.hidden_act]
@@ -229,8 +232,8 @@ class DeepseekV2MoE(nn.Module):
     def route(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """For (t, hidden) ``x``: the (t, k) f32 weights of its pairs, the
         pair order sorted by held expert (pairs to other experts last), the
-        held experts' int32 end offsets in that order, and whether each pair
-        is held."""
+        held experts' int32 end offsets in that order, and the order's inverse
+        (pair u * k + j's place in it), all made on the device."""
         logits = F.linear(x.float(), self.gate.weight.float())
         weights, idx = torch.topk(logits.softmax(dim=-1), self.top_k, dim=-1)
         if self.norm_topk:
@@ -248,31 +251,31 @@ class DeepseekV2MoE(nn.Module):
             profiling.tally("moe.pairs", self.layer, held_counts, self.layers)
             profiling.tally("moe.pairs_max", self.layer, held_counts.max().reshape(1), self.layers)
             profiling.tally("moe.experts_used", self.layer, (held_counts > 0).sum().reshape(1), self.layers)
-        return weights, order, torch.cumsum(counts[:n], 0, dtype=torch.int32), held
+        inv = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(), device=x.device))
+        return weights, order, torch.cumsum(counts[:n], 0, dtype=torch.int32), inv
 
     def routed(self, x: torch.Tensor, weights: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
-               held: torch.Tensor) -> torch.Tensor:
-        """The held experts' weighted sum per token, (t, hidden) in f32."""
-        t, k = weights.shape
+               inv: torch.Tensor, shared: torch.Tensor | None) -> torch.Tensor:
+        """The held experts' weighted sum per token plus ``shared``, summed in
+        f32 and rounded once to (t, hidden) in ``x``'s type (K4 on the card)."""
+        k = weights.shape[1]
         rows = x[order // k]
         gate_up = torch._grouped_mm(rows, self.experts.gate_up.transpose(-2, -1), offs=offsets)
         gate, up = gate_up.chunk(2, dim=-1)
         out = torch._grouped_mm(self.act(gate) * up, self.experts.down.transpose(-2, -1), offs=offsets)
-        pair_out = torch.empty_like(out).index_copy_(0, order, out).view(t, k, -1).float()
-        if self.held != (0, self.n_routed):  # rows past the held groups are not written
-            pair_out = torch.where(held.view(t, k, 1), pair_out, 0.0)
-        return (pair_out * weights.unsqueeze(-1)).sum(dim=1)
+        with profiling.annotate("moe.combine", layer=self.layer, route="kernel" if out.is_cuda else "plain"):
+            return moe_combine(out, inv, weights, offsets, shared)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         flat = x.reshape(-1, x.shape[-1])
+        shared = None
+        if hasattr(self, "shared_experts"):
+            with profiling.annotate("moe.shared", layer=self.layer):
+                shared = self.shared_experts(flat)
         with profiling.annotate("moe.route", layer=self.layer):
             route = self.route(flat)
         with profiling.annotate("moe.experts", layer=self.layer):
-            y = self.routed(flat, *route).to(x.dtype).view(x.shape)
-        if hasattr(self, "shared_experts"):
-            with profiling.annotate("moe.shared", layer=self.layer):
-                y = y + self.shared_experts(x)
-        return y
+            return self.routed(flat, *route, shared).view(x.shape)
 
 
 class DeepseekV2DecoderLayer(nn.Module):

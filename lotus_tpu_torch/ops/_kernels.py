@@ -94,6 +94,8 @@ def bind(path: Path | str) -> ctypes.CDLL:
     handle.lotus_pool_select.restype = ci
     handle.lotus_pool_select_workspace.argtypes = [ci] * 3
     handle.lotus_pool_select_workspace.restype = ctypes.c_longlong
+    handle.lotus_moe_combine.argtypes = [vp] * 6 + [ctypes.c_longlong] + [ci] * 3 + [vp]
+    handle.lotus_moe_combine.restype = ci
     handle.lotus_cuda_error_string.argtypes = [ci]
     handle.lotus_cuda_error_string.restype = ctypes.c_char_p
     return handle

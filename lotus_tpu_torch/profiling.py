@@ -28,7 +28,8 @@ other routes), ``vs.wait`` and ``vs.to_lists``.  The sentence-embedding RM
 ``rm.tokenize`` (a batch's tokens, on the host) and ``rm.forward`` (a
 batch's forward and pooling); DeepSeek-V2 (``models/deepseek_v2.py``)
 opens ``mla.attn`` (a layer's attention, projections included),
-``moe.route``, ``moe.experts`` and ``moe.shared`` inside the forward.
+``moe.shared``, ``moe.route`` and ``moe.experts`` (over ``moe.combine``,
+K4 on the card) inside the forward.
 
 The program's counters (``tally``) are device tensors of a session, added to
 without a synchronisation while a profiler runs and read by

@@ -3,7 +3,8 @@ small config with seeded weights (3 layers of which 1 dense; 8 experts, top
 2, 2 shared; latent 32, rope 16, nope 32, v 32; YaRN factor 40): against the
 benchmark's plain reference (``perfbench/reference/deepseek_v2.py``) in f32
 and bf16, the reference against ``transformers``' ``DeepseekV2Model``, the
-checkpoint loader, the grouped dispatch, planted faults, and the cost of its
+checkpoint loader, the grouped dispatch, the combine's plain version (K4's)
+against the unsort formula it replaced, planted faults, and the cost of its
 spans and counters with no profiler running."""
 
 import json
@@ -27,6 +28,7 @@ from lotus_tpu_torch import profiling  # noqa: E402
 from lotus_tpu_torch.models import TorchSentenceEncoderRM  # noqa: E402
 from lotus_tpu_torch.models import deepseek_v2 as dsv2  # noqa: E402
 from lotus_tpu_torch.models.checkpoint import fit_state_dict  # noqa: E402
+from lotus_tpu_torch.ops.moe_combine import moe_combine, moe_combine_reference  # noqa: E402
 
 CFG = dict(model_type="deepseek_v2", vocab_size=320, hidden_size=64, intermediate_size=96, moe_intermediate_size=32,
            num_hidden_layers=3, num_attention_heads=4, n_shared_experts=2, n_routed_experts=8, num_experts_per_tok=2,
@@ -185,6 +187,56 @@ def test_expert_shares_add_up_to_the_whole_layer():
         torch.testing.assert_close(parts, whole(x), rtol=1e-5, atol=1e-6)
 
 
+def routed_pairs(t, k, n_experts, held, hidden, seed, shared=True):
+    """A layer's routed pairs as ``DeepseekV2MoE.route`` orders them: each
+    pair's expert drawn at random, pairs to experts outside ``held`` last;
+    the second GEMM's (t * k, hidden) f32 rows in that order, those past the
+    held count NaN (never written on the card); the order, the offsets, the
+    inverse, whether each pair is held, the (t, k) weights and the shared
+    rows."""
+    g = torch.Generator().manual_seed(seed)
+    local = torch.randint(0, n_experts, (t * k,), generator=g) - held[0]
+    n = held[1] - held[0]
+    is_held = (local >= 0) & (local < n)
+    group = torch.where(is_held, local, n)
+    order = torch.argsort(group, stable=True)
+    offsets = torch.cumsum(torch.bincount(group, minlength=n + 1)[:n], 0).to(torch.int32)
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(t * k))
+    out = torch.randn(t * k, hidden, generator=g)
+    out[int(offsets[-1]):] = float("nan")
+    weights = torch.rand(t, k, generator=g)
+    return dict(out=out, order=order, offsets=offsets, inv=inv, held=is_held, weights=weights,
+                shared=torch.randn(t, hidden, generator=g) if shared else None)
+
+
+COMBINE_CASES = {
+    "all_experts_held": dict(t=37, k=6, n_experts=8, held=(0, 8)),
+    "held_subset_nan_past_the_count": dict(t=37, k=6, n_experts=8, held=(2, 5)),
+    "no_shared_experts": dict(t=37, k=6, n_experts=8, held=(0, 8), shared=False),
+    "top_1": dict(t=50, k=1, n_experts=8, held=(0, 8)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COMBINE_CASES))
+def test_moe_combine_reference_matches_the_unsort_formula(case):
+    """K4's plain version against the combine it replaced (the unsort's
+    ``index_copy_``, ``.float()``, the weights, the sum over the slots, then
+    the shared add), in f32 within 1e-6; no NaN of a row past the held count
+    reaches the output; ``moe_combine`` on CPU tensors is the plain version."""
+    p = routed_pairs(hidden=48, seed=7, **COMBINE_CASES[case])
+    t, k = p["weights"].shape
+    pair_out = torch.empty_like(p["out"]).index_copy_(0, p["order"], p["out"]).view(t, k, -1).float()
+    pair_out = torch.where(p["held"].view(t, k, 1), pair_out, 0.0)
+    want = (pair_out * p["weights"].unsqueeze(-1)).sum(dim=1)
+    if p["shared"] is not None:
+        want = want + p["shared"].float()
+    args = (p["out"], p["inv"], p["weights"], p["offsets"], p["shared"])
+    got = moe_combine_reference(*args)
+    assert got.dtype == torch.float32 and got.shape == (t, 48) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert torch.equal(moe_combine(*args), got)
+
+
 def _scale_without_mscale(monkeypatch):
     monkeypatch.setattr(dsv2.DeepseekV2Config, "softmax_scale",
                         property(lambda c: (c.qk_nope_head_dim + c.qk_rope_head_dim) ** -0.5))
@@ -224,7 +276,7 @@ def test_planted_fault_fails_the_comparison(fault, monkeypatch, plain_f32):
     assert worst_rel(model, plain_f32) > 1e-4
 
 
-SPANS = {"rm.call", "rm.tokenize", "rm.forward", "mla.attn", "moe.route", "moe.experts", "moe.shared"}
+SPANS = {"rm.call", "rm.tokenize", "rm.forward", "mla.attn", "moe.route", "moe.experts", "moe.shared", "moe.combine"}
 
 
 def test_spans_and_counters_cost_one_flag_check(tmp_path, monkeypatch):
@@ -242,7 +294,7 @@ def test_spans_and_counters_cost_one_flag_check(tmp_path, monkeypatch):
     monkeypatch.setattr(profiling, "tally", None)
     rm(docs)
     batches, moe_layers = 2, 2
-    sites = 1 + (batches + 1) + batches * (1 + CFG["num_hidden_layers"] + 3 * moe_layers)
+    sites = 1 + (batches + 1) + batches * (1 + CFG["num_hidden_layers"] + 4 * moe_layers)
     assert len(checks) == sites + batches * moe_layers
     monkeypatch.undo()
     with profile(activities=[ProfilerActivity.CPU]):
@@ -250,6 +302,8 @@ def test_spans_and_counters_cost_one_flag_check(tmp_path, monkeypatch):
     totals = profiling.span_totals()
     assert SPANS <= set(totals) and totals["rm.call"].roots == 1 and totals["rm.forward"].calls == batches
     assert totals["mla.attn"].calls == batches * CFG["num_hidden_layers"]
+    assert totals["moe.combine"].calls == batches * moe_layers
+    assert {r["attrs"]["route"] for r in profiling.span_records() if r["name"] == "moe.combine"} == {"plain"}
     counters = profiling.counter_totals()
     pairs = counters["moe.pairs"]
     assert pairs.shape == (CFG["num_hidden_layers"], CFG["n_routed_experts"]) and int(pairs[0].sum()) == 0
@@ -257,6 +311,29 @@ def test_spans_and_counters_cost_one_flag_check(tmp_path, monkeypatch):
     assert (pairs[1:].sum(dim=1) == padded * CFG["num_experts_per_tok"]).all()
     assert (counters["moe.pairs_max"][1:, 0] >= pairs[1:].sum(dim=1) / CFG["n_routed_experts"]).all()
     assert (counters["moe.experts_used"][1:, 0] <= batches * CFG["n_routed_experts"]).all()
+
+
+def test_combine_reader_reads_the_forward_spans(tmp_path):
+    """``perfbench/metrics/moe.combine_ms.py``, loaded by its path: the
+    device ms of ``moe.combine`` a forward after a profiled ``rm(docs)``,
+    a share of ``moe.experts``; None outside a traced run's record."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("reader_moe_combine_ms", ROOT / "perfbench" / "metrics" /
+                                                  "moe.combine_ms.py")
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    write_checkpoint(tmp_path)
+    rm = TorchSentenceEncoderRM(model=str(tmp_path), max_batch_size=2, max_seq_length=32, device="cpu")
+    docs = ["Alpha beta gamma.", "Delta epsilon.", "Zeta eta theta iota."]
+    rm(docs)  # no profiler: the next profiled span starts a session
+    with profile(activities=[ProfilerActivity.CPU]):
+        rm(docs)
+    value = reader.read({"trace": {"steps": 1}})
+    totals = profiling.span_totals()
+    experts_ms = 1e3 * totals["moe.experts"].device_s / totals["rm.forward"].calls
+    assert value is not None and 0 < value < experts_ms
+    assert reader.read({"window_s": 1.0}) is None
 
 
 def _batches(rm, docs):

@@ -1,5 +1,6 @@
-"""K1, K2 and K3 on the card against their plain PyTorch versions, variant
-by variant, and the grouped probe's slices free of host synchronisation.
+"""K1, K2, K3 and K4 on the card against their plain PyTorch versions,
+variant by variant, the grouped probe's slices free of host
+synchronisation, and DeepSeek-V2's layers, whose MoE combine is K4.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (a CUDA kernel has no
 CPU mode) and skip without them.  The file imports torch only, so it also
@@ -508,3 +509,118 @@ def test_deepseek_v2_forward_makes_no_sync_on_gpu():
                 torch.cuda.set_sync_debug_mode("default")
     assert int(profiling.counter_totals()["moe.pairs"][1].sum()) == ids.numel() * 6
     assert profiling.span_totals()["moe.experts"].device_s > 0
+
+
+# (name, tokens, slots, hidden, held experts of 64 or None for all, shared rows)
+_K4_CASES = [
+    # the passage join's MoE layer: 64 x 512 tokens, top-6 of 64 experts, hidden 2,048
+    ("cell", 32768, 6, 2048, None, True),
+    # a quarter of the experts held, the rows past the held count NaN
+    ("cell_held_subset_nan", 32768, 6, 2048, (16, 32), True),
+    # narrow rows, several tokens a block, the tokens not a multiple of them
+    ("narrow_ragged_tokens", 1001, 6, 64, None, True),
+    # a row of more vectors than a block has threads
+    ("wide_rows", 333, 6, 2056, (0, 40), True),
+    ("top_1_no_shared", 999, 1, 2048, None, False),
+    # more slots than a thread keeps in flight
+    ("k_10", 517, 10, 136, (8, 56), True),
+]
+
+
+def _k4_inputs(t, k, hidden, held, shared, dtype, seed=5):
+    """A layer's routed pairs on the card as ``DeepseekV2MoE.route`` orders
+    them (64 experts, pairs to experts outside ``held`` last), the rows in
+    that order with those past the held count NaN."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    first, end = held or (0, 64)
+    local = torch.randint(0, 64, (t * k,), generator=g, device=dev) - first
+    n = end - first
+    group = torch.where((local >= 0) & (local < n), local, n)
+    order = torch.argsort(group, stable=True)
+    offsets = torch.cumsum(torch.bincount(group, minlength=n + 1)[:n], 0).to(torch.int32)
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=dev))
+    out = torch.randn(t * k, hidden, generator=g, device=dev).to(dtype)
+    out[int(offsets[-1]):] = float("nan")
+    weights = torch.rand(t, k, generator=g, device=dev)
+    rows = torch.randn(t, hidden, generator=g, device=dev).to(dtype) if shared else None
+    return out, inv, weights, offsets, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32], ids=str)
+@pytest.mark.parametrize("case,t,k,hidden,held,shared", _K4_CASES, ids=[c[0] for c in _K4_CASES])
+def test_moe_combine_matches_plain_version_on_gpu(case, t, k, hidden, held, shared, dtype):
+    """K4 against ``moe_combine_reference`` on the same inputs on the card,
+    within one rounding of the row type relative to the terms' magnitudes
+    (the f32 sum's order may differ); no NaN of a row past the held count
+    reaches the output; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: K4 has no CPU mode")
+    from lotus_tpu_torch.ops.moe_combine import moe_combine, moe_combine_reference
+
+    out, inv, weights, offsets, rows = _k4_inputs(t, k, hidden, held, shared, dtype)
+    launches = moe_combine.launches
+    got = moe_combine(out, inv, weights, offsets, rows)
+    assert moe_combine.launches == launches + 1
+    want = moe_combine_reference(out, inv, weights, offsets, rows)
+    magnitude = moe_combine_reference(out.abs(), inv, weights, offsets, None if rows is None else rows.abs())
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (t, hidden) and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= torch.finfo(dtype).eps * magnitude.float()).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["hidden_tail", "misaligned_rows", "int32_inverse", "requires_grad"])
+def test_moe_combine_refuses_what_it_cannot_read_on_gpu(fault):
+    """K4 reads 16-byte vectors of int64-indexed rows and has no backward:
+    the wrapper refuses a row width with a tail, rows not 16-byte aligned,
+    an int32 inverse and, with grad enabled, rows that require grad, and
+    launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from lotus_tpu_torch.ops.moe_combine import moe_combine
+
+    out, inv, weights, offsets, rows = _k4_inputs(300, 6, 2050 if fault == "hidden_tail" else 2048, None, True,
+                                                  torch.bfloat16)
+    if fault == "misaligned_rows":
+        base = torch.empty(out.numel() + 1, dtype=out.dtype, device=out.device)
+        out = base[1:].view(out.shape).copy_(out)
+    if fault == "int32_inverse":
+        inv = inv.to(torch.int32)
+    if fault == "requires_grad":
+        out.requires_grad_()
+    launches = moe_combine.launches
+    with pytest.raises(ValueError, match="16-byte|int64|backward"):
+        moe_combine(out, inv, weights, offsets, rows)
+    assert moe_combine.launches == launches
+
+
+@pytest.mark.cuda
+def test_deepseek_v2_moe_layers_launch_k4_on_gpu(monkeypatch):
+    """Every MoE layer call on the card launches K4 once (never the plain
+    version), and its ``moe.combine`` span reads the kernel's route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from torch.profiler import ProfilerActivity, profile
+
+    from lotus_tpu_torch import profiling
+    from lotus_tpu_torch.models.deepseek_v2 import DeepseekV2MoE
+    from lotus_tpu_torch.ops import moe_combine as combine
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached moe_combine_reference")
+
+    monkeypatch.setattr(combine, "moe_combine_reference", plain)
+    _, _, model, ids, mask, _ = _deepseek_v2_two_layers()
+    moe_layers = sum(isinstance(m, DeepseekV2MoE) for m in model.modules())
+    assert moe_layers == 1
+    launches = combine.moe_combine.launches
+    with torch.inference_mode():
+        model(ids, mask)  # no profiler: the spans are off, K4 launches all the same
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            model(ids, mask)
+    assert combine.moe_combine.launches == launches + 2 * moe_layers
+    routes = [r["attrs"]["route"] for r in profiling.span_records() if r["name"] == "moe.combine"]
+    assert routes == ["kernel"] * moe_layers
