@@ -15,13 +15,13 @@ Two differences from the reference, on purpose:
 
 - The library is built at first use with ``g++ -O3 -fPIC -std=c++17
   -shared`` into ``build/lotus_tpu_torch/`` (beside the package, as the CUDA
-  kernels are), named by a digest of the source and the flags, never into
-  the source tree.
+  kernels are, through the same ``_build.build_library``), named by a
+  digest of the source and the flags, never into the source tree.
 - There is no fallback.  The reference answers in Python when g++ fails
   (``native/__init__.py:73-75``); here every entry point raises with the
   compiler's output.  The reference's Python versions stay below as the
-  plain versions (``*_reference``), which the tests and ``chip_smoke.py``
-  hold the library to; no entry point calls them.
+  plain versions (``*_reference``), which the tests hold the library to;
+  no entry point calls them.
 
 The plain merge is the reference's fallback, which disagrees with the C++
 (and so with both libraries) in two cases: tied scores come out in the
@@ -32,17 +32,14 @@ is skipped where the C++ ends that list at its first ``-1``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import subprocess
-import tempfile
 import threading
 import zlib
 from pathlib import Path
 
 import numpy as np
 
-from lotus_tpu_torch.ops._kernels import BUILD_DIR
+from lotus_tpu_torch._build import BUILD_DIR, build_library
 
 SOURCE = Path(__file__).resolve().parent / "lotus_native.cpp"
 CXX = "g++"
@@ -59,13 +56,7 @@ _i64 = ctypes.c_int64
 def build() -> Path:
     """Compile the library (once per source digest) and return its path;
     raises ``RuntimeError`` with the compiler's output when g++ fails."""
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join([CXX, *CXX_FLAGS]).encode()).hexdigest()[:12]
-    path = BUILD_DIR / f"liblotus_native_{digest}.so"
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        out = Path(tmp) / "lib.so"
+    def compile_to(out: Path) -> None:
         try:
             run = subprocess.run([CXX, *CXX_FLAGS, "-o", str(out), str(SOURCE)],
                                  capture_output=True, text=True, timeout=300)
@@ -73,8 +64,9 @@ def build() -> Path:
             raise RuntimeError(f"native library: cannot run {CXX} ({e})") from e
         if run.returncode != 0:
             raise RuntimeError(f"native library: {CXX} failed ({run.returncode}):\n{run.stdout}{run.stderr}")
-        os.replace(out, path)  # atomic: concurrent builders never load a partial file
-    return path
+
+    return build_library(BUILD_DIR, "liblotus_native", SOURCE.read_bytes() + " ".join([CXX, *CXX_FLAGS]).encode(),
+                         compile_to)
 
 
 def lib() -> ctypes.CDLL:

@@ -8,24 +8,24 @@ the package), named by a hash of the sources and of the shared headers
 fast-math: the kernels round as the reference does.  ``ctypes`` loads the
 library; every device pointer and the stream are passed as ``c_void_p``.
 Nothing here runs at import time: a machine without nvcc or a GPU imports
-the package and uses the plain PyTorch versions.
+the package and uses the plain PyTorch versions.  The digest, the cached
+path and the atomic replace are ``lotus_tpu_torch._build``'s, which the host
+runtime (``lotus_tpu_torch.native``, built by g++) shares.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
-import tempfile
 import threading
 import time
 from pathlib import Path
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SRC_DIR = _PKG_DIR / "csrc"
-BUILD_DIR = _PKG_DIR.parent / "build" / "lotus_tpu_torch"
+from lotus_tpu_torch._build import BUILD_DIR, build_library
+
+SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,18 +49,14 @@ def cuda_tool(name: str) -> str:
 
 def build() -> Path:
     """Compile the kernels (once per source hash) and return the library path."""
-    global build_log, build_seconds
     sources = sorted(SRC_DIR.glob("*.cu"))
     # The shared headers are hashed too, so an edit to one rebuilds.
     hashed = sorted([*sources, *SRC_DIR.glob("*.cuh")])
-    digest = hashlib.sha1(b"".join(p.read_bytes() for p in hashed) + " ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"liblotus_tpu_torch_{digest.hexdigest()[:12]}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+
+    def compile_to(out: Path) -> None:
+        global build_log, build_seconds
+        t0 = time.perf_counter()
+        objs = [str(out.parent / f"{src.stem}.o") for src in sources]
         procs = [
             subprocess.Popen([cuda_tool("nvcc"), *NVCC_FLAGS, "-c", "-o", obj, str(src)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -69,15 +65,16 @@ def build() -> Path:
         build_log = "".join(p.communicate()[0] for p in procs)
         codes = [p.returncode for p in procs]
         if not any(codes):
-            link = subprocess.run([cuda_tool("nvcc"), *ARCH, "-shared", "-o", str(Path(tmp) / "lib.so"), *objs],
+            link = subprocess.run([cuda_tool("nvcc"), *ARCH, "-shared", "-o", str(out), *objs],
                                   capture_output=True, text=True)
             build_log += link.stdout + link.stderr
             codes.append(link.returncode)
         build_seconds = time.perf_counter() - t0
         if any(codes):
             raise RuntimeError(f"nvcc failed ({codes}):\n{build_log}")
-        os.replace(Path(tmp) / "lib.so", lib_path)  # atomic: concurrent builders never load a partial file
-    return lib_path
+
+    payload = b"".join(p.read_bytes() for p in hashed) + " ".join(NVCC_FLAGS).encode()
+    return build_library(BUILD_DIR, "liblotus_tpu_torch", payload, compile_to)
 
 
 def bind(path: Path | str) -> ctypes.CDLL:

@@ -14,7 +14,7 @@ it has served a search:
 - per list: the f32 centroid, its start and size (int32).
 
 ``state_bytes`` is the sum; a CPU test holds it to the ``nbytes`` of a built
-state and ``chip_smoke.py`` to config 4's on the card.
+state.
 """
 
 from __future__ import annotations

@@ -4,7 +4,12 @@ trace that names the ``annotate`` regions and the ops inside them, and
 ``lotus_tpu.profiling.timed`` does.  The program's spans: nothing recorded
 and nothing called with no profiler running; with one, the span tree, its
 host and self times, sessions and the cap; and the spans the grouped probe
-and ``TorchVS`` open on each route."""
+and ``TorchVS`` open on each route.  On the card (``cuda``-marked, skipped
+without one): a trace's ``annotate`` regions carry device times.  Only the
+reference test imports ``lotus_tpu``, so the file runs on a machine
+without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_profiling.py"""
 
 import glob
 import json
@@ -16,7 +21,6 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from lotus_tpu import profiling as ref_profiling
 from lotus_tpu_torch import TorchVS, profiling
 from lotus_tpu_torch.ops.bench_data import synth_ivf_device_build
 from lotus_tpu_torch.ops.ivf_probe import ivf_search_grouped_probe
@@ -44,6 +48,8 @@ def test_trace_names_annotated_regions(tmp_path):
 
 
 def test_timed_sink_and_log_as_the_reference(caplog):
+    from lotus_tpu import profiling as ref_profiling
+
     got, want = {}, {}
     for mod, sink in ((profiling, got), (ref_profiling, want)):
         for name in ("a", "b", "a"):
@@ -236,3 +242,47 @@ def test_trace_holds_every_span(tmp_path):
     events = [e for e in _trace_events(tmp_path / "trace") if e.get("cat") == "user_annotation"]
     names = sorted(r["name"] for r in profiling.span_records())
     assert len(names) == 12 and sorted(e["name"] for e in events) == names
+
+
+@pytest.mark.cuda
+def test_annotated_regions_carry_device_times_on_gpu(tmp_path):
+    """``profiling.trace`` around one encode batch of an RM at
+    all-MiniLM-L6-v2's widths (64 documents of 150-300 words at 256
+    tokens) and one call of a Flat store under ``scan="pallas"`` (K2) over
+    its 384-d embeddings, each inside ``annotate`` and ``timed``: the Chrome
+    trace holds K2's ``scan_kernel`` with device times and both regions
+    with host and device times, and ``timed``'s sink both regions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: device times exist only there")
+    from torch_card_files import seeded_docs, seeded_words, write_checkpoint, write_wordpiece
+
+    from lotus_tpu_torch.models import TorchSentenceEncoderRM
+    from lotus_tpu_torch.ops.bench_data import corpus_centers, gen_chunk
+
+    words = seeded_words(70, 2000)
+    model = str(tmp_path / "minilm")
+    write_checkpoint(model, dict(model_type="bert", vocab_size=write_wordpiece(model, words), hidden_size=384,
+                                 num_hidden_layers=6, num_attention_heads=12, intermediate_size=1536))
+    rm = TorchSentenceEncoderRM(model=model, max_seq_length=256)
+    dev = torch.device("cuda")
+    vs = TorchVS(index_type="flat", scan="pallas")
+    vs.index([], gen_chunk(71, 0, corpus_centers(71, 64, 384, dev), 10_240, 2.5).cpu().numpy(), str(tmp_path / "idx"))
+    docs = seeded_docs(words, [(150, 300)], 64, 70)
+    qv = rm(docs[:8])
+    vs(qv, 10)  # loads the store
+    sink: dict = {}
+    with profiling.trace(str(tmp_path / "trace")):
+        with profiling.annotate("encode batch"), profiling.timed("encode batch", sink):
+            rm(docs)
+        with profiling.annotate("store call (K2)"), profiling.timed("store call (K2)", sink):
+            vs(qv, 10)
+    events = _trace_events(tmp_path / "trace")
+    regions = ("encode batch", "store call (K2)")
+    scan = [e for e in events if e.get("cat") == "kernel" and "scan_kernel" in e.get("name", "")]
+    on_device = {r: sum(e["dur"] for e in events if e.get("cat") == "gpu_user_annotation" and e.get("name") == r)
+                 for r in regions}
+    on_host = {r: sum(e["dur"] for e in events if e.get("cat") == "user_annotation" and e.get("name") == r)
+               for r in regions}
+    assert scan and all(e["dur"] > 0 for e in scan), "the trace holds no scan_kernel with a device time"
+    assert all(on_host[r] > 0 and on_device[r] > 0 for r in regions), "an annotate region lacks its times"
+    assert set(sink) == set(regions), "timed's sink lacks a region"

@@ -7,8 +7,8 @@ neither machine has the ``sentencepiece`` package:
   model types, every normalizer flag set, unset and absent, negative
   int32s, unknown fields of every wire type, a message given twice, an
   enum value outside its enum; WORD and CHAR models raise;
-- ``chip_smoke.py``'s writer (the card machine has no protobuf): its files
-  parse under protobuf to the fields it was given;
+- the card tests' writer (``torch_card_files.py``: the card machine has
+  no protobuf): its files parse under protobuf to the fields it was given;
 - the encoder against the ``tokenizers`` models that ``SpmConverter``
   builds from the same proto (its Unigram, and a BPE over
   ``generate_merges``' merges, as ``SentencePieceExtractor`` makes them), id
@@ -18,9 +18,6 @@ neither machine has the ``sentencepiece`` package:
   reason; the port follows sentencepiece.
 """
 
-import importlib.util
-import os
-
 import numpy as np
 import pytest
 
@@ -29,6 +26,7 @@ hypothesis = pytest.importorskip("hypothesis")
 
 from hypothesis import given, settings  # noqa: E402
 from hypothesis import strategies as st  # noqa: E402
+from torch_card_files import spm_model_bytes, spm_pieces  # noqa: E402
 from torch_families import CHARSMAP, converted, seeded_texts, seeded_words, spm_proto  # noqa: E402
 from transformers.utils import sentencepiece_model_pb2_new as pb  # noqa: E402
 
@@ -37,7 +35,6 @@ from lotus_tpu_torch.models.sentencepiece import (  # noqa: E402
     ModelProto, NormalizerSpec, SentencePieceEncoder, TrainerSpec, parse_model,
 )
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEAD = (("<unk>", 2), ("<s>", 3), ("</s>", 3))
 TEXTS = seeded_texts(1, 200, seeded_words(0, 200), 0, 30) + [
     "", " ", "   ", "Hello, WORLD!", "  leading and trailing  ", "a  b   c", "ＡＢ ① ㍿ ﬁne", "日本語 中文",
@@ -140,17 +137,14 @@ def test_word_and_char_models_raise(model_type):
 
 
 def test_chip_smoke_writer_parses_under_protobuf():
-    """``chip_smoke.spm_model_bytes`` (the card machine has no protobuf)
-    writes what protobuf parses back to the fields it was given, negative
-    ids and the charsmap included; the seeded vocabulary holds most words
-    whole and splits the rest in two."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    """``torch_card_files.spm_model_bytes``, the writer the card tests use
+    (the card machine has no protobuf), writes what protobuf parses back to
+    the fields it was given, negative ids and the charsmap included; the
+    seeded vocabulary holds most words whole and splits the rest in two."""
     words = seeded_words(5, 300)
-    pieces = chip_smoke.spm_pieces(words, 2000, 1, [("<unk>", 2), ("<pad>", 3)], byte_fallback=True)
-    data = chip_smoke.spm_model_bytes(pieces, byte_fallback=True, pad_id=1, bos_id=-1, eos_id=-1, charsmap=BLOB,
-                                      name="nmt_nfkc", remove_extra_whitespaces=False)
+    pieces = spm_pieces(words, 2000, 1, [("<unk>", 2), ("<pad>", 3)], byte_fallback=True)
+    data = spm_model_bytes(pieces, byte_fallback=True, pad_id=1, bos_id=-1, eos_id=-1, charsmap=BLOB,
+                           name="nmt_nfkc", remove_extra_whitespaces=False)
     ref = pb.ModelProto()
     ref.ParseFromString(data)
     assert [(p.piece, p.score, p.type) for p in ref.pieces] == [(p, np.float32(s), k) for p, s, k in pieces]

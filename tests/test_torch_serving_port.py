@@ -387,11 +387,11 @@ def test_port_front_end_gives_reference_front_end_ids(tmp_path, kind_):
     np.testing.assert_allclose(dists, want_d, atol=1e-5)
 
 
-# ---- the card phase's shape: quarters of a seeded corpus, saved as built ---
+# ---- the served path's shape: quarters of a seeded corpus, saved as built ---
 
 
 def test_row_shards_of_a_seeded_build(tmp_path):
-    """chip_smoke's phase 33a at a tiny size: row shards of one seeded corpus
+    """Config 4 served as row quarters, at a tiny size: row shards of one seeded corpus
     (``synth_ivf_device_build(first_chunk=...)``) saved as built
     (``save_ivf_state``), each served by a ``TorchVS`` shard server with its
     id offset.  Each shard answers as the grouped probe on its state does
