@@ -16,7 +16,7 @@ Phases (each prints its seconds and the card's name and power limit):
    one process per source, all started together; report each K1, K2 and
    K3 kernel's registers, spills, wgmma advisories and HGMMA / IGMMA /
    UTMALDG counts, and fail if a tensor-core kernel has none of its type's
-   MMA; K4's registers and spills;
+   MMA; K4's and K5's registers and spills;
 3. K4 vs plain version: a ``DeepseekV2MoE`` layer at DeepSeek-V2-Lite's
    published widths (seeded bf16 weights) over the passage join's 64 x 512
    tokens, run once with the plain version standing in for K4; K4
@@ -38,20 +38,25 @@ Phases (each prints its seconds and the card's name and power limit):
    770 packed timed); int8 over a window past 8192 rows (unpacked, top-2
    and top-1 folds); and the rescored top-10 sets of 256 bf16 queries
    through K1 and through the plain version, which must be equal;
-6. K3 vs plain: K3 (``pool_select``) against ``pool_select_reference`` on
+6. K5 vs plain: K5 (``probe_layout``) against ``probe_layout_reference``
+   on config 4's first 2048-query slice (its coarse ranking's 208 lists a
+   query, int8 queries): the chunk table, each pair's slot, the block
+   counts and every row of a live chunk bit for bit, both timed beside
+   K5's bound (``k5_bound``);
+7. K3 vs plain: K3 (``pool_select``) against ``pool_select_reference`` on
    the inputs ``ivf_search_grouped_probe`` (nprobe 208, rescore 24, int8
    queries, query_chunk 2048) gives it in its first slice (scores bit for
    bit, rows equal as sets across equal scores), both timed beside K3's
    bound (``k3_bound``);
-7. the grouped probe's main path: ``ivf_search_grouped_probe`` at those
-   settings over all 4096 queries, K1's and K3's launches counted from 0,
-   must launch K1 and launch K3 once a slice;
-8. K2 on the exhaustive scan's inputs: against its plain version on what
+8. the grouped probe's main path: ``ivf_search_grouped_probe`` at those
+   settings over all 4096 queries, K1's, K3's and K5's launches counted
+   from 0, must launch K1 and launch K3 and K5 once a slice;
+9. K2 on the exhaustive scan's inputs: against its plain version on what
    ``ivf_residual_scan`` gives it (bf16 queries, the q.c bias plane and the
    row mask over the whole config-4 store at B = 256), both timed;
-9. flat corpus: a seeded, normalised 2**20 x 768 corpus (4096 clusters)
+10. flat corpus: a seeded, normalised 2**20 x 768 corpus (4096 clusters)
    and 4096 queries;
-10. K2 vs plain: K2 (``scan_fold``) against ``scan_fold_reference`` on the
+11. K2 vs plain: K2 (``scan_fold``) against ``scan_fold_reference`` on the
    same card tensors: int8 store with int8 queries (bit for bit), int8 store
    with bf16 queries, bf16 store, f32 store, f16 store (timed beside its
    bound), an n_valid past a 1024 block, the bias and row-mask planes at
@@ -69,10 +74,10 @@ Phases (each prints its seconds and the card's name and power limit):
 Each K1 comparison prints its route (``wgmma+tma``, ``wgmma+tma+convert``,
 or ``cuda-cores``) and query tile, each K2 comparison its store loader,
 query tile and split plan.  The last three lines are the kernel table (K1,
-K2, K3, K4, then the variants; each with its time, its plain version's, its
-bound and what bounds it, and the largest difference from the plain
+K2, K3, K4, K5, then the variants; each with its time, its plain version's,
+its bound and what bounds it, and the largest difference from the plain
 version; ``launches`` is the kernel's count on the main path that phase 3,
-7 or 10 drives, and null for the variants), the card, and
+8 or 11 drives, and null for the variants), the card, and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 repository beside this file, it exits non-zero and prints no result.
 
@@ -326,6 +331,53 @@ def k3_compare(state, queries, reps: int = 20):
     return err, ms, plain_ms, bound, "bytes"
 
 
+def k5_bound(probe_lists, xq_store, chunk_list, nlist: int) -> tuple[float, float]:
+    """K5's bound on these inputs: the probe lists, the queries and the list
+    sizes read once; each pair's slot, the chunk table, the block counts and
+    the live chunks' query rows written once, at 3.35 TB/s.  Returns (ms,
+    bytes)."""
+    from lotus_tpu_torch.ops.ivf_probe import QU
+
+    b, nprobe = probe_lists.shape
+    row = xq_store.shape[1] * xq_store.element_size()
+    live = int((chunk_list >= 0).sum())
+    nbytes = b * nprobe * (4 + 8) + b * row + nlist * (4 + 4) + chunk_list.numel() * 4 + live * QU * row
+    return 1e3 * nbytes / HBM_BYTES_PER_S, float(nbytes)
+
+
+def k5_compare(lists, xq_store, sizes, bl: int, reps: int = 20):
+    """K5 (``probe_layout``) against ``probe_layout_reference`` on the same
+    card tensors (int8 queries): the chunk table, each pair's slot and the
+    block counts equal, and every row of a live chunk equal (K5 leaves the
+    rows of dead chunks unwritten, and K1 never reads them); both timed
+    beside ``k5_bound``.  Returns (max_abs_err, ms, plain ms, bound ms,
+    "bytes")."""
+    import torch
+
+    from lotus_tpu_torch.ops.ivf_probe import QU, probe_layout, probe_layout_reference
+
+    args = (lists, xq_store, sizes, bl)
+    units, chunk_list, padpos, blocks = probe_layout(*args)
+    r_units, r_chunk_list, r_padpos, r_blocks = probe_layout_reference(*args)
+    sync()
+    live = torch.repeat_interleave(r_chunk_list[:-1] >= 0, QU)
+    tables = (torch.equal(chunk_list, r_chunk_list) and torch.equal(padpos, r_padpos)
+              and torch.equal(blocks, r_blocks))
+    rows_equal = torch.equal(units[live], r_units[live])  # int8 rows: equal values are equal bits
+    err = float((units[live].double() - r_units[live].double()).abs().max())
+    ms = cuda_ms(lambda: probe_layout(*args), reps)
+    plain_ms = cuda_ms(lambda: probe_layout_reference(*args), 3)
+    bound, nbytes = k5_bound(lists, xq_store, r_chunk_list, sizes.shape[0])
+    b, nprobe = lists.shape
+    say(f"  K5 at config 4's first slice (b {b}, nprobe {nprobe}, nlist {sizes.shape[0]}, {xq_store.dtype} "
+        f"queries at d {xq_store.shape[1]}, {int(live.sum()) // QU:,} live chunks of {r_chunk_list.numel() - 1:,}): "
+        f"tables {'equal' if tables else 'DIFFER'}, live rows {'equal' if rows_equal else 'DIFFER'}; "
+        f"max_abs_err={err!r}; K5 {ms:.4f} ms vs plain {plain_ms:.3f} ms; bound {bound:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), K5 at {100 * bound / ms:.1f}% of it [{GPU}]")
+    assert xq_store.dtype == torch.int8 and tables and rows_equal, "K5 disagrees with its plain version"
+    return err, ms, plain_ms, bound, "bytes"
+
+
 def k4_phase(dev, tokens: int = 64 * 512, reps: int = 20, widths: dict | None = None, seed: int = 21):
     """K4 (``moe_combine``) on a ``DeepseekV2MoE`` layer at DeepSeek-V2-Lite's
     published widths (``perfbench/configs/dsv2_lite.json``: hidden 2,048,
@@ -396,15 +448,16 @@ def k4_phase(dev, tokens: int = 64 * 512, reps: int = 20, widths: dict | None = 
 
 
 def kernel_report() -> None:
-    """K1's, K2's, K3's and K4's kernels as built: registers and spill bytes from ptxas,
+    """K1's to K5's kernels as built: registers and spill bytes from ptxas,
     ptxas's wgmma advisories counted by code (an injected warpgroup.wait or
     arrive: C7517, C7519; serialized wgmma: C7510, C7514), and the
     tensor-core (HGMMA bf16, IGMMA int8) and TMA-load (UTMALDG) instructions
     that ``cuobjdump -sass`` shows in each.  Fails unless every bf16
     tensor-core instantiation (K2's scan_kernel, K1's probe_wgmma) has HGMMA
     and every int8 one IGMMA.  K1's probe_cores (f32, and rows TMA cannot
-    take), K3's pool_select (a selection, no dot) and K4's moe_combine (a
-    weighted sum of gathered rows) run on the CUDA cores by design."""
+    take), K3's pool_select (a selection, no dot), K4's moe_combine (a
+    weighted sum of gathered rows) and K5's probe_layout kernels (bit
+    tables, scans and row copies) run on the CUDA cores by design."""
     from lotus_tpu_torch.ops import _kernels
 
     ptxas = {}
@@ -428,13 +481,13 @@ def kernel_report() -> None:
         elif fn is not None:
             for op in counts[fn]:
                 counts[fn][op] += op in line
-    for kind in ("scan_kernel", "probe_wgmma", "probe_cores", "pool_select", "moe_combine"):
+    for kind in ("scan_kernel", "probe_wgmma", "probe_cores", "pool_select", "moe_combine", "probe_layout"):
         found = sorted(f for f in counts if kind in f)
         assert found, f"no {kind} in the built library"
         for f in found:
             int8_dot = f"{kind}Ia" in f  # the operand type is int8
             regs, spill = ptxas.get(f, (None, None))
-            dot = {"pool_select": "selection", "moe_combine": "weighted sum"}.get(
+            dot = {"pool_select": "selection", "moe_combine": "weighted sum", "probe_layout": "layout"}.get(
                 kind, f"{'int8' if int8_dot else 'float'} dot")
             say(f"  {f}: {dot}; ptxas {regs} registers, spill "
                 f"stores/loads {spill} bytes, wgmma advisories {notes.get(f, {})}; SASS {counts[f]}")
@@ -584,9 +637,10 @@ def k2_store_compare(label: str, store, qv, top: int) -> list:
 
 
 def config4_kernels(dev) -> dict:
-    """Phases 4-8 over config 4's store, which lives only in this function's
+    """Phases 4-9 over config 4's store, which lives only in this function's
     frame.  Returns each kernel's figures by row: (max_abs_err, ms, plain
-    ms, bound ms, bound_by); and K1's and K3's launches on the main path."""
+    ms, bound ms, bound_by); and K1's, K3's and K5's launches on the main
+    path."""
     import torch
 
     from lotus_tpu_torch.ops.bench_data import synth_ivf_device_build
@@ -699,19 +753,22 @@ def config4_kernels(dev) -> dict:
                     (units_w, vecs, scales, None, cl_w, w_starts, w_sizes), bl=bl, int8_dot=True, l2=False,
                     packed=False, exact=True, top1=top1)
 
+    with Phase("K5 vs plain version"):
+        rows_out["K5"] = k5_compare(lists.to(torch.int32), quantize_rows(q)[0], sizes, bl)
     with Phase("K3 vs plain version"):
         rows_out["K3"] = k3_compare(state, xq[:QUERY_CHUNK])
-    with Phase("the grouped probe's main path (K1 and K3 launches)"):
-        probe_fold.launches = pool_select.launches = 0  # this path's launches
+    with Phase("the grouped probe's main path (K1, K3 and K5 launches)"):
+        probe_fold.launches = pool_select.launches = probe_layout.launches = 0  # this path's launches
         ivf_search_grouped_probe(state, xq, K, nprobe=NPROBE, metric="ip", rescore=RESCORE, int8_queries=True,
                                  query_chunk=QUERY_CHUNK)
         sync(dev)
-        launched = {"K1": probe_fold.launches, "K3": pool_select.launches}
+        launched = {"K1": probe_fold.launches, "K3": pool_select.launches, "K5": probe_layout.launches}
         slices = -(-xq.shape[0] // QUERY_CHUNK)
         say(f"  ivf_search_grouped_probe over {xq.shape[0]} int8 queries ({slices} slices): K1 launches "
-            f"{launched['K1']}, K3 launches {launched['K3']}")
+            f"{launched['K1']}, K3 launches {launched['K3']}, K5 launches {launched['K5']}")
         assert launched["K1"] > 0, "the grouped probe did not launch K1"
         assert launched["K3"] == slices, "the grouped probe did not launch K3 once a slice"
+        assert launched["K5"] == slices, "the grouped probe did not launch K5 once a slice"
     with Phase("K2 on the exhaustive scan's inputs (ivf_residual_scan)"):
         args, blk, _ = residual_scan_inputs(state, xq[:256])
         k2_compare(f"int8 store, bf16 queries, q.c bias + row mask, blk {blk} (ivf_residual_scan's inputs, "
@@ -873,7 +930,7 @@ def main() -> int:
 
     say(f"total {time.perf_counter() - t_all:.1f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{GPU}]")
     # (row, name, source, what it replaces, launches on a main path: config 4's
-    # grouped probe for K1 and K3, the Flat store's call for K2, the MoE
+    # grouped probe for K1, K3 and K5, the Flat store's call for K2, the MoE
     # layer's forward for K4); no single PyTorch call does what any of them
     # does, so none has a library time.
     k1, k2 = ("ivf_probe.cu", "lotus_tpu/ops/pallas_ivf.py:235"), ("flat_scan.cu", "lotus_tpu/ops/pallas_flat.py:42")
@@ -884,6 +941,8 @@ def main() -> int:
         # K4 a layer the JAX package lacks.
         ("K3", "pool_select (K3)", "pool_select.cu", "lotus_tpu/ops/pallas_ivf.py:558", launched["K3"]),
         ("K4", "moe_combine (K4)", "moe_combine.cu", None, launched["K4"]),
+        # K5 replaces the XLA ops before the probe kernel (no Pallas kernel).
+        ("K5", "probe_layout (K5)", "probe_layout.cu", "lotus_tpu/ops/pallas_ivf.py:378", launched["K5"]),
         ("K1 bf16 queries", "ivf_probe (K1), bf16 queries on int8 rows", *k1, None),
         ("K1 f16", "ivf_probe (K1), f16 rows under f32 queries", *k1, None),
         ("K1 int8 d770", "ivf_probe (K1), int8 dot at d 770", *k1, None),

@@ -91,6 +91,11 @@ def bind(path: Path | str) -> ctypes.CDLL:
     handle.lotus_pool_select.restype = ci
     handle.lotus_pool_select_workspace.argtypes = [ci] * 3
     handle.lotus_pool_select_workspace.restype = ctypes.c_longlong
+    ll = ctypes.c_longlong
+    handle.lotus_probe_layout.argtypes = [vp] * 8 + [ll, ll, ci, ci, ll, ci, vp]
+    handle.lotus_probe_layout.restype = ci
+    handle.lotus_probe_layout_workspace.argtypes = [ll, ci]
+    handle.lotus_probe_layout_workspace.restype = ll
     handle.lotus_moe_combine.argtypes = [vp] * 6 + [ctypes.c_longlong] + [ci] * 3 + [vp]
     handle.lotus_moe_combine.restype = ci
     handle.lotus_cuda_error_string.argtypes = [ci]

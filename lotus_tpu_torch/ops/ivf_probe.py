@@ -1,16 +1,18 @@
 """Grouped IVF probe: the counterpart of ``lotus_tpu/ops/pallas_ivf.py``.
 
 The reference runs its one Pallas kernel, ``_probe_kernel``, over work-unit
-tables that XLA builds.  Here plain torch ops build the tables and K1
-(``csrc/ivf_probe.cu``, a CUDA kernel written for sm_90a) does the probe:
+tables that XLA builds.  Here K5 (``probe_layout``, ``csrc/probe_layout.cu``)
+builds the tables and K1 (``csrc/ivf_probe.cu``) does the probe, both CUDA
+kernels written for sm_90a:
 
 1. coarse ranking: exact ``flat_search`` over the centroids (plus the exact
    q.c bias per probe slot on residual stores);
 2. pair grouping WITHOUT a sort: a (query, list) pair's rank within its list
-   is an exclusive cumsum over the (b, nlist) 0/1 probe histogram (an
-   argsort above b * nlist > 2**26);
-3. the chunk table (list id of every 128-pair chunk, cumsum + searchsorted)
-   and the padded query layout;
+   is the number of earlier queries that probed the list (K5: popcounts
+   over a one-bit-a-pair table; the plain version: an exclusive cumsum over
+   the (b, nlist) 0/1 probe histogram, an argsort above b * nlist > 2**26);
+3. the chunk table (list id of every 128-pair chunk) and the padded query
+   layout (K5, in the same launches);
 4. K1 (``probe_fold``): per (list, chunk) a top-2 per 64 strided lanes
    across the whole list, 128 candidates per pair (a top-1, 64 candidates,
    under ``FOLD = "top1"``);
@@ -23,7 +25,7 @@ Each call is the span ``ivf.search`` (``lotus_tpu_torch.profiling``); each
 query slice opens ``ivf.coarse`` (1), ``ivf.layout`` (2-3), ``ivf.k1`` (4),
 ``ivf.pool`` (5) and ``ivf.rescore`` (6) under it.
 
-The launch needs no host sync: the grid is the static bound
+A slice needs no host sync: K1's grid is the static bound
 ``P // QU + nlist + 1`` and blocks past the live chunk count write
 MASK_SCORE.  The reference's experiment knobs that are off by default
 (``_DEBUG_STAGE``, ``POOL_PREREDUCE``, ``CUMSUM_MATMUL``, ``APPROX_TOPK``,
@@ -55,7 +57,7 @@ FOLD = "top2"
 NCAND = 2 * NBK  # candidates per pair under the default top-2 fold
 LOCAL_BITS = 13  # packed ids cover probe windows up to 8192 rows
 _LOCAL_MASK = (1 << LOCAL_BITS) - 1
-# Above this many histogram cells the pair grouping takes one stable sort.
+# Above this many histogram cells the plain pair grouping takes one stable sort.
 HIST_MAX_CELLS = 1 << 26
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3}
@@ -252,16 +254,19 @@ probe_fold.launches = 0  # K1 launches in this process (read by chip_smoke.py)
 probe_fold.last_plan = None
 
 
-def probe_layout(
+def probe_layout_reference(
     probe_lists: torch.Tensor, xq_store: torch.Tensor, list_size: torch.Tensor, bl: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1's inputs for a batch: pair grouping, chunk table and query layout.
+    """Plain PyTorch version of K5: K1's inputs for a batch by pair
+    grouping, chunk table and query layout.
 
     Returns ``(xq_units, chunk_list, padpos, blocks)``: the queries in chunk
-    layout ((grid - 1) * QU, d), the list id of every chunk (grid,) int32
-    with -1 for dead chunks, each pair's row in the kernel output (P,), and
-    the block count of every probed list (nlist,).  No host sync: the grid
-    is the static bound ``P // QU + nlist + 1``.
+    layout ((grid - 1) * QU, d), zeros in the slots no pair fills, the list
+    id of every chunk (grid,) int32 with -1 for dead chunks, each pair's row
+    in the kernel output (P,) int64, and the block count of every probed
+    list (nlist,).  The grid is the static bound ``P // QU + nlist + 1``.
+    On a CUDA tensor the histogram's scatter copies a host scalar, which
+    waits for the card.
     """
     b, nprobe = probe_lists.shape
     d = xq_store.shape[1]
@@ -309,6 +314,60 @@ def probe_layout(
     xq_pad = torch.cat([xq_store, torch.zeros((1, d), dtype=xq_store.dtype, device=dev)])
     xq_units = xq_pad[sq_full]
     return xq_units, chunk_list, padpos, blocks
+
+
+def probe_layout(
+    probe_lists: torch.Tensor, xq_store: torch.Tensor, list_size: torch.Tensor, bl: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's wrapper (``csrc/probe_layout.cu``): ``probe_layout_reference``'s
+    outputs, equal bit for bit, except that rows of dead chunks
+    (``chunk_list == -1``) are left unwritten (K1 never reads them).  On
+    CUDA tensors it launches the kernel (or raises), with no host sync;
+    tensors on the CPU take the plain version.
+
+    ``probe_lists``: (b, nprobe) int32, distinct lists per row;
+    ``xq_store``: (b, d) queries as K1 takes them (int8, bf16, f16 or f32);
+    ``list_size``: (nlist,) int32; ``bl``: the store's block rows.
+    """
+    if probe_lists.ndim != 2 or list_size.ndim != 1:
+        raise ValueError("probe_layout: probe_lists must be (b, nprobe) and list_size (nlist,)")
+    b, nprobe = probe_lists.shape
+    nlist = list_size.shape[0]
+    if not xq_store.is_cuda:
+        return probe_layout_reference(probe_lists, xq_store, list_size, bl)
+    from lotus_tpu_torch.ops import _kernels
+
+    dev = xq_store.device
+    checks = (("probe_lists", probe_lists, torch.int32), ("list_size", list_size, torch.int32))
+    for name, t, dtype in checks:
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"probe_layout: {name} must be a contiguous {dtype} tensor on {dev}")
+    if xq_store.dtype not in _DTYPE_CODE or xq_store.ndim != 2 or xq_store.shape[0] != b:
+        raise ValueError(f"probe_layout: xq_store must be ({b}, d) in one of {tuple(_DTYPE_CODE)}")
+    if not xq_store.is_contiguous():
+        raise ValueError("probe_layout: xq_store must be contiguous")
+    if bl < 1:
+        raise ValueError(f"probe_layout: bl must be positive, got {bl}")
+    d = xq_store.shape[1]
+    n_chunks_max = b * nprobe // QU + nlist
+    xq_units = torch.empty((n_chunks_max * QU, d), dtype=xq_store.dtype, device=dev)
+    chunk_list = torch.empty((n_chunks_max + 1,), dtype=torch.int32, device=dev)
+    padpos = torch.empty((b * nprobe,), dtype=torch.int64, device=dev)
+    blocks = torch.empty((nlist,), dtype=torch.int32, device=dev)
+    lib = _kernels.lib()
+    work_bytes = lib.lotus_probe_layout_workspace(b, nlist)
+    work = torch.empty((work_bytes,), dtype=torch.uint8, device=dev)
+    code = lib.lotus_probe_layout(
+        probe_lists.data_ptr(), xq_store.data_ptr(), list_size.data_ptr(), xq_units.data_ptr(),
+        chunk_list.data_ptr(), padpos.data_ptr(), blocks.data_ptr(), work.data_ptr(), work_bytes, b, nprobe,
+        nlist, d * xq_store.element_size(), bl, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _kernels.check(code, "probe_layout launch")
+    probe_layout.launches += 1
+    return xq_units, chunk_list, padpos, blocks
+
+
+probe_layout.launches = 0  # K5 launches in this process (one an ``ivf.layout`` span on the card)
 
 
 def pool_candidates(
@@ -536,8 +595,8 @@ def _grouped_probe(
     if probe_lists is None:
         with annotate("ivf.coarse"):
             _, probe_lists = flat_search(centroids, xq, nprobe, metric=metric)
-    with annotate("ivf.layout"):
-        probe_lists = probe_lists.to(torch.int32)
+    with annotate("ivf.layout", route="kernel" if xq.is_cuda else "plain"):
+        probe_lists = probe_lists.to(torch.int32).contiguous()
         if owned is not None:
             list_size = torch.where(owned, list_size, torch.zeros_like(list_size))
 
@@ -551,7 +610,7 @@ def _grouped_probe(
         else:
             xq_store = xq
 
-        xq_units, chunk_list, padpos, _ = probe_layout(probe_lists, xq_store, list_size, bl)
+        xq_units, chunk_list, padpos, _ = probe_layout(probe_lists, xq_store.contiguous(), list_size, bl)
 
     # Packing truncates 13 mantissa bits, so it is only used when the caller
     # exactly re-ranks the candidates; windows beyond the packed-id range

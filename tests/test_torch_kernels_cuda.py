@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K4 on the card against their plain PyTorch versions,
+"""K1, K2, K3, K4 and K5 on the card against their plain PyTorch versions,
 variant by variant, the grouped probe's slices free of host
 synchronisation, and DeepSeek-V2's layers, whose MoE combine is K4.
 
@@ -12,6 +12,7 @@ runs on a machine without JAX:
 import numpy as np
 import pytest
 import torch
+from torch_layout import LAYOUT_CASES, assert_layout, numpy_layout, synth_layout
 from torch_pool import assert_finish, numpy_finish, synth_pool
 
 from lotus_tpu_torch.ops import ivf_probe as tprobe
@@ -388,13 +389,124 @@ def test_pool_select_matches_plain_version_on_gpu(case, kw, k, spilled):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("case,b,nlist,nprobe,d,extra", LAYOUT_CASES, ids=[c[0] for c in LAYOUT_CASES])
+def test_probe_layout_matches_plain_version_on_gpu(case, b, nlist, nprobe, d, extra, dtype):
+    """K5 against ``probe_layout_reference`` on the same card tensors, and
+    both against the stage's definition: the chunk table, each pair's slot,
+    the block counts and every row of a live chunk bit for bit; one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: K5 has no CPU mode")
+    args = synth_layout(11, b=b, nlist=nlist, nprobe=nprobe, d=d, dtype=dtype, device="cuda", **extra)
+    launches = tprobe.probe_layout.launches
+    got = tprobe.probe_layout(*args, 1024)
+    assert tprobe.probe_layout.launches == launches + 1
+    ref = tprobe.probe_layout_reference(*args, 1024)
+    torch.cuda.synchronize()
+    want = numpy_layout(*args)
+    assert_layout(ref, want)
+    assert_layout(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["lowered_histogram_bound", "past_2_30_cells"])
+def test_probe_layout_past_the_histogram_on_gpu(monkeypatch, regime):
+    """Past ``HIST_MAX_CELLS`` the plain version groups pairs by an argsort,
+    which K5 equals bit for bit: once with the bound lowered to this batch's
+    cells, and once on a batch of more than 2**30 (b, nlist) cells, whose bit
+    table (256 MB with its counts) K5 indexes in 64 bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: K5 has no CPU mode")
+    if regime == "lowered_histogram_bound":
+        b, nlist, nprobe = 600, 256, 24
+        args = synth_layout(13, b=b, nlist=nlist, nprobe=nprobe, d=768, dtype=torch.int8, device="cuda")
+        monkeypatch.setattr(tprobe, "HIST_MAX_CELLS", b * nlist - 1)
+    else:
+        # Two distinct lists a query, drawn without a (b, nlist) matrix.
+        b, nlist, d = (1 << 20) + 40, 1024, 16
+        rng = np.random.default_rng(13)
+        first = rng.integers(0, nlist, b)
+        lists = np.stack([first, (first + rng.integers(1, nlist, b)) % nlist], 1).astype(np.int32)
+        xq = rng.integers(-127, 128, (b, d)).astype(np.int8)
+        sizes = rng.integers(0, 8192, nlist).astype(np.int32)
+        args = tuple(torch.from_numpy(a).cuda() for a in (lists, xq, sizes))
+        assert b * nlist > tprobe.HIST_MAX_CELLS and b * nlist > 1 << 30
+    launches = tprobe.probe_layout.launches
+    got = tprobe.probe_layout(*args, 1024)
+    ref = tprobe.probe_layout_reference(*args, 1024)
+    torch.cuda.synchronize()
+    assert tprobe.probe_layout.launches == launches + 1
+    want = numpy_layout(*args)
+    assert_layout(got, want)
+    assert_layout(ref, want)
+
+
+@pytest.mark.cuda
+def test_probe_layout_dead_rows_are_never_read_on_gpu():
+    """K5 leaves the rows of dead chunks unwritten: filled with garbage, K1's
+    output on them equals K1's output on the plain version's units (zeros
+    there) bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    g = torch.Generator().manual_seed(17)
+    d, bl, nlist, b, nprobe = 64, 1024, 6, 300, 3
+    sizes = torch.tensor([3000, 0, 1024, 17, 2100, 900], dtype=torch.int32)
+    padded = torch.clamp((sizes + bl - 1) // bl, min=1) * bl
+    starts = (torch.cumsum(padded, 0) - padded).to(torch.int32)
+    rows = int(padded.sum())
+    x = torch.randint(-127, 128, (rows, d), generator=g, dtype=torch.int8).cuda()
+    scales = (torch.rand(rows, generator=g) + 0.5).cuda()
+    lists = torch.argsort(torch.rand((b, nlist), generator=g), dim=1)[:, :nprobe].to(torch.int32).cuda()
+    xq = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8).cuda()
+    starts, sizes = starts.cuda(), sizes.cuda()
+    units, chunk_list, _, _ = tprobe.probe_layout(lists, xq, sizes, bl)
+    ref_units, ref_chunk_list, _, _ = tprobe.probe_layout_reference(lists, xq, sizes, bl)
+    dead = torch.repeat_interleave(chunk_list[:-1] < 0, tprobe.QU)
+    assert int(dead.sum()) >= tprobe.QU and torch.equal(chunk_list, ref_chunk_list)
+    units[dead] = torch.randint(-127, 128, (int(dead.sum()), d), dtype=torch.int8, device="cuda")
+    kw = dict(bl=bl, int8_dot=True, l2=False, packed=True)
+    got_s, _ = tprobe.probe_fold(units, x, scales, None, chunk_list, starts, sizes, **kw)
+    ref_s, _ = tprobe.probe_fold(ref_units, x, scales, None, chunk_list, starts, sizes, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got_s.view(torch.int32), ref_s.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["lists_on_cpu", "int64_lists", "f64_queries", "rows_not_b", "strided_queries",
+                                   "flat_lists"])
+def test_probe_layout_refuses_what_it_cannot_read_on_gpu(fault):
+    """K5 reads contiguous int32 lists and sizes beside contiguous (b, d)
+    queries of a type K1 takes, all on the queries' card: the wrapper
+    refuses anything else and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    lists, xq, sizes = synth_layout(19, b=64, nlist=32, nprobe=8, d=64, dtype=torch.bfloat16, device="cuda")
+    if fault == "lists_on_cpu":
+        lists = lists.cpu()
+    if fault == "int64_lists":
+        lists = lists.long()
+    if fault == "f64_queries":
+        xq = xq.double()
+    if fault == "rows_not_b":
+        xq = xq[:-1]
+    if fault == "strided_queries":
+        xq = torch.cat([xq, xq], 1)[:, ::2]
+    if fault == "flat_lists":
+        lists = lists.reshape(-1)
+    launches = tprobe.probe_layout.launches
+    with pytest.raises(ValueError, match="probe_layout"):
+        tprobe.probe_layout(lists, xq, sizes, 1024)
+    assert tprobe.probe_layout.launches == launches
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("spill_frac", [0.0, 0.2])
-def test_grouped_probe_slices_sync_only_in_probe_layout_on_gpu(monkeypatch, spill_frac):
+def test_grouped_probe_slices_make_no_sync_on_gpu(monkeypatch, spill_frac):
     """A search's slices queue their launches without waiting for the card:
-    under ``torch.cuda.set_sync_debug_mode("error")`` nothing synchronises
-    but ``probe_layout`` (its histogram's ``hist[q_ids, l_flat] = 1`` copies
-    a host scalar), which runs with the mode off, and K3 (never the plain
-    version) runs once a slice."""
+    under ``torch.cuda.set_sync_debug_mode("error")`` nothing in a whole
+    slice synchronises, the layout included; K5 and K3 (never their plain
+    versions) run once a slice; and the answers equal those of the same
+    search through the plain layout."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from lotus_tpu_torch.ops.bench_data import synth_ivf_device_build
@@ -403,30 +515,27 @@ def test_grouped_probe_slices_sync_only_in_probe_layout_on_gpu(monkeypatch, spil
                                    gt_queries=1, k=10, spill_frac=spill_frac, device="cuda", seed=3)
     state, xq = built["state"], built["queries"]
     kw = dict(nprobe=16, int8_queries=True, rescore=24, query_chunk=512)
-    want = tprobe.ivf_search_grouped_probe(state, xq, 10, **kw)  # builds the kernels, caches the state's tables
+    tprobe.ivf_search_grouped_probe(state, xq, 10, **kw)  # builds the kernels, caches the state's tables
+    with monkeypatch.context() as m:
+        m.setattr(tprobe, "probe_layout", tprobe.probe_layout_reference)
+        want = tprobe.ivf_search_grouped_probe(state, xq, 10, **kw)
     torch.cuda.synchronize()
 
-    def plain(*a, **k):
-        raise AssertionError("a CUDA tensor reached pool_select_reference")
+    def refuse(name):
+        def plain(*a, **k):
+            raise AssertionError(f"a CUDA tensor reached {name}")
 
-    layout = tprobe.probe_layout
+        return plain
 
-    def layout_unchecked(*a, **k):
-        torch.cuda.set_sync_debug_mode("default")
-        try:
-            return layout(*a, **k)
-        finally:
-            torch.cuda.set_sync_debug_mode("error")
-
-    monkeypatch.setattr(tprobe, "pool_select_reference", plain)
-    monkeypatch.setattr(tprobe, "probe_layout", layout_unchecked)
-    launches = tprobe.pool_select.launches
+    monkeypatch.setattr(tprobe, "pool_select_reference", refuse("pool_select_reference"))
+    monkeypatch.setattr(tprobe, "probe_layout_reference", refuse("probe_layout_reference"))
+    launches = tprobe.pool_select.launches, tprobe.probe_layout.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = tprobe.ivf_search_grouped_probe(state, xq, 10, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert tprobe.pool_select.launches == launches + 2
+    assert (tprobe.pool_select.launches, tprobe.probe_layout.launches) == (launches[0] + 2, launches[1] + 2)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

@@ -185,6 +185,9 @@ def test_grouped_probe_spans_per_slice(residual_store, query_chunk, slices):
     assert all(r["parent"] == 0 and r["request"] == recs[0]["request"] for r in recs[1:])
     tot = profiling.span_totals()
     assert tot["ivf.search"].roots == 1 and all(tot[s].calls == slices and tot[s].roots == 0 for s in STAGES)
+    # On the CPU the layout and the pool run their kernels' plain versions.
+    routes = [(r["name"], r["attrs"]["route"]) for r in recs if r["name"] in ("ivf.layout", "ivf.pool")]
+    assert routes == [("ivf.layout", "plain"), ("ivf.pool", "plain")] * slices
 
 
 def _store(tmp_path, route):

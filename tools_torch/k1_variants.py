@@ -7,8 +7,9 @@ removed, built side by side and timed in one process on one config-4 slice.
 Each variant, of the int8-dot path and of bf16 queries on the int8 rows,
 is the kernel source with text substitutions (where the row
 scales come from, the fold, the wgmma, the ring's stage size), compiled with the
-package's nvcc flags under ``build/k1_variants/`` and linked with K2's
-object into its own library, which ``probe_fold`` then launches.  Only the
+package's nvcc flags under ``build/k1_variants/`` and linked with the
+other kernels' objects into its own library, which ``probe_fold`` then
+launches.  Only the
 unchanged build is checked against the plain version; the others compute
 something else and are timed only.  The timings run in turns (the unchanged
 build first and last).  Needs one NVIDIA GPU and the CUDA toolkit.
@@ -78,9 +79,12 @@ def build_variants(out: Path, variants: dict) -> dict[str, Path]:
     src = (_kernels.SRC_DIR / "ivf_probe.cu").read_text()
     nvcc = _kernels.cuda_tool("nvcc")
     inc = ["-I", str(_kernels.SRC_DIR)]
-    jobs = {"flat": subprocess.Popen([nvcc, *_kernels.NVCC_FLAGS, *inc, "-c", "-o", str(out / "flat.o"),
-                                      str(_kernels.SRC_DIR / "flat_scan.cu")],
-                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)}
+    # The other kernels' sources, linked into every variant: ``_kernels.bind``
+    # declares the whole library's interface.
+    others = sorted(p for p in _kernels.SRC_DIR.glob("*.cu") if p.name != "ivf_probe.cu")
+    jobs = {p.stem: subprocess.Popen([nvcc, *_kernels.NVCC_FLAGS, *inc, "-c", "-o", str(out / f"{p.stem}.o"), str(p)],
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p in others}
     for i, (name, (_, subs)) in enumerate(variants.items()):
         text = src
         for a, b in subs:
@@ -98,7 +102,7 @@ def build_variants(out: Path, variants: dict) -> dict[str, Path]:
     for i, name in enumerate(variants):
         lib = out / f"lib_v{i}.so"
         subprocess.run([nvcc, *_kernels.ARCH, "-shared", "-o", str(lib), str(out / f"v{i}.o"),
-                        str(out / "flat.o")], check=True, capture_output=True)
+                        *(str(out / f"{p.stem}.o") for p in others)], check=True, capture_output=True)
         libs[name] = lib
     return libs
 
