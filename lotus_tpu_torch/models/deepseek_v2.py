@@ -26,13 +26,25 @@ re-implements):
   ``first_k_dense_replace`` layers (and off the ``moe_layer_freq`` period),
   else the mixture of experts: the gate's logits in f32, softmax, greedy
   top-``num_experts_per_tok`` (renormalised only under ``norm_topk_prob``),
-  times ``routed_scaling_factor``; the (token, expert) pairs sorted by
+  times ``routed_scaling_factor``; or (``topk_method`` ``noaux_tc`` with
+  ``scoring_func`` ``sigmoid`` over one group, DeepSeek-V3's router as
+  ``transformers``' ``DeepseekV3TopkRouter`` has it, which Kimi-Linear's
+  ``kimi_linear.py`` uses) the sigmoid of the logits plus the gate's
+  ``e_score_correction_bias`` chooses the experts, and the uncorrected
+  sigmoid scores of the chosen ones are their weights, renormalised under
+  ``norm_topk_prob``, times the factor; the (token, expert) pairs sorted by
   expert with offsets counted on the device, the held experts' SwiGLU as two
   grouped GEMMs (``torch._grouped_mm``), then the combine (K4,
   ``ops/moe_combine.py``): each token's outputs gathered back through the
   sort's inverse, weighted and summed in f32 with the shared experts' output
   (one SwiGLU MLP of ``n_shared_experts`` x ``moe_intermediate_size``) and
   rounded once.
+
+Without rotary tables (``cos`` and ``sin`` None: Kimi-Linear's
+``mla_use_nope``) the latent attention rotates nothing: the rope parts of
+query and key enter the scores as they are projected, the shared key part
+concatenated unrotated, and, with no bias either, the scores are causal
+alone (``is_causal``), which holds for right-padded rows.
 
 A layer is told which experts it holds (``experts=(first, end)``, all of
 them by default) and routes over every expert: pairs sent to an expert it
@@ -82,6 +94,8 @@ class DeepseekV2Config(EncoderConfig):
     first_k_dense_replace: int = 0
     norm_topk_prob: bool = False
     scoring_func: str = "softmax"
+    n_group: int | None = None
+    topk_group: int | None = None
     q_lora_rank: int | None = 1536
     kv_lora_rank: int = 512
     qk_nope_head_dim: int = 128
@@ -99,9 +113,13 @@ class DeepseekV2Config(EncoderConfig):
         if self.q_lora_rank is not None:
             raise NotImplementedError(f"q_lora_rank {self.q_lora_rank}: the port runs latent attention without a "
                                       f"query LoRA (DeepSeek-V2-Lite's)")
-        if self.topk_method != "greedy" or self.scoring_func != "softmax":
+        if (self.topk_method, self.scoring_func) not in ROUTERS:
             raise NotImplementedError(f"topk_method {self.topk_method!r} with scoring_func {self.scoring_func!r}: "
-                                      f"the port runs greedy top-k over a softmax (DeepSeek-V2-Lite's)")
+                                      f"the port runs greedy top-k over a softmax (DeepSeek-V2-Lite's) or "
+                                      f"noaux_tc over sigmoid scores in one group (Kimi-Linear's)")
+        if self.topk_method == "noaux_tc" and max(self.n_group or 1, self.topk_group or 1) > 1:
+            raise NotImplementedError(f"n_group {self.n_group} / topk_group {self.topk_group}: the port runs "
+                                      f"noaux_tc over one group")
         kind = (self.rope_scaling or {}).get("type", (self.rope_scaling or {}).get("rope_type"))
         if kind not in (None, "yarn"):
             raise NotImplementedError(f"rope_scaling type {kind!r}: the port runs none or 'yarn'")
@@ -118,6 +136,9 @@ class DeepseekV2Config(EncoderConfig):
             m = yarn_mscale(rs["factor"], rs["mscale_all_dim"])
             scale *= m * m
         return scale
+
+
+ROUTERS = (("greedy", "softmax"), ("noaux_tc", "sigmoid"))
 
 
 def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
@@ -170,17 +191,22 @@ class DeepseekV2Attention(nn.Module):
         self.kv_b_proj = nn.Linear(self.rank, self.heads * (self.nope + self.v_dim), bias=False)
         self.o_proj = nn.Linear(self.heads * self.v_dim, cfg.hidden_size, bias=cfg.attention_bias)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: torch.Tensor | None, cos: torch.Tensor | None,
+                sin: torch.Tensor | None) -> torch.Tensor:
         b, s, _ = x.shape
         h = self.heads
-        q_nope, q_pe = self.q_proj(x).view(b, s, h, -1).transpose(1, 2).split([self.nope, self.rope], dim=-1)
+        q = self.q_proj(x).view(b, s, h, -1).transpose(1, 2)
         latent, k_pe = self.kv_a_proj_with_mqa(x).split([self.rank, self.rope], dim=-1)
         kv = self.kv_b_proj(self.kv_a_layernorm(latent)).view(b, s, h, -1).transpose(1, 2)
         k_nope, v = kv.split([self.nope, self.v_dim], dim=-1)
-        q = torch.cat((q_nope, rotate_pairs(q_pe, cos, sin)), dim=-1)
-        k_pe = rotate_pairs(k_pe[:, None], cos, sin).expand(b, h, s, self.rope)
+        if cos is None:
+            k_pe = k_pe[:, None].expand(b, h, s, self.rope)
+        else:
+            q_nope, q_pe = q.split([self.nope, self.rope], dim=-1)
+            q = torch.cat((q_nope, rotate_pairs(q_pe, cos, sin)), dim=-1)
+            k_pe = rotate_pairs(k_pe[:, None], cos, sin).expand(b, h, s, self.rope)
         k = torch.cat((k_nope, k_pe), dim=-1)
-        ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=self.scale)
+        ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, is_causal=bias is None, scale=self.scale)
         return self.o_proj(ctx.transpose(1, 2).reshape(b, s, h * self.v_dim))
 
 
@@ -188,6 +214,8 @@ class MoEGate(nn.Module):
     def __init__(self, cfg: DeepseekV2Config):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cfg.n_routed_experts, cfg.hidden_size))
+        if cfg.scoring_func == "sigmoid":
+            self.e_score_correction_bias = nn.Parameter(torch.empty(cfg.n_routed_experts))
 
 
 class GroupedExperts(nn.Module):
@@ -222,6 +250,7 @@ class DeepseekV2MoE(nn.Module):
         self.layer, self.layers = layer, cfg.num_hidden_layers
         self.top_k = cfg.num_experts_per_tok
         self.norm_topk, self.scaling = cfg.norm_topk_prob, cfg.routed_scaling_factor
+        self.sigmoid = cfg.scoring_func == "sigmoid"
         self.held = experts or (0, cfg.n_routed_experts)
         self.act = ACTIVATIONS[cfg.hidden_act]
         self.gate = MoEGate(cfg)
@@ -235,7 +264,12 @@ class DeepseekV2MoE(nn.Module):
         held experts' int32 end offsets in that order, and the order's inverse
         (pair u * k + j's place in it), all made on the device."""
         logits = F.linear(x.float(), self.gate.weight.float())
-        weights, idx = torch.topk(logits.softmax(dim=-1), self.top_k, dim=-1)
+        if self.sigmoid:
+            scores = logits.sigmoid()
+            idx = torch.topk(scores + self.gate.e_score_correction_bias.float(), self.top_k, dim=-1).indices
+            weights = scores.gather(1, idx)
+        else:
+            weights, idx = torch.topk(logits.softmax(dim=-1), self.top_k, dim=-1)
         if self.norm_topk:
             weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
         weights = weights * self.scaling

@@ -29,14 +29,19 @@ other routes), ``vs.wait`` and ``vs.to_lists``.  The sentence-embedding RM
 batch's forward and pooling); DeepSeek-V2 (``models/deepseek_v2.py``)
 opens ``mla.attn`` (a layer's attention, projections included),
 ``moe.shared``, ``moe.route`` and ``moe.experts`` (over ``moe.combine``,
-K4 on the card) inside the forward.
+K4 on the card) inside the forward; Kimi-Linear (``models/kimi_linear.py``)
+opens the same in its latent attention and MoE layers, and ``kda.attn`` (a
+KDA layer: projections, convolutions, gates, recurrence, gated norm and
+output projection) over ``kda.scan`` (the recurrence alone, ``ops/kda.py``;
+attribute ``route``, ``plain``).
 
 The program's counters (``tally``) are device tensors of a session, added to
 without a synchronisation while a profiler runs and read by
 ``counter_totals()`` after it: DeepSeek-V2's ``moe.pairs`` (routed pairs per
 layer and expert), ``moe.pairs_max`` (per layer, the most pairs of one
 expert, summed over calls) and ``moe.experts_used`` (per layer, the experts
-with a pair, summed over calls).
+with a pair, summed over calls); Kimi-Linear's ``kda.tokens`` (per layer,
+the (token, head) pairs its recurrence ran over, padding included).
 """
 
 from __future__ import annotations
