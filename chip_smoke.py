@@ -16,7 +16,7 @@ Phases (each prints its seconds and the card's name and power limit):
    one process per source, all started together; report each K1, K2 and
    K3 kernel's registers, spills, wgmma advisories and HGMMA / IGMMA /
    UTMALDG counts, and fail if a tensor-core kernel has none of its type's
-   MMA; K4's and K5's registers and spills;
+   MMA; K4's, K5's and K6's registers and spills;
 3. K4 vs plain version: a ``DeepseekV2MoE`` layer at DeepSeek-V2-Lite's
    published widths (seeded bf16 weights) over the passage join's 64 x 512
    tokens, run once with the plain version standing in for K4; K4
@@ -25,6 +25,13 @@ Phases (each prints its seconds and the card's name and power limit):
    K4's byte bound; then the layer's main-path forward, its launches
    counted from 0, must launch K4 once and equal the recorded forward bit
    for bit;
+3b. K6 vs plain version: K6 (``kda.scan_chunks``) against
+   ``scan_chunks_reference`` on the same card tiles at the long-document
+   cell's shape (8 x 8,192 tokens, 32 heads of 128, bf16-sourced q, k and
+   v, seeded decays; the widest gap), both timed beside the recurrence's
+   least time (``perfbench/bounds_kda.scan_least_s``); then one KDA layer
+   of Kimi-Linear at the published widths (seeded bf16 weights) over 8,192
+   tokens, its launches counted from 0, must launch K6's two kernels;
 4. config 4 build: the seeded 10 * 2**20 x 768 corpus, IVF with nlist 4096,
    residual int8 + int4 refinement, block-aligned at 1024;
 5. K1 vs plain: K1 (``probe_fold``) against ``probe_fold_reference`` for
@@ -74,10 +81,10 @@ Phases (each prints its seconds and the card's name and power limit):
 Each K1 comparison prints its route (``wgmma+tma``, ``wgmma+tma+convert``,
 or ``cuda-cores``) and query tile, each K2 comparison its store loader,
 query tile and split plan.  The last three lines are the kernel table (K1,
-K2, K3, K4, K5, then the variants; each with its time, its plain version's,
+K2, K3, K4, K5, K6, then the variants; each with its time, its plain version's,
 its bound and what bounds it, and the largest difference from the plain
 version; ``launches`` is the kernel's count on the main path that phase 3,
-8 or 11 drives, and null for the variants), the card, and
+3b, 8 or 11 drives, and null for the variants), the card, and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 repository beside this file, it exits non-zero and prints no result.
 
@@ -447,8 +454,78 @@ def k4_phase(dev, tokens: int = 64 * 512, reps: int = 20, widths: dict | None = 
     return (err, ms, plain_ms, bound, "bytes"), launches
 
 
+def k6_phase(dev, b: int = 8, t: int = 8192, heads: int = 32, reps: int = 10, seed: int = 25,
+             layer_tokens: int = 8192) -> tuple:
+    """K6 (``kda.scan_chunks``) at the long-document cell's shape: ``b`` x
+    ``t`` tokens of ``heads`` heads of 128 (Kimi-Linear's, from
+    ``perfbench/configs/kimi_linear.json``), bf16-sourced L2-normalised q
+    and k and v, decays as the seeded layers draw them, in the chunk tiles
+    the KDA layer makes.  K6 against ``scan_chunks_reference`` on the same
+    tiles (the widest gap), both timed beside the recurrence's least time
+    (``perfbench/bounds_kda.scan_least_s``: q, k, v and o in bf16, g and
+    beta in f32, once at 3.35 TB/s).  Then the main path: one KDA layer at
+    the published widths with seeded bf16 weights over ``layer_tokens``
+    tokens, ``scan_chunks.launches`` set to 0, must launch K6's two
+    kernels.  Returns ((max_abs_err, ms, plain ms, bound ms, bound by),
+    launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lotus_tpu_torch.ops import kda
+    from perfbench import bounds_kda
+    from perfbench.adapters import _kimi
+
+    with open(os.path.join(REPO, "perfbench", "configs", "kimi_linear.json")) as f:
+        cfg = json.load(f)
+    d = cfg["linear_attn_config"]["head_dim"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k = (F.normalize(torch.randn(b, t, heads, d, device=dev, generator=g), dim=-1).bfloat16()
+            for _ in range(2))
+    v = torch.randn(b, t, heads, d, device=dev, generator=g).bfloat16()
+    a = 1 + 15 * torch.rand(heads, device=dev, generator=g)
+    decay = -a.view(heads, 1) * F.softplus(0.2 * torch.randn(b, t, heads, d, device=dev, generator=g) - 4)
+    beta = torch.rand(b, t, heads, device=dev, generator=g)
+    tiles = [kda.from_rows(x) for x in (q, k, v, decay)] + [kda.from_rows(beta.unsqueeze(-1))]
+    del q, k, v, decay, beta
+    with torch.inference_mode():
+        got = kda.scan_chunks(*tiles)
+        want = kda.scan_chunks_reference(*tiles)
+        sync(dev)
+        err = float((got - want).abs().max())
+        del got, want
+        ms = cuda_ms(lambda: kda.scan_chunks(*tiles), reps)
+        plain_ms = cuda_ms(lambda: kda.scan_chunks_reference(*tiles), 2)
+    least = bounds_kda.scan_least_s(cfg, float(b * t * heads))
+    bound = 1e3 * least["s"]
+    n, bh = tiles[0].shape[:2]
+    del tiles
+    torch.cuda.empty_cache()
+
+    one = {**cfg, "num_hidden_layers": 1,
+           "linear_attn_config": {**cfg["linear_attn_config"], "kda_layers": [1], "full_attn_layers": []}}
+    model = _kimi.build_model(one, seed, dev)
+    ids = torch.randint(0, cfg["vocab_size"], (1, layer_tokens), generator=g, device=dev)
+    kda.scan_chunks.launches = 0  # count only the main path's launches from here
+    with torch.inference_mode():
+        out = model(ids, torch.ones_like(ids))
+    sync(dev)
+    launches = kda.scan_chunks.launches
+    finite = bool(torch.isfinite(out).all())
+    del model, out
+    say(f"  K6 at the long-document cell's shape ({b} x {t:,} tokens, {heads} heads of {d}: {n} chunks x {bh} "
+        f"tiles): max_abs_err={err!r} against the plain version; K6 {ms:.3f} ms vs plain {plain_ms:.3f} ms; "
+        f"bound {bound:.4f} ms ({least['by']}: {least['bytes'] / 1e9:.3f} GB at 3.35 TB/s), K6 at "
+        f"{100 * bound / ms:.2f}% of it [{GPU}]")
+    say(f"  one KDA layer's forward over {layer_tokens:,} tokens on the main path: K6 launches {launches}, "
+        f"output {'finite' if finite else 'NOT FINITE'}")
+    assert err <= 2e-6, "K6 disagrees with its plain version"
+    assert launches == kda.K6_LAUNCHES, f"a KDA layer's forward launched K6 {launches} times"
+    assert finite, "a KDA layer's forward through K6 is not finite"
+    return (err, ms, plain_ms, bound, least["by"]), launches
+
+
 def kernel_report() -> None:
-    """K1's to K5's kernels as built: registers and spill bytes from ptxas,
+    """K1's to K6's kernels as built: registers and spill bytes from ptxas,
     ptxas's wgmma advisories counted by code (an injected warpgroup.wait or
     arrive: C7517, C7519; serialized wgmma: C7510, C7514), and the
     tensor-core (HGMMA bf16, IGMMA int8) and TMA-load (UTMALDG) instructions
@@ -456,8 +533,10 @@ def kernel_report() -> None:
     tensor-core instantiation (K2's scan_kernel, K1's probe_wgmma) has HGMMA
     and every int8 one IGMMA.  K1's probe_cores (f32, and rows TMA cannot
     take), K3's pool_select (a selection, no dot), K4's moe_combine (a
-    weighted sum of gathered rows) and K5's probe_layout kernels (bit
-    tables, scans and row copies) run on the CUDA cores by design."""
+    weighted sum of gathered rows), K5's probe_layout kernels (bit
+    tables, scans and row copies) and K6's kda_chunk_stage and
+    kda_state_stage (f32 products, which no tensor-core type keeps) run on
+    the CUDA cores by design."""
     from lotus_tpu_torch.ops import _kernels
 
     ptxas = {}
@@ -481,14 +560,14 @@ def kernel_report() -> None:
         elif fn is not None:
             for op in counts[fn]:
                 counts[fn][op] += op in line
-    for kind in ("scan_kernel", "probe_wgmma", "probe_cores", "pool_select", "moe_combine", "probe_layout"):
+    for kind in ("scan_kernel", "probe_wgmma", "probe_cores", "pool_select", "moe_combine", "probe_layout", "kda_"):
         found = sorted(f for f in counts if kind in f)
         assert found, f"no {kind} in the built library"
         for f in found:
             int8_dot = f"{kind}Ia" in f  # the operand type is int8
             regs, spill = ptxas.get(f, (None, None))
-            dot = {"pool_select": "selection", "moe_combine": "weighted sum", "probe_layout": "layout"}.get(
-                kind, f"{'int8' if int8_dot else 'float'} dot")
+            dot = {"pool_select": "selection", "moe_combine": "weighted sum", "probe_layout": "layout",
+                   "kda_": "f32 recurrence"}.get(kind, f"{'int8' if int8_dot else 'float'} dot")
             say(f"  {f}: {dot}; ptxas {regs} registers, spill "
                 f"stores/loads {spill} bytes, wgmma advisories {notes.get(f, {})}; SASS {counts[f]}")
             if kind in ("scan_kernel", "probe_wgmma"):
@@ -866,9 +945,14 @@ def main() -> int:
         rows = {"K4": k4_row}
     torch.cuda.empty_cache()
 
+    with Phase("K6 vs plain version (KDA's recurrence over 8 x 8,192 tokens, 32 heads of 128)"):
+        rows["K6"], k6_launches = k6_phase(dev)
+    torch.cuda.empty_cache()
+
     c4_rows, launched = config4_kernels(dev)
     rows.update(c4_rows)
     launched["K4"] = k4_launches
+    launched["K6"] = k6_launches
     torch.cuda.empty_cache()
 
     with Phase("flat corpus"):
@@ -931,8 +1015,8 @@ def main() -> int:
     say(f"total {time.perf_counter() - t_all:.1f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{GPU}]")
     # (row, name, source, what it replaces, launches on a main path: config 4's
     # grouped probe for K1, K3 and K5, the Flat store's call for K2, the MoE
-    # layer's forward for K4); no single PyTorch call does what any of them
-    # does, so none has a library time.
+    # layer's forward for K4, a KDA layer's forward for K6); no single PyTorch
+    # call does what any of them does, so none has a library time.
     k1, k2 = ("ivf_probe.cu", "lotus_tpu/ops/pallas_ivf.py:235"), ("flat_scan.cu", "lotus_tpu/ops/pallas_flat.py:42")
     table = [
         ("K1", "ivf_probe (K1)", *k1, launched["K1"]),
@@ -943,6 +1027,8 @@ def main() -> int:
         ("K4", "moe_combine (K4)", "moe_combine.cu", None, launched["K4"]),
         # K5 replaces the XLA ops before the probe kernel (no Pallas kernel).
         ("K5", "probe_layout (K5)", "probe_layout.cu", "lotus_tpu/ops/pallas_ivf.py:378", launched["K5"]),
+        # K6 replaces the plain PyTorch recurrence of a layer the JAX package lacks.
+        ("K6", "kda_scan (K6)", "kda_scan.cu", None, launched["K6"]),
         ("K1 bf16 queries", "ivf_probe (K1), bf16 queries on int8 rows", *k1, None),
         ("K1 f16", "ivf_probe (K1), f16 rows under f32 queries", *k1, None),
         ("K1 int8 d770", "ivf_probe (K1), int8 dot at d 770", *k1, None),

@@ -41,7 +41,8 @@ tokens (right padding, as this family's tokenizer files pad), which the
 causal attention and the recurrence never let reach them.  The forward
 makes no host synchronisation.  Spans (``lotus_tpu_torch.profiling``):
 ``kda.attn`` (a KDA layer, its norm included) over ``kda.scan`` (the
-recurrence alone; attribute ``route``, ``plain``), ``mla.attn`` and the MoE
+recurrence alone, K6 on the card; attribute ``route``, ``kernel`` on the card
+and ``plain`` on the CPU), ``mla.attn`` and the MoE
 layer's; the counter ``kda.tokens`` holds the (token, head) pairs each
 layer's scan ran over, padding included.
 """
@@ -184,7 +185,7 @@ class KimiDeltaAttention(nn.Module):
         f = f.unflatten(1, (b, h)).add_(self.dt_bias.float().view(h, d, 1))
         g = F.softplus(f).mul_(-torch.exp(self.A_log.float()).view(h, 1, 1)).flatten(1, 2)
         beta = kda.from_channels(torch.sigmoid((self.b_proj.weight @ xt).float()), s, h)
-        with profiling.annotate("kda.scan", layer=self.layer, route="plain"):
+        with profiling.annotate("kda.scan", layer=self.layer, route="kernel" if q.is_cuda else "plain"):
             o = kda.scan_chunks(q, k, v, g, beta)
         if profiling.active():
             profiling.tally("kda.tokens", self.layer, torch.full((1,), b * s * h, dtype=torch.int64, device=x.device),

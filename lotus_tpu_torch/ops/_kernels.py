@@ -98,6 +98,10 @@ def bind(path: Path | str) -> ctypes.CDLL:
     handle.lotus_probe_layout_workspace.restype = ll
     handle.lotus_moe_combine.argtypes = [vp] * 6 + [ctypes.c_longlong] + [ci] * 3 + [vp]
     handle.lotus_moe_combine.restype = ci
+    handle.lotus_kda_scan.argtypes = [vp] * 7 + [ci] * 2 + [vp]
+    handle.lotus_kda_scan.restype = ci
+    handle.lotus_kda_scan_workspace.argtypes = [ll]
+    handle.lotus_kda_scan_workspace.restype = ll
     handle.lotus_cuda_error_string.argtypes = [ci]
     handle.lotus_cuda_error_string.restype = ctypes.c_char_p
     return handle

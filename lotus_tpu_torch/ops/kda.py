@@ -1,5 +1,6 @@
 """KDA's recurrence (Kimi Delta Attention: a gated delta rule with a decay
-per key channel) in chunks, in plain PyTorch operations.
+per key channel) in chunks: K6 (``csrc/kda_scan.cu``) and its plain PyTorch
+version.
 
 For each (batch, head), token t, with ``q_t``, ``k_t`` (d_k, L2-normalised),
 ``v_t`` (d_v), the log decay ``g_t`` <= 0 (d_k) and the write strength
@@ -19,27 +20,36 @@ row r (per channel, non-increasing), the rows' pseudo-values solve
 
 and the outputs are O = (Q * exp(G)) S + P U with P[r, i] = sum_c q_r[c]
 k_i[c] exp(G_r[c] - G_i[c]) (i <= r); the state moves on as S' =
-diag(exp(G_C)) S + (K * exp(G_C - G))^T U.  One triangular solve a chunk
-(all chunks at once, as the inverse times the right-hand sides), then a
-loop over the chunks of three batched products (the only sequential part),
-then the outputs in one batched product.  ``scan_chunks`` takes its inputs
+diag(exp(G_C)) S + (K * exp(G_C - G))^T U.  ``scan_chunks`` takes its inputs
 in chunk tiles with the channels first, (chunks, batch x heads, d, CHUNK),
 the layout a causal convolution over channels-first projections slices into
 without a transposing copy (``from_channels``); ``kda_scan`` takes (b, t,
 heads, d).
 
-Keeping the exponents bounded.  exp(G_r) and exp(G_C - G_r) are at most 1.
-A and P need exp(G_r - G_i) for i <= r, which no single reference point can
-split into a row factor and a column factor in f32 once a channel decays by
-more than f32's range (about e^88) inside the chunk.  So ``scan_chunks``
-splits it in f64 at the chunk's middle row m, exp(G_r - G_m) exp(G_m - G_i),
-with each token's log decay floored at -21 (``PAIR_FLOOR``), so that no
-factor passes e^672, inside f64's range (e^709) and above its smallest
-normal; the same floored sums, in f64, give every other decay of the chunk.
-A floor changes only a decay below e^-21 = 7.6e-10 into another below it,
-under f32's resolution of the terms it is summed with; every other decay is
-exact.  Every exponent is finite, so no decay, however strong, gives inf or
-NaN where the token recurrence gives none.
+On CUDA tensors ``scan_chunks`` launches K6 (d_k = d_v = 128, the
+published head size) or raises: a chunk stage, every tile at once (the
+pairs, the triangular solve, the chunk's decays), then a state stage that
+keeps each sequence's state on chip across its chunks.  K6 forms every
+decay between two tokens as a product of the tokens' own decays, each at
+most 1, so f32 loses nothing to a difference of long sums (the kernel's
+source says how the pairs are split).  On the CPU ``scan_chunks_reference``
+runs: one triangular solve a chunk (all chunks at once, as the inverse times
+the right-hand sides), then a loop over the chunks of three batched products,
+then the outputs in one batched product.
+
+Keeping the exponents bounded in the plain version.  exp(G_r) and exp(G_C -
+G_r) are at most 1.  A and P need exp(G_r - G_i) for i <= r, which no single
+reference point can split into a row factor and a column factor in f32 once
+a channel decays by more than f32's range (about e^88) inside the chunk.  So
+``scan_chunks_reference`` splits it in f64 at the chunk's middle row m,
+exp(G_r - G_m) exp(G_m - G_i), with each token's log decay floored at -21
+(``PAIR_FLOOR``, K6's floor too), so that no factor passes e^672, inside
+f64's range (e^709) and above its smallest normal; the same floored sums, in
+f64, give every other decay of the chunk.  A floor changes only a decay
+below e^-21 = 7.6e-10 into another below it, under f32's resolution of the
+terms it is summed with; every other decay is exact.  Every exponent is
+finite, so no decay, however strong, gives inf or NaN where the token
+recurrence gives none.
 
 Right padding needs nothing: a sequence's pads come after its real tokens
 and cannot reach them.  A sequence not a whole number of chunks is padded
@@ -53,18 +63,21 @@ import torch
 
 CHUNK = 64  # rows a chunk
 PAIR_FLOOR = -21.0  # each token's log decay, floored for the chunk's decays
+K6_HEAD_DIM = 128  # d_k and d_v that K6 takes
+K6_LAUNCHES = 2  # kernels a ``scan_chunks`` call on the card launches: the chunk stage, the state stage
 
 
 def from_channels(y: torch.Tensor, t: int, heads: int) -> torch.Tensor:
     """(b, heads x d, t') channels-first (columns past ``t`` unread) ->
-    (chunks, b x heads, d, CHUNK) f32, zero past ``t``."""
+    contiguous (chunks, b x heads, d, CHUNK) f32, zero past ``t``: always
+    a copy, whatever ``y``'s type, as K6 reads the tiles in that layout."""
     b, c = y.shape[:2]
     n = -(-t // CHUNK)
     y = y[..., :t]
     if n * CHUNK != t:
         y = torch.nn.functional.pad(y, (0, n * CHUNK - t))
     y = y.unflatten(-1, (n, CHUNK)).unflatten(1, (heads, c // heads)).permute(3, 0, 1, 2, 4)
-    return y.to(torch.float32, memory_format=torch.contiguous_format).flatten(1, 2)
+    return y.to(torch.float32, memory_format=torch.contiguous_format, copy=True).flatten(1, 2)
 
 
 def from_rows(x: torch.Tensor) -> torch.Tensor:
@@ -79,11 +92,12 @@ def to_rows(o: torch.Tensor, b: int, t: int) -> torch.Tensor:
     return o.view(n, b, bh // b, c, d).permute(1, 0, 3, 2, 4).reshape(b, n * c, bh // b, d)[:, :t]
 
 
-def scan_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, beta: torch.Tensor
-                ) -> torch.Tensor:
-    """The recurrence over chunk tiles: ``q``, ``k`` (L2-normalised), ``v``
-    and the log decays ``g`` (chunks, B, d, CHUNK) f32, ``beta`` (chunks, B,
-    1, CHUNK); returns the outputs (chunks, B, CHUNK, d_v) f32."""
+def scan_chunks_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, beta: torch.Tensor
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of K6, any head size: the recurrence over chunk
+    tiles, ``q``, ``k`` (L2-normalised), ``v`` and the log decays ``g``
+    (chunks, B, d, CHUNK) f32, ``beta`` (chunks, B, 1, CHUNK); returns the
+    outputs (chunks, B, CHUNK, d_v) f32."""
     n, bh, dk, c = k.shape
     scale = dk**-0.5
     # the cumulative sums along each channel's row, as a product with a triangle of ones
@@ -114,6 +128,60 @@ def scan_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tens
         states[i + 1].baddbmm_(k_out[i], u[i])
     return torch.baddbmm((P @ u).flatten(0, 1), eg.mul_(q).mT.flatten(0, 1), states[:n].flatten(0, 1),
                          alpha=scale).view(n, bh, c, -1)
+
+
+def check_k6_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, beta: torch.Tensor
+                  ) -> tuple[int, int]:
+    """What K6 takes, checked before a launch: ``q``, ``k``, ``v`` and ``g``
+    contiguous (chunks, B, 128, CHUNK) f32 tiles and ``beta`` a contiguous
+    (chunks, B, 1, CHUNK) f32 tile, all on ``k``'s device and 16-byte
+    aligned.  Returns (chunks, B); raises ValueError otherwise."""
+    if k.ndim != 4:
+        raise ValueError(f"scan_chunks: k must be (chunks, B, d_k, {CHUNK}) tiles, not {tuple(k.shape)}")
+    n, bh = k.shape[:2]
+    tile = (n, bh, K6_HEAD_DIM, CHUNK)
+    for name, x, shape in (("q", q, tile), ("k", k, tile), ("v", v, tile), ("g", g, tile),
+                           ("beta", beta, (n, bh, 1, CHUNK))):
+        if x.dtype != torch.float32 or x.device != k.device:
+            raise ValueError(f"scan_chunks: {name} must be f32 on {k.device}, not {x.dtype} on {x.device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"scan_chunks: K6 takes {name} as {shape} (d_k = d_v = {K6_HEAD_DIM}, "
+                             f"chunks of {CHUNK}), not {tuple(x.shape)}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"scan_chunks: {name} must be contiguous and 16-byte aligned")
+    return n, bh
+
+
+def scan_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, beta: torch.Tensor
+                ) -> torch.Tensor:
+    """K6's wrapper, the recurrence over chunk tiles: ``q``, ``k``
+    (L2-normalised), ``v`` and the log decays ``g`` (chunks, B, d, CHUNK)
+    f32, ``beta`` (chunks, B, 1, CHUNK); returns the outputs (chunks, B,
+    CHUNK, d_v) f32.  On CUDA tensors it launches K6 (``check_k6_args``
+    says what it takes) or raises; only tensors on the CPU take
+    ``scan_chunks_reference``.  K6 has no backward, so with grad enabled it
+    refuses an input that requires grad rather than drop its gradient."""
+    if not k.is_cuda:
+        return scan_chunks_reference(q, k, v, g, beta)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, g, beta)):
+        raise ValueError("scan_chunks: K6 has no backward; run the forward under torch.no_grad or inference_mode")
+    n, bh = check_k6_args(q, k, v, g, beta)
+    out = torch.empty((n, bh, CHUNK, K6_HEAD_DIM), dtype=torch.float32, device=k.device)
+    if n * bh == 0:
+        return out
+    from lotus_tpu_torch.ops import _kernels
+
+    lib = _kernels.lib()
+    workspace = torch.empty(lib.lotus_kda_scan_workspace(n * bh), dtype=torch.uint8, device=k.device)
+    code = lib.lotus_kda_scan(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), beta.data_ptr(),
+                              workspace.data_ptr(), out.data_ptr(), n, bh,
+                              torch.cuda.current_stream(k.device).cuda_stream)
+    _kernels.check(code, "kda scan launch")
+    scan_chunks.launches += K6_LAUNCHES
+    return out
+
+
+scan_chunks.launches = 0  # K6's kernel launches in this process (K6_LAUNCHES a KDA layer call on the card)
 
 
 def kda_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:

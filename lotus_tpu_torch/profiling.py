@@ -32,8 +32,9 @@ opens ``mla.attn`` (a layer's attention, projections included),
 K4 on the card) inside the forward; Kimi-Linear (``models/kimi_linear.py``)
 opens the same in its latent attention and MoE layers, and ``kda.attn`` (a
 KDA layer: projections, convolutions, gates, recurrence, gated norm and
-output projection) over ``kda.scan`` (the recurrence alone, ``ops/kda.py``;
-attribute ``route``, ``plain``).
+output projection) over ``kda.scan`` (the recurrence alone, ``ops/kda.py``,
+K6 on the card; attribute ``route``, ``kernel`` on the card and ``plain`` on
+the CPU).
 
 The program's counters (``tally``) are device tensors of a session, added to
 without a synchronisation while a profiler runs and read by

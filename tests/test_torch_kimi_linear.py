@@ -195,6 +195,64 @@ def test_chunked_scan_with_right_padding():
         torch.testing.assert_close(got[r : r + 1, :n], want, rtol=0, atol=2e-6)
 
 
+def _k6_tiles(n=2, bh=3, d=kda.K6_HEAD_DIM):
+    """Chunk tiles of the shapes K6 takes: q, k, v, g (n, bh, d, CHUNK) and
+    beta (n, bh, 1, CHUNK), f32 and contiguous."""
+    g = torch.Generator().manual_seed(5)
+    q, k = (F.normalize(torch.randn(n, bh, d, kda.CHUNK, generator=g), dim=2) for _ in range(2))
+    v = torch.randn(n, bh, d, kda.CHUNK, generator=g)
+    return [q, k, v, -torch.rand(n, bh, d, kda.CHUNK, generator=g), torch.rand(n, bh, 1, kda.CHUNK, generator=g)]
+
+
+def test_scan_chunks_runs_the_plain_version_on_cpu(monkeypatch):
+    """On CPU tensors ``scan_chunks`` is ``scan_chunks_reference``: the same
+    outputs, no kernel library loaded and no launch counted."""
+    from lotus_tpu_torch.ops import _kernels
+
+    calls = []
+    plain = kda.scan_chunks_reference
+    monkeypatch.setattr(kda, "scan_chunks_reference", lambda *args: calls.append(1) or plain(*args))
+    monkeypatch.setattr(_kernels, "lib", None)  # any load of the library would raise
+    launches = kda.scan_chunks.launches
+    tiles = _k6_tiles()
+    got = kda.scan_chunks(*tiles)
+    assert calls == [1] and kda.scan_chunks.launches == launches
+    assert torch.equal(got, plain(*tiles))
+
+
+def _k6_bad(case):
+    q, k, v, g, beta = _k6_tiles()
+    if case == "f64":
+        q = q.double()
+    elif case == "bf16_beta":
+        beta = beta.bfloat16()
+    elif case == "head_dim_64":
+        q, k, v, g, beta = _k6_tiles(d=64)
+    elif case == "value_dim_64":
+        v = v[:, :, :64].contiguous()
+    elif case == "chunk_32":
+        q, k, v, g = (x[..., :32].contiguous() for x in (q, k, v, g))
+        beta = beta[..., :32].contiguous()
+    elif case == "transposed":
+        v = v.mT.contiguous().mT
+    elif case == "misaligned":
+        k = torch.empty(k.numel() + 1)[1:].view_as(k).copy_(k)
+    elif case == "three_dims":
+        q, k, v, g, beta = (x[0] for x in (q, k, v, g, beta))
+    return q, k, v, g, beta
+
+
+@pytest.mark.parametrize("case", ["f64", "bf16_beta", "head_dim_64", "value_dim_64", "chunk_32", "transposed",
+                                  "misaligned", "three_dims"])
+def test_k6_argument_checks_refuse_what_it_does_not_take(case):
+    """K6's checks (run on the card before the library is loaded or a kernel
+    launched) refuse another type, head size, chunk, layout or alignment
+    with a clear message, and pass the shapes the published config gives."""
+    assert kda.check_k6_args(*_k6_tiles()) == (2, 3)
+    with pytest.raises(ValueError, match="scan_chunks"):
+        kda.check_k6_args(*_k6_bad(case))
+
+
 def _moe_layer(held=None):
     weights = ref.layer_weights(CFG, SEED, 1, CPU, torch.float32)
     cfg = kimi.KimiLinearConfig.from_dict(CFG)
