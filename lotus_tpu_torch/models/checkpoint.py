@@ -15,14 +15,15 @@ Flax raises ``NotImplementedError``; the port reads them.  ``FAMILIES`` maps eac
 loads any of the three by name, with or without the family's prefix
 (``bert.``, ``roberta.``, ``distilbert.``, ``electra.``, ``albert.``,
 ``roformer.``, ``roberta_prelayernorm.``; BigBird's is ``bert.``, the
-encoder-decoders' and Llama's, Mistral's, Gemma's, XGLM's, DeepSeek-V2's and Kimi-Linear's ``model.``,
-GPT-2's, GPT-Neo's, GPT-J's and BLOOM's ``transformer.``), and drops the heads the module has no place
+encoder-decoders' and Llama's, Mistral's, Gemma's, XGLM's, DeepSeek-V2's,
+DeepSeek-V3.2's and Kimi-Linear's ``model.``, GPT-2's, GPT-Neo's, GPT-J's and BLOOM's ``transformer.``), and drops the heads the module has no place
 for (a pretraining head, as most public Flax files carry: ``lm_head``,
 ``cls``, ``discriminator_predictions``, ALBERT's ``predictions`` and
 ``sop_classifier``; a ``*ForConditionalGeneration``'s ``lm_head`` and
 ``final_logits_bias``; a ``*ForCausalLM``'s ``lm_head``, old rotary
-``inv_freq`` and causal-mask buffers).  DeepSeek-V2's and Kimi-Linear's per-expert
-weights are stacked as they load (``deepseek_v2.GroupedExperts``).  The encoder-decoders' token embeddings are
+``inv_freq`` and causal-mask buffers; DeepSeek-V3.2's layers past those it
+holds and its multi-token-prediction layer).  DeepSeek-V2's, DeepSeek-V3.2's
+and Kimi-Linear's per-expert weights are stacked as they load (``deepseek_v2.GroupedExperts``).  The encoder-decoders' token embeddings are
 ``shared``: a checkpoint that carries ``encoder.embed_tokens`` /
 ``decoder.embed_tokens`` beside it or in its place loads as well
 (``bart._tie_embeddings``; each must equal the one loaded).  The families' torch and
@@ -56,6 +57,7 @@ from lotus_tpu_torch.models.blenderbot import BlenderbotConfig
 from lotus_tpu_torch.models.blenderbot_small import BlenderbotSmallConfig, BlenderbotSmallModel
 from lotus_tpu_torch.models.bloom import BloomConfig, BloomModel
 from lotus_tpu_torch.models.deepseek_v2 import DeepseekV2Config, DeepseekV2Model
+from lotus_tpu_torch.models.deepseek_v32 import DeepseekV32Config, DeepseekV32Model
 from lotus_tpu_torch.models.distilbert import DistilBertConfig, DistilBertForSequenceClassification, DistilBertModel
 from lotus_tpu_torch.models.electra import ElectraConfig, ElectraForSequenceClassification, ElectraModel
 from lotus_tpu_torch.models.gemma import GemmaConfig
@@ -114,6 +116,7 @@ FAMILIES: dict[str, tuple[type[EncoderConfig], type[nn.Module], type[nn.Module] 
     "xglm": (XGLMConfig, XGLMModel, None),
     "deepseek_v2": (DeepseekV2Config, DeepseekV2Model, None),
     "kimi_linear": (KimiLinearConfig, KimiLinearModel, None),
+    "deepseek_v32": (DeepseekV32Config, DeepseekV32Model, None),
 }
 # What FlaxAutoModel maps that the port refuses, named in the refusal.
 REFUSED = ("t5 and its kin (mt5, longt5)", "the vision and audio types")

@@ -7,9 +7,11 @@ re-implements):
   embeddings at ``arange(seq)``; per layer RMSNorm (``input_layernorm``,
   ``llama.LlamaRMSNorm``), latent attention, residual, RMSNorm
   (``post_attention_layernorm``), the MLP, residual; a final ``norm``;
-- latent attention (MLA) without a query LoRA (``q_lora_rank`` null, as in
-  DeepSeek-V2-Lite): ``q_proj`` gives each head ``qk_nope_head_dim`` +
-  ``qk_rope_head_dim``; ``kv_a_proj_with_mqa`` gives the latent
+- latent attention (MLA): ``q_proj`` gives each head ``qk_nope_head_dim`` +
+  ``qk_rope_head_dim`` (``q_lora_rank`` null, as in DeepSeek-V2-Lite), or
+  with a query LoRA (``q_lora_rank`` set, as in DeepSeek-V3) ``q_b_proj``
+  over ``q_a_layernorm`` (RMSNorm) of ``q_a_proj`` gives them;
+  ``kv_a_proj_with_mqa`` gives the latent
   (``kv_lora_rank``) and one rope key shared by every head; ``kv_b_proj``
   over ``kv_a_layernorm`` of the latent gives each head its key part and
   value.  The rope part of query and key is rotated in interleaved pairs
@@ -30,7 +32,11 @@ re-implements):
   ``scoring_func`` ``sigmoid`` over one group, DeepSeek-V3's router as
   ``transformers``' ``DeepseekV3TopkRouter`` has it, which Kimi-Linear's
   ``kimi_linear.py`` uses) the sigmoid of the logits plus the gate's
-  ``e_score_correction_bias`` chooses the experts, and the uncorrected
+  ``e_score_correction_bias`` chooses the experts (over ``n_group`` groups,
+  DeepSeek-V3's group-limited choice: a group scores the sum of its two best
+  corrected scores, the best ``topk_group`` groups are kept and the others'
+  experts masked to -inf before the top-k, as the published inference code
+  has it), and the uncorrected
   sigmoid scores of the chosen ones are their weights, renormalised under
   ``norm_topk_prob``, times the factor; the (token, expert) pairs sorted by
   expert with offsets counted on the device, the held experts' SwiGLU as two
@@ -110,16 +116,17 @@ class DeepseekV2Config(EncoderConfig):
     num_labels: int = 2
 
     def __post_init__(self) -> None:
-        if self.q_lora_rank is not None:
-            raise NotImplementedError(f"q_lora_rank {self.q_lora_rank}: the port runs latent attention without a "
-                                      f"query LoRA (DeepSeek-V2-Lite's)")
         if (self.topk_method, self.scoring_func) not in ROUTERS:
             raise NotImplementedError(f"topk_method {self.topk_method!r} with scoring_func {self.scoring_func!r}: "
                                       f"the port runs greedy top-k over a softmax (DeepSeek-V2-Lite's) or "
-                                      f"noaux_tc over sigmoid scores in one group (Kimi-Linear's)")
-        if self.topk_method == "noaux_tc" and max(self.n_group or 1, self.topk_group or 1) > 1:
-            raise NotImplementedError(f"n_group {self.n_group} / topk_group {self.topk_group}: the port runs "
-                                      f"noaux_tc over one group")
+                                      f"noaux_tc over sigmoid scores (DeepSeek-V3's and Kimi-Linear's)")
+        groups, kept = self.n_group or 1, self.topk_group or 1
+        if self.topk_method == "noaux_tc" and groups > 1 and (
+                self.n_routed_experts % groups or self.n_routed_experts // groups < 2 or not 1 <= kept <= groups
+                or kept * (self.n_routed_experts // groups) < self.num_experts_per_tok):
+            raise NotImplementedError(f"n_group {self.n_group} / topk_group {self.topk_group} over "
+                                      f"{self.n_routed_experts} experts: the port runs noaux_tc over equal groups "
+                                      f"of at least two experts, keeping enough groups for the top-k")
         kind = (self.rope_scaling or {}).get("type", (self.rope_scaling or {}).get("rope_type"))
         if kind not in (None, "yarn"):
             raise NotImplementedError(f"rope_scaling type {kind!r}: the port runs none or 'yarn'")
@@ -185,7 +192,12 @@ class DeepseekV2Attention(nn.Module):
         super().__init__()
         self.heads, self.nope, self.rope = cfg.num_attention_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         self.v_dim, self.rank, self.scale = cfg.v_head_dim, cfg.kv_lora_rank, cfg.softmax_scale
-        self.q_proj = nn.Linear(cfg.hidden_size, self.heads * (self.nope + self.rope), bias=False)
+        if cfg.q_lora_rank is None:
+            self.q_proj = nn.Linear(cfg.hidden_size, self.heads * (self.nope + self.rope), bias=False)
+        else:
+            self.q_a_proj = nn.Linear(cfg.hidden_size, cfg.q_lora_rank, bias=cfg.attention_bias)
+            self.q_a_layernorm = LlamaRMSNorm(cfg, cfg.q_lora_rank)
+            self.q_b_proj = nn.Linear(cfg.q_lora_rank, self.heads * (self.nope + self.rope), bias=False)
         self.kv_a_proj_with_mqa = nn.Linear(cfg.hidden_size, self.rank + self.rope, bias=cfg.attention_bias)
         self.kv_a_layernorm = LlamaRMSNorm(cfg, self.rank)
         self.kv_b_proj = nn.Linear(self.rank, self.heads * (self.nope + self.v_dim), bias=False)
@@ -195,7 +207,8 @@ class DeepseekV2Attention(nn.Module):
                 sin: torch.Tensor | None) -> torch.Tensor:
         b, s, _ = x.shape
         h = self.heads
-        q = self.q_proj(x).view(b, s, h, -1).transpose(1, 2)
+        q = (self.q_proj(x) if hasattr(self, "q_proj") else self.q_b_proj(self.q_a_layernorm(self.q_a_proj(x))))
+        q = q.view(b, s, h, -1).transpose(1, 2)
         latent, k_pe = self.kv_a_proj_with_mqa(x).split([self.rank, self.rope], dim=-1)
         kv = self.kv_b_proj(self.kv_a_layernorm(latent)).view(b, s, h, -1).transpose(1, 2)
         k_nope, v = kv.split([self.nope, self.v_dim], dim=-1)
@@ -251,6 +264,7 @@ class DeepseekV2MoE(nn.Module):
         self.top_k = cfg.num_experts_per_tok
         self.norm_topk, self.scaling = cfg.norm_topk_prob, cfg.routed_scaling_factor
         self.sigmoid = cfg.scoring_func == "sigmoid"
+        self.groups, self.kept_groups = cfg.n_group or 1, cfg.topk_group or 1
         self.held = experts or (0, cfg.n_routed_experts)
         self.act = ACTIVATIONS[cfg.hidden_act]
         self.gate = MoEGate(cfg)
@@ -266,7 +280,13 @@ class DeepseekV2MoE(nn.Module):
         logits = F.linear(x.float(), self.gate.weight.float())
         if self.sigmoid:
             scores = logits.sigmoid()
-            idx = torch.topk(scores + self.gate.e_score_correction_bias.float(), self.top_k, dim=-1).indices
+            choice = scores + self.gate.e_score_correction_bias.float()
+            if self.groups > 1:
+                grouped = choice.view(choice.shape[0], self.groups, -1)
+                best = torch.topk(grouped.topk(2, dim=-1).values.sum(-1), self.kept_groups, dim=-1).indices
+                dropped = torch.ones(grouped.shape[:2], dtype=torch.bool, device=x.device).scatter_(1, best, False)
+                choice = grouped.masked_fill(dropped[..., None], float("-inf")).flatten(1)
+            idx = torch.topk(choice, self.top_k, dim=-1).indices
             weights = scores.gather(1, idx)
         else:
             weights, idx = torch.topk(logits.softmax(dim=-1), self.top_k, dim=-1)

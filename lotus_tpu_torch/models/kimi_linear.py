@@ -89,6 +89,9 @@ class KimiLinearConfig(DeepseekV2Config):
 
     def __post_init__(self) -> None:
         super().__post_init__()
+        if max(self.n_group or 1, self.topk_group or 1) > 1:
+            raise NotImplementedError(f"num_expert_group {self.n_group} / topk_group {self.topk_group}: the port runs "
+                                      f"Kimi-Linear's router over one group")
         if not self.mla_use_nope or self.rope_scaling is not None:
             raise NotImplementedError("the port runs Kimi-Linear's latent attention without positions "
                                       "(mla_use_nope, no rope_scaling)")

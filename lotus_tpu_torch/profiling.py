@@ -34,7 +34,10 @@ opens the same in its latent attention and MoE layers, and ``kda.attn`` (a
 KDA layer: projections, convolutions, gates, recurrence, gated norm and
 output projection) over ``kda.scan`` (the recurrence alone, ``ops/kda.py``,
 K6 on the card; attribute ``route``, ``kernel`` on the card and ``plain`` on
-the CPU).
+the CPU); DeepSeek-V3.2 (``models/deepseek_v32.py``) opens ``mla.attn`` over
+``dsa.index`` (the lightning indexer's projections, scores and top-k) and
+``dsa.attn`` (latent attention over the selection, ``ops/dsa.py``), and the
+MoE layer's spans.
 
 The program's counters (``tally``) are device tensors of a session, added to
 without a synchronisation while a profiler runs and read by
@@ -42,7 +45,10 @@ without a synchronisation while a profiler runs and read by
 layer and expert), ``moe.pairs_max`` (per layer, the most pairs of one
 expert, summed over calls) and ``moe.experts_used`` (per layer, the experts
 with a pair, summed over calls); Kimi-Linear's ``kda.tokens`` (per layer,
-the (token, head) pairs its recurrence ran over, padding included).
+the (token, head) pairs its recurrence ran over, padding included);
+DeepSeek-V3.2's ``dsa.scored`` (per layer, the causal (query, key) pairs
+the indexer scored), ``dsa.pairs`` (the selected pairs attended) and
+``dsa.queries`` (the query rows), padding included.
 """
 
 from __future__ import annotations

@@ -11,10 +11,11 @@ published head width and layout (GQA, rotary and local windows, ALiBi,
 block-sparse attention, pre-LN), seeded weights, a WordPiece vocabulary,
 and GPT-SW3's and Marian's sentencepiece files.  The documents fall in four
 sequence buckets, a batch each (BigBird's in its 256- and 512-token ones,
-where its block-sparse attention runs).  DeepSeek-V2 and Kimi-Linear are
-left out: their layers are held to the plain reference on the card in
-``test_torch_kernels_cuda.py`` and ``test_torch_kimi_linear_cuda.py``.  These tests need an NVIDIA GPU and skip
-without one:
+where its block-sparse attention runs).  DeepSeek-V2, Kimi-Linear and
+DeepSeek-V3.2 are left out: their layers are held to the plain reference on
+the card in ``test_torch_kernels_cuda.py``, ``test_torch_kimi_linear_cuda.py``
+and ``test_torch_deepseek_v32_cuda.py``.  These tests need an NVIDIA GPU and
+skip without one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_families_cuda.py
 """
@@ -105,10 +106,10 @@ def _docs(model_type: str) -> list[str]:
 
 
 def test_every_family_has_a_card_case():
-    """Every family but the two with card tests of their own
+    """Every family but the three with card tests of their own
     (``test_torch_kernels_cuda.py``'s DeepSeek-V2 layers,
-    ``test_torch_kimi_linear_cuda.py``)."""
-    assert sorted(CASES) == sorted(t for t in FAMILIES if t not in ("deepseek_v2", "kimi_linear"))
+    ``test_torch_kimi_linear_cuda.py``, ``test_torch_deepseek_v32_cuda.py``)."""
+    assert sorted(CASES) == sorted(t for t in FAMILIES if t not in ("deepseek_v2", "kimi_linear", "deepseek_v32"))
 
 
 @pytest.mark.cuda
